@@ -137,6 +137,17 @@ class DataPlaneCtx:
             return None
         return self.plan.fastpath_keys(table, impl)
 
+    def table_array(self, name: str, field: str) -> torch.Tensor:
+        """Raw read of one field's full backing tensor (the step's current
+        contents, prior ``update`` writes included).  For branch-injected
+        code ONLY: a slow branch gathering rows the fast branch provably
+        does not need must not go through :meth:`lookup`, which would
+        register a call site (and record instrumentation) that the other
+        branch lacks.  No site is registered and nothing is recorded here;
+        callers pair this with an unconditional cheap lookup (the SSD fast
+        path's ``count`` site) that keeps the table instrumented."""
+        return self.tables[name][field]
+
     def outputs(self) -> PlaneState:
         """The step's output :class:`PlaneState`."""
         return PlaneState(self.tables, self.instr, self.guards)

@@ -7,16 +7,27 @@ a batch of only fresh slots can start the scan from zeros instead of
 gathering saved state.  This pass claims the state table's cheap
 ``count`` lookup site with an ``ssd_fastpath`` SiteSpec whose
 ``hot_keys`` are the heavy-hitter slots, when they cover enough traffic
-and are all still fresh.  The data plane's injected branch
-(``ssd_init_state_hotpath`` in the reference) waits for the arch-zoo
-slice of the port; the pass is here so the default registry plans what
-the reference plans.
+and are all still fresh.  The data plane reads the claim back through
+``ctx.fastpath_keys(table, "ssd_fastpath")`` and builds its initial
+state with :func:`ssd_init_state_hotpath`:
+
+    all(count[slot] == 0) ?  zero init (no state gather at all)
+                          :  gather saved rows from the state table
+
+The reference branches on the device (``lax.cond``).  Here the predicate
+is read on the host: one device-to-host read per SSM block per step, the
+same pattern as the MoE fast path's ``all_hot`` read.
+
+Invariant required of the plane: ``count[slot] == 0`` implies the saved
+``state`` row is all zeros (plane writes bump the counter in the same
+``ctx.update``; control writes flush or warm both together).
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import numpy as np
+import torch
 
 from ..instrument import SketchConfig
 from ..specialize import SiteSpec
@@ -66,3 +77,19 @@ class SSDFastPathPass(SpecializationPass):
         if keys is None:
             return None
         return SiteSpec(impl="ssd_fastpath", hot_keys=keys)
+
+
+def ssd_init_state_hotpath(counts: torch.Tensor,
+                           gather_state: Callable[[], torch.Tensor],
+                           shape: Tuple[int, ...]) -> torch.Tensor:
+    """The injected branch: a whole-batch freshness predicate selecting
+    the SSD scan's initial state.  ``counts`` are the batch slots' write
+    counters (already looked up: the cheap, instrumented site);
+    ``gather_state`` gathers the saved rows from the raw state table and
+    is called only on the slow branch, so the fast branch never touches
+    the wide state table; ``shape`` is the (B, H, P, N) init-state shape.
+    Exact: fresh slots hold all-zero rows by the table's write invariant,
+    and the scan from explicit zeros is bitwise the zero-init scan."""
+    if bool((counts == 0).all()):
+        return torch.zeros(shape, dtype=torch.float32, device=counts.device)
+    return gather_state().to(torch.float32).reshape(shape)

@@ -12,12 +12,13 @@ kernels.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from . import ref as _ref
 from .hot_gather import LAUNCHES, hot_gather_cuda
+from .ssd_scan import ssd_scan_cuda
 
 
 def _use_kernel(t: torch.Tensor, force: Optional[str]) -> bool:
@@ -37,6 +38,24 @@ def hot_gather(table, hot_rows, hot_ids, idx, *,
     if _use_kernel(table, force):
         return hot_gather_cuda(table, hot_rows, hot_ids, idx)
     return _ref.hot_gather_ref(table, hot_rows, hot_ids, idx)
+
+
+def ssd_scan(x, dt, A, Bm, Cm, *, chunk: int, init_state=None,
+             force: Optional[str] = None
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Mamba2 SSD chunked scan: ``(y, final_state)``.  On the card always
+    the CUDA kernel, which raises on a shape or dtype it does not take
+    (the reference's dispatcher silently takes its oracle instead)."""
+    if _use_kernel(x, force):
+        return ssd_scan_cuda(x, dt, A, Bm, Cm, chunk=chunk,
+                             init_state=init_state)
+    return _ref.ssd_scan_ref(x, dt, A, Bm, Cm, chunk, init_state=init_state)
+
+
+def ssd_decode(x, dt, A, Bm, Cm, state, *, force: Optional[str] = None):
+    # no kernel: the single-token update is tiny and plain PyTorch on
+    # every device, as it is plain jnp in the reference
+    return _ref.ssd_decode_ref(x, dt, A, Bm, Cm, state)
 
 
 def onehot_lookup(table, idx, *, force: Optional[str] = None):

@@ -130,3 +130,40 @@ class ModelConfig:
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
+
+    # A reduced config of the same family for CPU smoke tests.
+    def smoke(self) -> "ModelConfig":
+        period = len(self.pattern)
+        moe = self.moe
+        if moe is not None:
+            moe = dataclasses.replace(
+                moe, num_experts=min(moe.num_experts, 4),
+                top_k=min(moe.top_k, 2),
+                expert_d_ff=min(moe.expert_d_ff or 128, 128),
+                num_shared=min(moe.num_shared, 1),
+                shared_d_ff=min(moe.shared_d_ff or 128, 128))
+        mla = self.mla
+        if mla is not None:
+            mla = MLAConfig(kv_lora_rank=32, qk_nope_dim=16, qk_rope_dim=8,
+                            v_head_dim=16)
+        ssm = self.ssm
+        if ssm is not None:
+            ssm = dataclasses.replace(ssm, d_state=16, head_dim=8, chunk=16)
+        n_heads = min(self.n_heads, 4)
+        n_kv = max(1, min(self.n_kv_heads, n_heads))
+        while n_heads % n_kv:
+            n_kv -= 1
+        pattern = tuple(
+            dataclasses.replace(s, window=(32 if s.window else None))
+            for s in self.block_pattern) or ()
+        return self.replace(
+            name=self.name + "-smoke",
+            n_layers=(2 * period + self.first_k_dense
+                      if self.first_k_dense else 2 * period),
+            d_model=64, n_heads=n_heads, n_kv_heads=n_kv, head_dim=16,
+            d_ff=128, vocab=256, moe=moe, mla=mla, ssm=ssm,
+            block_pattern=pattern,
+            n_enc_layers=min(self.n_enc_layers, 2),
+            first_dense_d_ff=128 if self.first_dense_d_ff else 0,
+            num_media_tokens=8 if self.num_media_tokens else 0,
+        )

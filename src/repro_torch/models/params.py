@@ -74,3 +74,9 @@ class Initializer:
     def ones(self, shape, dtype: Optional[torch.dtype] = None):
         return torch.ones(tuple(shape), dtype=dtype or self.dtype,
                           device=self.device)
+
+    def constant(self, value, dtype: Optional[torch.dtype] = None):
+        """``value`` (array-like) as a tensor on the device, in ``dtype``
+        or the value's own type; draws nothing."""
+        return torch.as_tensor(np.asarray(value), dtype=dtype,
+                               device=self.device).clone()

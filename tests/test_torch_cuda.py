@@ -105,3 +105,110 @@ def test_serving_runtime_on_the_card_specializes_through_the_kernel(cuda):
         assert ops.launches()["hot_gather"] == 4
     finally:
         rt.close()
+
+
+# ---------------------------------------------------------------------------
+# ssd_scan
+# ---------------------------------------------------------------------------
+
+# the reference's test shapes (B, S, H, P, N, chunk, G), a G = 2 case, a
+# ragged S, and the mamba2-1.3b serving shape cut to one batch row
+SSD_SHAPES = [(1, 32, 4, 8, 16, 8, 1), (2, 48, 8, 16, 32, 16, 1),
+              (1, 40, 2, 8, 16, 16, 1), (2, 64, 8, 16, 16, 32, 1),
+              (2, 50, 8, 16, 32, 16, 2), (1, 300, 4, 64, 128, 256, 1)]
+
+
+def _ssd_tol(dtype, N, chunk):
+    """The reference kernel test's tolerances; at the serving widths
+    (128-term dot products over 256-step chunks) f32 rounding of sums
+    taken in another order grows past 2e-5, and y is held at 1e-4."""
+    if dtype == torch.bfloat16:
+        return dict(rtol=2e-2, atol=2e-2)
+    tol = 1e-4 if N * chunk >= 128 * 256 else 2e-5
+    return dict(rtol=tol, atol=tol)
+
+
+def _ssd_inputs(B, S, H, P, N, G, dtype, device, seed=0, init=False):
+    rng = np.random.default_rng(seed)
+    f = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+    x = f(B, S, H, P).to(device=device, dtype=dtype)
+    dt = torch.nn.functional.softplus(f(B, S, H)).to(device)
+    A = -torch.exp(f(H) * 0.5).to(device)
+    Bm = (f(B, S, G, N) * 0.3).to(device=device, dtype=dtype)
+    Cm = (f(B, S, G, N) * 0.3).to(device=device, dtype=dtype)
+    s0 = (f(B, H, P, N) * 0.1).to(device) if init else None
+    return x, dt, A, Bm, Cm, s0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,H,P,N,chunk,G", SSD_SHAPES)
+def test_ssd_scan_kernel_equals_plain(cuda, B, S, H, P, N, chunk, G, dtype):
+    x, dt, A, Bm, Cm, s0 = _ssd_inputs(B, S, H, P, N, G, dtype, cuda,
+                                       init=True)
+    before = ops.launches().get("ssd_scan", 0)
+    y, fin = ops.ssd_scan(x, dt, A, Bm, Cm, chunk=chunk, init_state=s0)
+    torch.cuda.synchronize()
+    assert ops.launches()["ssd_scan"] == before + 1
+    yr, finr = TR.ssd_scan_ref(x, dt, A, Bm, Cm, chunk, init_state=s0)
+    assert y.dtype == dtype and fin.dtype == torch.float32
+    torch.testing.assert_close(y.float(), yr.float(),
+                               **_ssd_tol(dtype, N, chunk))
+    torch.testing.assert_close(fin, finr, rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.cuda
+def test_ssd_scan_kernel_is_deterministic_and_zero_init_is_none(cuda):
+    x, dt, A, Bm, Cm, _ = _ssd_inputs(2, 100, 8, 16, 32, 2, torch.float32,
+                                      cuda)
+    y0, f0 = ops.ssd_scan(x, dt, A, Bm, Cm, chunk=32)
+    y1, f1 = ops.ssd_scan(x, dt, A, Bm, Cm, chunk=32,
+                          init_state=torch.zeros_like(f0))
+    y2, f2 = ops.ssd_scan(x, dt, A, Bm, Cm, chunk=32)
+    assert torch.equal(y0, y1) and torch.equal(f0, f1)
+    assert torch.equal(y0, y2) and torch.equal(f0, f2)
+
+
+@pytest.mark.cuda
+def test_ssd_scan_kernel_reads_strided_projections(cuda):
+    """x, B and C as slices of one (B, S, C) projection, as the Mamba2
+    block hands them over: no copies, the same result."""
+    B, S, H, P, G, N = 2, 40, 4, 8, 1, 16
+    xBC = torch.randn(B, S, H * P + 2 * G * N, device=cuda)
+    x = xBC[..., :H * P].reshape(B, S, H, P)
+    Bm = xBC[..., H * P:H * P + G * N].reshape(B, S, G, N)
+    Cm = xBC[..., H * P + G * N:].reshape(B, S, G, N)
+    dt = torch.rand(B, S, H, device=cuda)
+    A = -torch.rand(H, device=cuda)
+    y, fin = ops.ssd_scan(x, dt, A, Bm, Cm, chunk=16)
+    yc, finc = ops.ssd_scan(x.contiguous(), dt, A, Bm.contiguous(),
+                            Cm.contiguous(), chunk=16)
+    assert torch.equal(y, yc) and torch.equal(fin, finc)
+
+
+@pytest.mark.cuda
+def test_ssd_scan_kernel_rejects_what_it_does_not_take(cuda):
+    x, dt, A, Bm, Cm, _ = _ssd_inputs(1, 32, 4, 8, 16, 1, torch.float32,
+                                      cuda)
+    with pytest.raises(TypeError):              # half precision
+        ops.ssd_scan(x.half(), dt, A, Bm.half(), Cm.half(), chunk=8)
+    with pytest.raises(TypeError):              # dt not float32
+        ops.ssd_scan(x, dt.double(), A, Bm, Cm, chunk=8)
+    with pytest.raises(ValueError):             # G does not divide H
+        ops.ssd_scan(x, dt, A, Bm.expand(1, 32, 3, 16),
+                     Cm.expand(1, 32, 3, 16), chunk=8)
+    with pytest.raises(ValueError):             # P beyond the tiles
+        big = torch.zeros(1, 32, 4, 128, device=cuda)
+        ops.ssd_scan(big, dt, A, Bm, Cm, chunk=8)
+    with pytest.raises(ValueError):             # chunk beyond the scan
+        ops.ssd_scan(x, dt, A, Bm, Cm, chunk=2048)
+    with pytest.raises(ValueError):             # x's heads not dense
+        ops.ssd_scan(x.transpose(2, 3).contiguous().transpose(2, 3), dt, A,
+                     Bm, Cm, chunk=8)
+
+
+def test_ssd_scan_force_kernel_on_cpu_tensors_raises():
+    x, dt, A, Bm, Cm, _ = _ssd_inputs(1, 16, 2, 4, 8, 1, torch.float32,
+                                      "cpu")
+    with pytest.raises(RuntimeError, match="force='kernel' needs CUDA"):
+        ops.ssd_scan(x, dt, A, Bm, Cm, chunk=8, force="kernel")
