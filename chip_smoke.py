@@ -13,6 +13,10 @@
    tolerances), a G = 2 case and the mamba2-1.3b serving shape with a
    non-zero initial state (tolerance stated at ``SSD_TOL``), plus equal
    bits for a None and a zero initial state and from call to call.
+   ``flash_attention`` on the reference's six test shapes in f32 and
+   bf16 (that test's tolerances, ``FA_TOL``), a gemma2-shaped case (D 256,
+   GQA 16/8, window, softcap), a strided cache slice equal to its copy bit
+   for bit, and equal bits from call to call.
 3. Serving phase at full width (the widths of
    ``src/repro/configs/phi3p5_moe.py``; 2 layers instead of 32, because
    f32 params at 32 layers do not fit one card): generic steps, a
@@ -42,6 +46,20 @@
    calls captured in a CUDA graph, replays timed with CUDA events),
    beside its plain version, its library call where one exists, and its
    bound.
+7. Model phase: gemma2-9b (``src/repro/configs/gemma2_9b.py``) at full
+   width and depth, bf16 weights from seed 0, through
+   ``make_prefill_step`` / ``make_decode_step``: a prefill of 2 x 6144
+   random tokens (past the 4096 window) and 32 greedy decode steps, run
+   twice.  It fails unless ``flash_attention`` launched 42 times in every
+   prefill and every decode step, the logits are finite, the two runs
+   give equal tokens and logits bit for bit, and the decode logits lie
+   within ``MODEL_TOL`` of a prefill's rows over the same tokens.  It
+   prints prefill ms, decode ms/token, host syncs per decode step and a
+   profile; then the kernel is held against its plain version on the
+   path's own q, k, v (a local and a global layer, prefill and decode)
+   and timed beside the plain version and SDPA (the kernels JSON carries
+   the global prefill call).  The earlier phases' tensors are released
+   first.
 
 The last three lines are the kernels JSON, the nvidia-smi line and the
 device JSON.  Any failure raises (exit code != 0) and prints no result;
@@ -50,6 +68,7 @@ script exits with 2.
 """
 from __future__ import annotations
 
+import gc
 import json
 import statistics
 import subprocess
@@ -66,6 +85,8 @@ KERNELS = {                     # name -> (source, TPU kernel it replaces)
                    "src/repro/kernels/hot_gather.py:42"),
     "ssd_scan": ("src/repro_torch/kernels/csrc/ssd_scan.cu",
                  "src/repro/kernels/ssd_scan.py:73"),
+    "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention.py:82"),
 }
 # ssd_scan against its plain version.  On the reference kernel test's
 # shapes, that test's elementwise tolerances (abs + rel): y 2e-5 in f32,
@@ -633,6 +654,294 @@ def time_ssd_scan(torch, ssd_scan_cuda, ssd_scan_ref, args, kw):
     return res, max(dy, ds)
 
 
+# flash_attention against its plain version: on the reference kernel
+# test's shapes that test's elementwise tolerances (abs + rel), 2e-5 in
+# f32, 2e-2 in bf16.  On the model path's own inputs (bf16, 6144 keys of
+# head dim 256) the outputs are held normwise, max|out - plain| <=
+# 2e-2 * max|plain|: both round p to bf16 before p . v, but against
+# running maxima taken over other key blocks (64 against 512).
+FA_TOL = {"f32": 2e-5, "bf16": 2e-2, "path_normwise": 2e-2}
+BF16_FLOP_PER_S = 989e12        # H100 SXM, dense bf16 tensor cores
+# gemma2-9b decode logits at position p against row p of a prefill of the
+# same tokens, normwise (max|decode - prefill| <= tol * max|prefill|).
+# Both are bf16 through 42 layers; the GEMMs of a 2-row decode and of a
+# 12,352-row prefill are different cuBLAS kernels that round at other
+# places, and the attention kernel tiles the two differently.
+MODEL_TOL = 0.1
+MODEL = dict(arch="gemma2-9b", batch=2, prompt=6144, decode=32, seed=0)
+
+
+def fa_inputs(torch, gen, B, Sq, Sk, H, Hkv, D, dtype):
+    f = lambda *shape: torch.randn(*shape, generator=gen).to(dtype).cuda()
+    return f(B, Sq, H, D), f(B, Sk, Hkv, D), f(B, Sk, Hkv, D)
+
+
+def fa_kernel_phase(torch, flash_attention_cuda, flash_attention_ref):
+    """The reference test's six shapes in both dtypes, a gemma2-shaped
+    case, a strided cache slice, and equal bits from call to call;
+    returns the largest f32 |kernel - plain|."""
+    gen = torch.Generator().manual_seed(2)
+    worst = 0.0
+    # (B, Sq, Sk, H, Hkv, D, causal, window, cap): tests/test_kernels.py's
+    # six, then gemma2's local-layer shape cut to 1 x 1000 tokens
+    shapes = [(1, 64, 64, 4, 4, 32, True, None, 0.0),
+              (2, 100, 100, 4, 2, 32, True, None, 0.0),
+              (1, 64, 64, 4, 1, 64, True, None, 0.0),
+              (1, 96, 96, 2, 2, 32, True, 32, 50.0),
+              (1, 64, 64, 4, 4, 32, False, None, 0.0),
+              (2, 1, 128, 4, 2, 32, True, None, 0.0),
+              (1, 1000, 1000, 16, 8, 256, True, 512, 50.0)]
+    for B, Sq, Sk, H, Hkv, D, causal, window, cap in shapes:
+        for dtype, key in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+            q, k, v = fa_inputs(torch, gen, B, Sq, Sk, H, Hkv, D, dtype)
+            kw = dict(causal=causal, window=window, logit_softcap=cap)
+            out = flash_attention_cuda(q, k, v, **kw)
+            ref = flash_attention_ref(q, k, v, **kw)
+            torch.cuda.synchronize()
+            d = (out.float() - ref.float()).abs()
+            tol = FA_TOL[key]
+            check(out.dtype == dtype and out.shape == q.shape,
+                  f"flash_attention: output {out.dtype} {tuple(out.shape)}")
+            check(bool((d <= tol + tol * ref.float().abs()).all()),
+                  f"flash_attention B{B}_Sq{Sq}_Sk{Sk}_H{H}_{Hkv}_D{D} {key}:"
+                  f" differs from plain by {d.max().item()}")
+            if key == "f32":
+                worst = max(worst, d.max().item())
+            print(f"[kernel] flash_attention B{B} Sq{Sq} Sk{Sk} H{H}/{Hkv} "
+                  f"D{D} causal={causal} window={window} cap={cap} {key}: "
+                  f"max |out - plain| {d.max().item():.3e} (tol {tol} abs "
+                  f"+ rel)")
+    # a decode over a strided slice of a cache, in place and as a copy
+    for dtype, key in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        q, ck, cv = fa_inputs(torch, gen, 2, 1, 3000, 16, 8, 256, dtype)
+        ks, vs = ck[:, 900:2901], cv[:, 900:2901]
+        out = flash_attention_cuda(q, ks, vs, causal=False,
+                                   logit_softcap=50.0)
+        copy = flash_attention_cuda(q, ks.contiguous(), vs.contiguous(),
+                                    causal=False, logit_softcap=50.0)
+        ref = flash_attention_ref(q, ks, vs, causal=False, logit_softcap=50.0)
+        d = (out.float() - ref.float()).abs()
+        check(torch.equal(out, copy), "flash_attention: strided slice != "
+                                      "its contiguous copy")
+        check(bool((d <= FA_TOL[key] + FA_TOL[key] * ref.float().abs()).all()),
+              f"flash_attention strided {key}: differs by {d.max().item()}")
+        if key == "f32":
+            worst = max(worst, d.max().item())
+        print(f"[kernel] flash_attention strided cache slice (2001 of 3000 "
+              f"slots) {key}: equal to the copy's bits, max |out - plain| "
+              f"{d.max().item():.3e}")
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v = fa_inputs(torch, gen, 2, 777, 777, 16, 8, 256, dtype)
+        a = flash_attention_cuda(q, k, v, window=300, logit_softcap=50.0)
+        b = flash_attention_cuda(q, k, v, window=300, logit_softcap=50.0)
+        check(torch.equal(a, b), f"flash_attention {dtype}: two calls differ")
+    print("[kernel] flash_attention: call == call, bit for bit")
+    return worst
+
+
+def visible_pairs(Sq: int, Sk: int, causal: bool, window) -> int:
+    """(q, k) pairs the mask leaves, positions the implicit aranges."""
+    n = 0
+    for q in range(Sq):
+        hi = min(Sk, q + 1) if causal else Sk
+        lo = max(0, q - window + 1) if window is not None else 0
+        n += max(0, hi - lo)
+    return n
+
+
+def model_phase(torch, ops):
+    """gemma2-9b at full width and depth: prefill 2 x 6144 tokens, then
+    32 greedy decode steps, twice; returns the main path's own
+    flash_attention inputs (one local and one global layer, at prefill
+    and at decode) and the counts of launches per call."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.models.model import Model
+    from repro_torch.models.params import param_count
+
+    cfg = get_config(MODEL["arch"])
+    B, S, N = MODEL["batch"], MODEL["prompt"], MODEL["decode"]
+    model = Model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(MODEL["seed"], device="cuda")
+    torch.cuda.synchronize()
+    n_layers = cfg.n_layers
+    print(f"[model] {cfg.name}: {n_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.n_heads}/{cfg.n_kv_heads} heads x {cfg.head_dim_}, d_ff "
+          f"{cfg.d_ff}, vocab {cfg.padded_vocab}, window "
+          f"{cfg.pattern[0].window}, softcaps {cfg.attn_logit_softcap}/"
+          f"{cfg.final_logit_softcap}; {param_count(params) / 1e9:.3f} B "
+          f"params bf16 ({torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+          f"on the card) in {time.perf_counter() - t0:.1f} s")
+    gen = torch.Generator(device="cuda").manual_seed(MODEL["seed"])
+    prompt = torch.randint(0, cfg.vocab, (B, S), generator=gen,
+                           device="cuda", dtype=torch.int32)
+    prefill, decode = make_prefill_step(model), make_decode_step(model)
+    fa = lambda: ops.launches().get("flash_attention", 0)
+
+    captured = {}
+    real = ops.flash_attention
+
+    def tap(label):
+        def f(q, k, v, **kw):
+            # layer 0 is local (window 4096), layer 1 global
+            n = len([x for x in captured if x.startswith(label)])
+            if n < 2:      # copies in the same (strided) layout
+                keep = lambda t: torch.empty_strided(
+                    t.shape, t.stride(), dtype=t.dtype,
+                    device=t.device).copy_(t)
+                captured[f"{label}{n}"] = (keep(q), keep(k), keep(v),
+                                           dict(kw))
+            return real(q, k, v, **kw)
+        return f
+
+    def serve(capture: bool):
+        cache = model.init_cache(B, S + N)
+        torch.cuda.synchronize()
+        n0, t = fa(), time.perf_counter()
+        if capture:
+            ops.flash_attention = tap("prefill")   # models.attention calls it
+        try:
+            logits, cache = prefill(params, cache, {"tokens": prompt})
+        finally:
+            ops.flash_attention = real
+        torch.cuda.synchronize()
+        t_pre = time.perf_counter() - t
+        per_call = [fa() - n0]
+        nxt = logits[:, -1:].argmax(-1).to(torch.int32)
+        fed, dec = [nxt], []
+        t = time.perf_counter()
+        for step in range(N):
+            n0 = fa()
+            if capture and step == N - 1:
+                ops.flash_attention = tap("decode")
+            try:
+                lg, cache = decode(params, cache, nxt, S + step)
+            finally:
+                ops.flash_attention = real
+            per_call.append(fa() - n0)
+            dec.append(lg)
+            nxt = lg[:, -1:].argmax(-1).to(torch.int32)
+            fed.append(nxt)
+        torch.cuda.synchronize()
+        t_dec = (time.perf_counter() - t) / N
+        check(cache["filled"] == S + N, f"cache filled {cache['filled']}")
+        del cache
+        return (logits, torch.cat(dec, 1), torch.cat(fed, 1), per_call,
+                t_pre, t_dec)
+
+    pre1, dec1, fed1, calls1, t_pre, t_dec = serve(capture=True)
+    check(all(c == n_layers for c in calls1),
+          f"flash_attention launches per call {calls1}: expected "
+          f"{n_layers} per prefill and per decode step")
+    check(bool(torch.isfinite(pre1).all())
+          and bool(torch.isfinite(dec1).all()), "non-finite logits")
+    check(pre1.shape == (B, S, cfg.padded_vocab)
+          and dec1.shape == (B, N, cfg.padded_vocab),
+          f"logits {tuple(pre1.shape)} {tuple(dec1.shape)}")
+    print(f"[model] run 1: prefill {B} x {S} tokens {t_pre * 1e3:.1f} ms, "
+          f"decode {t_dec * 1e3:.2f} ms/token (batch {B}, {N} steps); "
+          f"flash_attention launches per call {calls1[0]} (prefill), "
+          f"{sorted(set(calls1[1:]))} (decode)")
+    pre2, dec2, fed2, calls2, t_pre2, t_dec2 = serve(capture=False)
+    check(torch.equal(fed1, fed2) and torch.equal(pre1, pre2)
+          and torch.equal(dec1, dec2),
+          "two runs differ: greedy tokens or logits are not bit for bit")
+    print(f"[model] run 2: prefill {t_pre2 * 1e3:.1f} ms, decode "
+          f"{t_dec2 * 1e3:.2f} ms/token; greedy tokens and all logits equal "
+          f"to run 1's bit for bit")
+    del pre1, pre2, dec2
+    torch.cuda.empty_cache()
+
+    # decode logits at position S + j against row S + j of one prefill
+    # of the same S + N tokens (causal: row p reads tokens 0..p only)
+    full = torch.cat([prompt, fed1[:, :N]], dim=1)
+    cache = model.init_cache(B, S + N)
+    ref, cache = prefill(params, cache, {"tokens": full})
+    del cache
+    ref = ref[:, S:].float()
+    got = dec1.float()
+    del dec1
+    err, scale = (got - ref).abs().max().item(), ref.abs().max().item()
+    agree = (got.argmax(-1) == ref.argmax(-1)).float().mean().item()
+    check(err <= MODEL_TOL * scale,
+          f"decode logits differ from the prefill's rows by {err} "
+          f"(max|prefill| {scale}, tol {MODEL_TOL} normwise)")
+    print(f"[model] decode vs prefill of the same {S + N} tokens, all {N} "
+          f"positions: max |decode - prefill| {err:.4f} = "
+          f"{err / scale:.4f} of max|prefill| {scale:.3f} (tol {MODEL_TOL}); "
+          f"greedy tokens agree at {agree:.1%} of positions")
+    del ref, got, full
+    torch.cuda.empty_cache()
+
+    # host syncs per decode step, and the device's busy share
+    cache = model.init_cache(B, S + N)
+    _, cache = prefill(params, cache, {"tokens": prompt})
+    nxt = fed1[:, :1]
+    steps = iter(range(8))             # 4 steps each, positions S..S+7
+    dstep = lambda _: decode(params, cache, nxt, S + next(steps))
+    syncs = host_syncs(torch, dstep, [None] * 4)
+    profile_steps(torch, "gemma2-9b decode", dstep, [None] * 4)
+    profile_steps(torch, "gemma2-9b prefill",
+                  lambda _: prefill(params, cache, {"tokens": prompt}),
+                  [None])
+    print(f"[model] host syncs per decode step: {syncs:g}; peak device "
+          f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del cache, params
+    torch.cuda.empty_cache()
+    return captured, calls1
+
+
+def time_flash_attention(torch, flash_attention_cuda, flash_attention_ref,
+                         captured):
+    """The main path's own inputs: the kernel against its plain version
+    (normwise), its device time beside the plain version's, SDPA's on the
+    same shapes without softcap and window (a yardstick the port never
+    calls) and its bound.  Returns the global prefill layer's numbers
+    (the JSON's row) and the largest normwise error."""
+    F = torch.nn.functional
+    rows, worst = {}, 0.0
+    for name in ("prefill0", "prefill1", "decode0", "decode1"):
+        q, k, v, kw = captured[name]
+        B, Sq, H, D = q.shape
+        Sk, Hkv = k.shape[1], k.shape[2]
+        out = flash_attention_cuda(q, k, v, **kw)
+        plain = flash_attention_ref(q, k, v, **kw)
+        err = (out.float() - plain.float()).abs().max().item()
+        scale = plain.float().abs().max().item()
+        check(err <= FA_TOL["path_normwise"] * scale,
+              f"flash_attention {name} on the main path's inputs differs "
+              f"from plain by {err} (max|plain| {scale})")
+        worst = max(worst, err / scale)
+        pairs = visible_pairs(Sq, Sk, kw["causal"], kw["window"])
+        flops = 4 * D * pairs * B * H
+        nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
+        t_ops, t_bytes = flops / BF16_FLOP_PER_S, nbytes / HBM_BYTES_PER_S
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        lib = lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=kw["causal"], enable_gqa=True)
+        big = Sq > 1
+        calls, replays = (3, 3) if big else (20, 10)
+        row = {
+            "ms": device_ms(torch, lambda: flash_attention_cuda(q, k, v, **kw),
+                            calls, replays),
+            "plain_ms": device_ms(torch, lambda: flash_attention_ref(
+                q, k, v, **kw), calls, replays),
+            "library_ms": device_ms(torch, lib, calls, replays),
+            "bound_ms": max(t_ops, t_bytes) * 1e3,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        }
+        rows[name] = row
+        layer = "local" if name.endswith("0") else "global"
+        print(f"[time] flash_attention {name} ({layer} layer) q "
+              f"{tuple(q.shape)} k/v {tuple(k.shape)} strides {k.stride()}"
+              f" causal={kw['causal']} window={kw['window']} "
+              f"cap={kw['logit_softcap']}: {pairs} visible pairs per (b, h), "
+              f"{flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB; max |out - "
+              f"plain| {err:.3e} = {err / scale:.2e} of max|plain|; {row}")
+    return rows["prefill1"], worst
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -644,8 +953,10 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels import build, ops
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
     from repro_torch.kernels.hot_gather import hot_gather_cuda
-    from repro_torch.kernels.ref import hot_gather_ref, ssd_scan_ref
+    from repro_torch.kernels.ref import flash_attention_ref, \
+        hot_gather_ref, ssd_scan_ref
     from repro_torch.kernels.ssd_scan import ssd_scan_cuda
 
     smi = nvidia_smi()
@@ -662,7 +973,9 @@ def main() -> int:
 
     err = {"hot_gather": kernel_phase(torch, hot_gather_cuda,
                                       hot_gather_ref),
-           "ssd_scan": ssd_kernel_phase(torch, ssd_scan_cuda, ssd_scan_ref)}
+           "ssd_scan": ssd_kernel_phase(torch, ssd_scan_cuda, ssd_scan_ref),
+           "flash_attention": fa_kernel_phase(torch, flash_attention_cuda,
+                                              flash_attention_ref)}
 
     # each main path: counts zeroed just before it, read just after it
     launches = {}
@@ -693,6 +1006,23 @@ def main() -> int:
     timing["ssd_scan"], path_err = time_ssd_scan(
         torch, ssd_scan_cuda, ssd_scan_ref, ssd_args, ssd_kw)
     err["ssd_scan"] = max(err["ssd_scan"], path_err)
+
+    # the earlier phases' tensors go before the model's 18.5 GB of params
+    del table, hot_ids, idx, ssd_args, ssd_kw, out
+    gc.collect()
+    torch.cuda.empty_cache()
+    ops.reset_launches()
+    t = time.perf_counter()
+    captured, per_call = model_phase(torch, ops)
+    counts = ops.launches()
+    print(f"[model] launches during the phase: {counts} "
+          f"({time.perf_counter() - t:.1f} s)")
+    check(counts.get("flash_attention", 0) > 0,
+          "flash_attention never launched in the model phase")
+    launches["flash_attention"] = counts["flash_attention"]
+    timing["flash_attention"], path_err = time_flash_attention(
+        torch, flash_attention_cuda, flash_attention_ref, captured)
+    print(f"[time] flash_attention main-path normwise error {path_err:.3e}")
     kernels = []
     for name, (src, replaces) in KERNELS.items():
         kernels.append(dict(name=name, route="cuda", source=src,

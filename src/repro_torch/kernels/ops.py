@@ -17,6 +17,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from . import ref as _ref
+from .flash_attention import flash_attention_cuda
 from .hot_gather import LAUNCHES, hot_gather_cuda
 from .ssd_scan import ssd_scan_cuda
 
@@ -31,6 +32,21 @@ def _use_kernel(t: torch.Tensor, force: Optional[str]) -> bool:
             f"force='kernel' needs CUDA tensors; got a tensor on {t.device} "
             f"(the CUDA kernels do not run on the host)")
     return False
+
+
+def flash_attention(q, k, v, *, causal: bool = True,
+                    window: Optional[int] = None, logit_softcap: float = 0.0,
+                    block: int = 512,
+                    force: Optional[str] = None) -> torch.Tensor:
+    """Attention over the implicit positions ``arange(Sq)`` /
+    ``arange(Sk)``.  On the card always the CUDA kernel, which raises on
+    a shape, dtype or stride it does not take (``block`` sizes only the
+    plain version's key blocks)."""
+    if _use_kernel(q, force):
+        return flash_attention_cuda(q, k, v, causal=causal, window=window,
+                                    logit_softcap=logit_softcap)
+    return _ref.flash_attention_ref(q, k, v, causal=causal, window=window,
+                                    logit_softcap=logit_softcap, block=block)
 
 
 def hot_gather(table, hot_rows, hot_ids, idx, *,

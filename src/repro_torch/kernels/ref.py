@@ -3,7 +3,8 @@
 These are the semantics of record, ported from ``repro.kernels.ref``:
 the CPU takes them directly (``kernels.ops``), and the CUDA kernels are
 held against them on the card (``hot_gather`` bit for bit, ``ssd_scan``
-within stated tolerances: its sums run in another order).
+and ``flash_attention`` within stated tolerances: their sums run in
+another order).
 """
 from __future__ import annotations
 
@@ -11,6 +12,24 @@ from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, causal: bool = True, window: Optional[int] = None,
+                        logit_softcap: float = 0.0,
+                        block: int = 512) -> torch.Tensor:
+    """The blocked attention ``models.attention.attend_blocked`` over
+    the implicit positions ``arange(Sq)`` and ``arange(Sk)`` (so causal
+    masking is top-left aligned).  q: (B, Sq, H, D); k, v: (B, Sk, Hkv,
+    D) -> (B, Sq, H, D) in q's dtype."""
+    from ..models.attention import attend_blocked
+    Sq, Sk = q.shape[1], k.shape[1]
+    return attend_blocked(
+        q, k, v,
+        q_pos=torch.arange(Sq, dtype=torch.int32, device=q.device),
+        kv_pos=torch.arange(Sk, dtype=torch.int32, device=q.device),
+        causal=causal, window=window, logit_softcap=logit_softcap,
+        block=block)
 
 
 def ssd_scan_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,

@@ -1,0 +1,82 @@
+"""Unified model API, ported from ``repro.models.model`` for serving.
+
+``Model(cfg)`` binds a ModelConfig and exposes:
+
+  init(seed, device)                   -> ParamTree of bf16 params
+  init_cache(batch, cap, device)       -> cache tree
+  forward(params, batch, cache)        -> logits, cache, metrics
+  prefill(params, cache, batch)        -> logits, cache
+  decode_step(params, cache, tok, pos) -> logits, cache
+
+``batch`` is a dict holding ``tokens`` (B, S) int32.  Entry points run
+on ``device="cuda"`` unless the caller passes another device; every
+self-attention call of prefill and decode goes through
+``kernels.ops.flash_attention`` (the CUDA kernel on the card).  Caches
+are written in place (``models/attention.py`` says why), so a consumed
+cache is not a fresh one.  Training (``loss``) and encoder-decoder
+stacks are not ported yet and raise.
+"""
+from __future__ import annotations
+
+import operator
+
+import torch
+
+from .. import resolve_device
+from .config import ModelConfig
+from .params import ParamTree, tree_from_numpy
+from .transformer import init_lm, init_lm_cache, lm_forward
+
+
+def params_from_numpy(tree, device="cuda") -> ParamTree:
+    """The reference's Model params as the port's tree: ``tree`` is
+    ``jax.tree.map(np.asarray, unzip(model.init(key))[0])``, nested dicts
+    of numpy arrays (bf16 leaves as ``ml_dtypes.bfloat16``, carried
+    across exactly through float32)."""
+    return ParamTree(tree_from_numpy(tree, resolve_device(device)))
+
+
+class Model:
+    def __init__(self, cfg: ModelConfig):
+        self.cfg = cfg
+        if cfg.encdec:
+            raise NotImplementedError(
+                f"{cfg.name}: encoder-decoder stacks (encdec.py) are not "
+                f"ported yet: ROADMAP Queue 1 item 8")
+
+    # ---- init ------------------------------------------------------------
+    def init(self, seed: int = 0, device="cuda") -> ParamTree:
+        """bf16 params drawn from ``seed`` on ``device``; on ``"meta"``
+        only shapes (the reference's ``abstract=True``)."""
+        if torch.device(device).type != "meta":
+            device = resolve_device(device)
+        return init_lm(seed, self.cfg, device)
+
+    def init_cache(self, batch: int, cap: int, device="cuda"):
+        return init_lm_cache(self.cfg, batch, cap, resolve_device(device))
+
+    # ---- forward paths ---------------------------------------------------
+    def forward(self, params, batch, cache=None, remat: bool = False):
+        logits, cache, metrics = lm_forward(
+            params, self.cfg, batch["tokens"], 0, cache=cache,
+            media_embeds=batch.get("media"), remat=remat)
+        return logits, cache, metrics
+
+    def loss(self, params, batch, remat: bool = True):
+        raise NotImplementedError(
+            "loss / cross_entropy (training) are not ported yet: ROADMAP "
+            "Queue 1 item 10")
+
+    @torch.no_grad()
+    def prefill(self, params, cache, batch):
+        logits, cache, _ = self.forward(params, batch, cache=cache)
+        return logits, cache
+
+    @torch.no_grad()
+    def decode_step(self, params, cache, tokens, pos):
+        """tokens: (B, 1) int32; pos: the write index in the cache, a
+        Python int (a tensor on the card would cost a host sync).  Raises
+        on a ``pos`` past the cache's filled prefix."""
+        logits, cache, _ = lm_forward(params, self.cfg, tokens,
+                                      operator.index(pos), cache=cache)
+        return logits, cache

@@ -21,6 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from .config import MoEConfig
+from .layers import _act
 
 
 def route(w_router, x2d: torch.Tensor, top_k: int, bias=None):
@@ -42,11 +43,6 @@ def load_balance_loss(logits: torch.Tensor, ids: torch.Tensor,
     onehot = F.one_hot(ids.long(), n_experts).float()
     density = onehot.sum(dim=(0, 1)) / ids.numel()           # (E,)
     return n_experts * (density * density_proxy).sum()
-
-
-def _act(h: torch.Tensor, act: str) -> torch.Tensor:
-    # jax.nn.gelu defaults to the tanh approximation
-    return F.silu(h) if act == "silu" else F.gelu(h, approximate="tanh")
 
 
 def _expert_compute(xs: torch.Tensor, group_sizes: Sequence[int],

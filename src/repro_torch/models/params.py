@@ -45,7 +45,13 @@ def tree_from_numpy(tree, device) -> Any:
         return {k: tree_from_numpy(v, device) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return [tree_from_numpy(v, device) for v in tree]
-    return torch.from_numpy(np.array(tree)).to(device)
+    a = np.asarray(tree)
+    if a.dtype.name == "bfloat16":
+        # ml_dtypes' bfloat16, which torch.from_numpy refuses: through
+        # float32, which holds every bfloat16 value exactly
+        return torch.from_numpy(a.astype(np.float32)).to(
+            device=device, dtype=torch.bfloat16)
+    return torch.from_numpy(np.array(a)).to(device)
 
 
 class Initializer:
@@ -53,15 +59,21 @@ class Initializer:
     ``normal`` is N(0, 1) scaled by ``scale / sqrt(fan_in)``, fan_in
     defaulting to ``shape[-2]`` as in the reference.  The numbers differ
     from the reference's ``jax.random`` draws; tests carry the
-    reference's weights across with :func:`tree_from_numpy` instead."""
+    reference's weights across with :func:`tree_from_numpy` instead.
+    On the ``meta`` device it draws nothing and allocates nothing (the
+    reference's ``abstract=True``: shapes for counting parameters)."""
 
     def __init__(self, seed: int, device, dtype=torch.float32):
         self.device = torch.device(device)
         self.dtype = dtype
-        self.gen = torch.Generator(device=self.device).manual_seed(seed)
+        self.gen = (None if self.device.type == "meta" else
+                    torch.Generator(device=self.device).manual_seed(seed))
 
     def normal(self, shape, scale: float = 1.0, fan_in: int = 0,
                dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+        if self.gen is None:
+            return torch.empty(tuple(shape), dtype=dtype or self.dtype,
+                               device=self.device)
         fan = fan_in or (shape[-2] if len(shape) >= 2 else shape[-1])
         v = torch.randn(tuple(shape), generator=self.gen,
                         dtype=dtype or self.dtype, device=self.device)
@@ -80,3 +92,32 @@ class Initializer:
         or the value's own type; draws nothing."""
         return torch.as_tensor(np.asarray(value), dtype=dtype,
                                device=self.device).clone()
+
+
+def stack_pspecs(trees):
+    """Stack a list of structurally identical trees (nested dicts of
+    tensors) along a new leading "layers" axis, as the reference stacks
+    its per-period PSpec trees into ``(n_periods, ...)``."""
+    t0 = trees[0]
+    if isinstance(t0, dict):
+        return {k: stack_pspecs([t[k] for t in trees]) for k in t0}
+    return torch.stack(trees)
+
+
+def index_tree(tree, i: int):
+    """Entry ``i`` of every leaf of a stacked tree (views, no copies)."""
+    if isinstance(tree, (dict, ParamTree)):
+        keys = (tree.keys() if isinstance(tree, dict) else
+                list(tree._parameters) + list(tree._modules))
+        return {k: index_tree(tree[k], i) for k in keys}
+    return tree[i]
+
+
+def param_count(params) -> int:
+    if isinstance(params, nn.Module):
+        return sum(p.numel() for p in params.parameters())
+    if isinstance(params, dict):
+        return sum(param_count(v) for v in params.values())
+    if isinstance(params, (list, tuple)):
+        return sum(param_count(v) for v in params)
+    return params.numel()

@@ -212,3 +212,152 @@ def test_ssd_scan_force_kernel_on_cpu_tensors_raises():
                                       "cpu")
     with pytest.raises(RuntimeError, match="force='kernel' needs CUDA"):
         ops.ssd_scan(x, dt, A, Bm, Cm, chunk=8, force="kernel")
+
+
+# ---------------------------------------------------------------------------
+# flash_attention
+# ---------------------------------------------------------------------------
+
+# (B, Sq, Sk, H, Hkv, D, causal, window, cap): tests/test_kernels.py:28-35,
+# gemma2-shaped cases (D 256, GQA 16/8, window and softcap; the second is
+# chip_smoke.py's), llama's D 128 and a D that is not a multiple of 16
+FA_SHAPES = [(1, 64, 64, 4, 4, 32, True, None, 0.0),
+             (2, 100, 100, 4, 2, 32, True, None, 0.0),
+             (1, 64, 64, 4, 1, 64, True, None, 0.0),
+             (1, 96, 96, 2, 2, 32, True, 32, 50.0),
+             (1, 64, 64, 4, 4, 32, False, None, 0.0),
+             (2, 1, 128, 4, 2, 32, True, None, 0.0),
+             (1, 300, 300, 16, 8, 256, True, 128, 50.0),
+             (1, 1000, 1000, 16, 8, 256, True, 512, 50.0),
+             (2, 130, 130, 8, 2, 128, True, None, 0.0),
+             (1, 70, 70, 2, 1, 24, True, 16, 30.0)]
+
+
+def _fa_inputs(B, Sq, Sk, H, Hkv, D, dtype, device, seed=0):
+    rng = np.random.default_rng(seed)
+    f = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(
+        np.float32)).to(device=device, dtype=dtype)
+    return f(B, Sq, H, D), f(B, Sk, Hkv, D), f(B, Sk, Hkv, D)
+
+
+def _fa_tol(dtype):
+    # tests/test_kernels.py:16-18
+    return dict(rtol=2e-2, atol=2e-2) if dtype == torch.bfloat16 else \
+        dict(rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Sq,Sk,H,Hkv,D,causal,window,cap", FA_SHAPES)
+def test_flash_attention_kernel_equals_plain(cuda, B, Sq, Sk, H, Hkv, D,
+                                             causal, window, cap, dtype):
+    q, k, v = _fa_inputs(B, Sq, Sk, H, Hkv, D, dtype, cuda)
+    kw = dict(causal=causal, window=window, logit_softcap=cap)
+    before = ops.launches().get("flash_attention", 0)
+    out = ops.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert ops.launches()["flash_attention"] == before + 1
+    assert out.dtype == dtype and out.shape == q.shape
+    ref = TR.flash_attention_ref(q, k, v, **kw)
+    torch.testing.assert_close(out.float(), ref.float(), **_fa_tol(dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel_reads_a_strided_cache_slice(cuda, dtype):
+    """A decode reads the cache (B, cap, Hkv, D) sliced to [lo, pos] in
+    place; the result equals that of a contiguous copy bit for bit, and
+    the plain version within the tolerance."""
+    _, ck, cv = _fa_inputs(2, 1, 200, 16, 8, 256, dtype, cuda, seed=1)
+    q = _fa_inputs(2, 1, 1, 16, 8, 256, dtype, cuda, seed=2)[0]
+    ks, vs = ck[:, 37:161], cv[:, 37:161]
+    assert not ks.is_contiguous()
+    out = ops.flash_attention(q, ks, vs, causal=False, logit_softcap=50.0)
+    copy = ops.flash_attention(q, ks.contiguous(), vs.contiguous(),
+                               causal=False, logit_softcap=50.0)
+    assert torch.equal(out, copy)
+    ref = TR.flash_attention_ref(q, ks, vs, causal=False, logit_softcap=50.0)
+    torch.testing.assert_close(out.float(), ref.float(), **_fa_tol(dtype))
+
+
+@pytest.mark.cuda
+def test_flash_attention_kernel_fully_masked_rows_give_zero(cuda):
+    q, k, v = _fa_inputs(1, 8, 8, 2, 2, 32, torch.float32, cuda)
+    out = ops.flash_attention(q, k, v, window=0)
+    assert torch.equal(out, torch.zeros_like(out))
+    out = ops.flash_attention(q, k[:, :0], v[:, :0])
+    assert torch.equal(out, torch.zeros_like(out))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel_is_deterministic(cuda, dtype):
+    q, k, v = _fa_inputs(2, 257, 257, 16, 8, 256, dtype, cuda, seed=3)
+    a = ops.flash_attention(q, k, v, window=100, logit_softcap=50.0)
+    b = ops.flash_attention(q, k, v, window=100, logit_softcap=50.0)
+    assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_flash_attention_kernel_rejects_what_it_does_not_take(cuda):
+    q, k, v = _fa_inputs(1, 16, 16, 4, 2, 32, torch.float32, cuda)
+    with pytest.raises(TypeError):              # mixed dtypes
+        ops.flash_attention(q, k.bfloat16(), v.bfloat16())
+    with pytest.raises(TypeError):              # half precision
+        ops.flash_attention(q.half(), k.half(), v.half())
+    with pytest.raises(ValueError):             # D > 256
+        big = torch.zeros(1, 16, 4, 264, device=cuda)
+        ops.flash_attention(big, big[:, :, :2], big[:, :, :2])
+    with pytest.raises(ValueError):             # D not a multiple of 8
+        odd = torch.zeros(1, 16, 4, 20, device=cuda)
+        ops.flash_attention(odd, odd[:, :, :2], odd[:, :, :2])
+    with pytest.raises(ValueError):             # H not a multiple of Hkv
+        kv3 = torch.zeros(1, 16, 3, 32, device=cuda)
+        ops.flash_attention(q, kv3, kv3)
+    with pytest.raises(ValueError):             # last dim not dense
+        ops.flash_attention(q, k.transpose(1, 3).contiguous().transpose(1, 3),
+                            v)
+
+
+@pytest.mark.cuda
+def test_model_prefill_and_decode_on_the_card_go_through_the_kernel(cuda):
+    """gemma2-9b at smoke scale in bf16: every attention layer launches
+    the kernel once per prefill and once per decode step, and the card's
+    logits lie no farther from the host's (the plain version, the same
+    weights) than the host's bf16 logits lie from its own f32 ones (the
+    rule of ``test_torch_model.py``)."""
+    import copy
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.models.model import Model
+    cfg = get_config("gemma2-9b").smoke()
+    model = Model(cfg)
+    host = model.init(0, device="cpu")
+    host32 = copy.deepcopy(host).float()
+    card = copy.deepcopy(host).to(cuda)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (2, 40)).astype(np.int32))
+    prefill, decode = make_prefill_step(model), make_decode_step(model)
+
+    def serve(params, device):
+        cache = model.init_cache(2, 48, device=device)
+        ops.reset_launches()
+        outs = [prefill(params, cache, {"tokens": toks.to(device)})[0]]
+        counts = [ops.launches().get("flash_attention", 0)]
+        nxt = toks[:, :1]
+        for step in range(3):
+            ops.reset_launches()
+            out, cache = decode(params, cache, nxt.to(device), 40 + step)
+            counts.append(ops.launches().get("flash_attention", 0))
+            outs.append(out)
+            nxt = toks[:, step + 1:step + 2]
+        return [o.float().cpu() for o in outs], counts
+
+    on_card, counts = serve(card, cuda)
+    assert counts == [cfg.n_layers] * 4
+    on_host, host_counts = serve(host, "cpu")
+    assert host_counts == [0] * 4
+    on_host32, _ = serve(host32, "cpu")
+    for a, b, c in zip(on_card, on_host, on_host32):
+        assert torch.isfinite(a).all()
+        assert (a - b).abs().max() <= (b - c).abs().max()

@@ -35,7 +35,10 @@ def test_port_module_imports_neither_jax_nor_the_reference(path):
 def test_importing_the_port_leaves_jax_unloaded():
     code = ("import sys, repro_torch, repro_torch.core, repro_torch.serving,"
             " repro_torch.kernels.ops, repro_torch.configs,"
-            " repro_torch.models.ssd, repro_torch.testing; "
+            " repro_torch.models.ssd, repro_torch.testing,"
+            " repro_torch.kernels.flash_attention,"
+            " repro_torch.models.attention, repro_torch.models.transformer,"
+            " repro_torch.models.model, repro_torch.launch.steps; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; "
             "assert not bad, bad; print('ok')")
