@@ -15,8 +15,13 @@
    bits for a None and a zero initial state and from call to call.
    ``flash_attention`` on the reference's six test shapes in f32 and
    bf16 (that test's tolerances, ``FA_TOL``), a gemma2-shaped case (D 256,
-   GQA 16/8, window, softcap), a strided cache slice equal to its copy bit
-   for bit, and equal bits from call to call.
+   GQA 16/8, window, softcap), the split-K decode path at gemma2's decode
+   shape and at G * Sq = 8 x 4, a wgmma prefill whose rows are not a
+   multiple of 128, a strided cache slice equal to its copy bit for bit,
+   and equal bits from call to call; each case names the kernel path it
+   took.  Before it, the count of ``HGMMA`` and ``UTMALDG`` instructions
+   per ``flash_attention`` path in the built library's SASS
+   (``cuobjdump -sass``): the wgmma prefill must hold both.
 3. Serving phase at full width (the widths of
    ``src/repro/configs/phi3p5_moe.py``; 2 layers instead of 32, because
    f32 params at 32 layers do not fit one card): generic steps, a
@@ -51,7 +56,8 @@
    ``make_prefill_step`` / ``make_decode_step``: a prefill of 2 x 6144
    random tokens (past the 4096 window) and 32 greedy decode steps, run
    twice.  It fails unless ``flash_attention`` launched 42 times in every
-   prefill and every decode step, the logits are finite, the two runs
+   prefill and every decode step, through the wgmma prefill at prefill
+   and the split-K decode at decode, the logits are finite, the two runs
    give equal tokens and logits bit for bit, and the decode logits lie
    within ``MODEL_TOL`` of a prefill's rows over the same tokens.  It
    prints prefill ms, decode ms/token, host syncs per decode step and a
@@ -70,6 +76,7 @@ from __future__ import annotations
 
 import gc
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -209,6 +216,37 @@ def host_syncs(torch, step, batches) -> float:
         torch.cuda.set_sync_debug_mode("default")
     n = sum("synchroniz" in str(w.message) for w in caught)
     return n / len(batches)
+
+
+# flash_attention's kernels by their path (kernels/flash_attention.py)
+FA_PATHS = {"flash_decode": "split_k_decode",
+            "flash_combine": "split_k_decode",
+            "flash_prefill_wgmma": "wgmma_prefill", "flash_bf16": "mma_sync",
+            "flash_f32": "f32"}
+
+
+def sass_counts(build) -> dict:
+    """HGMMA (wgmma) and UTMALDG (TMA load) instructions per
+    flash_attention path in the built library's SASS."""
+    tool = Path(build._nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(tool), "-sass",
+                           str(build.library_path("flash_attention"))],
+                          capture_output=True, text=True, timeout=300,
+                          check=True).stdout
+    counts, path = {}, None
+    for line in sass.splitlines():
+        fn = re.search(r"Function : (\S+)", line)
+        if fn:
+            path = next((v for k, v in FA_PATHS.items()
+                         if k in fn.group(1)), None)
+            if path:
+                counts.setdefault(path, {"HGMMA": 0, "UTMALDG": 0,
+                                         "functions": 0})["functions"] += 1
+            continue
+        if path:
+            for op in ("HGMMA", "UTMALDG"):
+                counts[path][op] += len(re.findall(rf"\b{op}\b", line))
+    return counts
 
 
 def kernel_phase(torch, hot_gather_cuda, hot_gather_ref) -> float:
@@ -678,8 +716,10 @@ def fa_inputs(torch, gen, B, Sq, Sk, H, Hkv, D, dtype):
 
 def fa_kernel_phase(torch, flash_attention_cuda, flash_attention_ref):
     """The reference test's six shapes in both dtypes, a gemma2-shaped
-    case, a strided cache slice, and equal bits from call to call;
-    returns the largest f32 |kernel - plain|."""
+    case, the decode and ragged prefill shapes, a strided cache slice, and
+    equal bits from call to call; returns the largest f32 |kernel -
+    plain|."""
+    from repro_torch.kernels import flash_attention as fa_mod
     gen = torch.Generator().manual_seed(2)
     worst = 0.0
     # (B, Sq, Sk, H, Hkv, D, causal, window, cap): tests/test_kernels.py's
@@ -690,7 +730,12 @@ def fa_kernel_phase(torch, flash_attention_cuda, flash_attention_ref):
               (1, 96, 96, 2, 2, 32, True, 32, 50.0),
               (1, 64, 64, 4, 4, 32, False, None, 0.0),
               (2, 1, 128, 4, 2, 32, True, None, 0.0),
-              (1, 1000, 1000, 16, 8, 256, True, 512, 50.0)]
+              (1, 1000, 1000, 16, 8, 256, True, 512, 50.0),
+              # split-K decode: gemma2's decode shape, 4 rows x G 8
+              (2, 1, 6176, 16, 8, 256, False, None, 50.0),
+              (2, 4, 1000, 16, 2, 128, True, 700, 30.0),
+              # wgmma prefill, rows not a multiple of 128 (3 tiles)
+              (2, 333, 333, 16, 8, 128, True, 256, 50.0)]
     for B, Sq, Sk, H, Hkv, D, causal, window, cap in shapes:
         for dtype, key in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
             q, k, v = fa_inputs(torch, gen, B, Sq, Sk, H, Hkv, D, dtype)
@@ -708,7 +753,8 @@ def fa_kernel_phase(torch, flash_attention_cuda, flash_attention_ref):
             if key == "f32":
                 worst = max(worst, d.max().item())
             print(f"[kernel] flash_attention B{B} Sq{Sq} Sk{Sk} H{H}/{Hkv} "
-                  f"D{D} causal={causal} window={window} cap={cap} {key}: "
+                  f"D{D} causal={causal} window={window} cap={cap} {key} "
+                  f"({fa_mod.last_path}): "
                   f"max |out - plain| {d.max().item():.3e} (tol {tol} abs "
                   f"+ rel)")
     # a decode over a strided slice of a cache, in place and as a copy
@@ -758,6 +804,7 @@ def model_phase(torch, ops):
     from repro_torch.launch.steps import make_decode_step, make_prefill_step
     from repro_torch.models.model import Model
     from repro_torch.models.params import param_count
+    from repro_torch.kernels import flash_attention as fa_mod
 
     cfg = get_config(MODEL["arch"])
     B, S, N = MODEL["batch"], MODEL["prompt"], MODEL["decode"]
@@ -807,6 +854,7 @@ def model_phase(torch, ops):
             ops.flash_attention = real
         torch.cuda.synchronize()
         t_pre = time.perf_counter() - t
+        paths["prefill"] = fa_mod.last_path
         per_call = [fa() - n0]
         nxt = logits[:, -1:].argmax(-1).to(torch.int32)
         fed, dec = [nxt], []
@@ -820,6 +868,7 @@ def model_phase(torch, ops):
             finally:
                 ops.flash_attention = real
             per_call.append(fa() - n0)
+            paths["decode"] = fa_mod.last_path
             dec.append(lg)
             nxt = lg[:, -1:].argmax(-1).to(torch.int32)
             fed.append(nxt)
@@ -830,7 +879,11 @@ def model_phase(torch, ops):
         return (logits, torch.cat(dec, 1), torch.cat(fed, 1), per_call,
                 t_pre, t_dec)
 
+    paths = {}
     pre1, dec1, fed1, calls1, t_pre, t_dec = serve(capture=True)
+    check(paths == {"prefill": "wgmma_prefill", "decode": "split_k_decode"},
+          f"flash_attention paths {paths}")
+    print(f"[model] flash_attention path per call kind: {paths}")
     check(all(c == n_layers for c in calls1),
           f"flash_attention launches per call {calls1}: expected "
           f"{n_layers} per prefill and per decode step")
@@ -899,6 +952,7 @@ def time_flash_attention(torch, flash_attention_cuda, flash_attention_ref,
     same shapes without softcap and window (a yardstick the port never
     calls) and its bound.  Returns the global prefill layer's numbers
     (the JSON's row) and the largest normwise error."""
+    from repro_torch.kernels import flash_attention as fa_mod
     F = torch.nn.functional
     rows, worst = {}, 0.0
     for name in ("prefill0", "prefill1", "decode0", "decode1"):
@@ -906,6 +960,7 @@ def time_flash_attention(torch, flash_attention_cuda, flash_attention_ref,
         B, Sq, H, D = q.shape
         Sk, Hkv = k.shape[1], k.shape[2]
         out = flash_attention_cuda(q, k, v, **kw)
+        path = fa_mod.last_path
         plain = flash_attention_ref(q, k, v, **kw)
         err = (out.float() - plain.float()).abs().max().item()
         scale = plain.float().abs().max().item()
@@ -933,7 +988,7 @@ def time_flash_attention(torch, flash_attention_cuda, flash_attention_ref,
         }
         rows[name] = row
         layer = "local" if name.endswith("0") else "global"
-        print(f"[time] flash_attention {name} ({layer} layer) q "
+        print(f"[time] flash_attention {name} ({layer} layer, {path}) q "
               f"{tuple(q.shape)} k/v {tuple(k.shape)} strides {k.stride()}"
               f" causal={kw['causal']} window={kw['window']} "
               f"cap={kw['logit_softcap']}: {pairs} visible pairs per (b, h), "
@@ -970,6 +1025,13 @@ def main() -> int:
             secs, log = build.build_info[name]
             print(f"[build] {name}: {secs:.1f} s\n{log.strip()}")
     print(f"[build] all kernels {time.perf_counter() - t0:.1f} s")
+    sass = sass_counts(build)
+    for path, c in sorted(sass.items()):
+        print(f"[sass] flash_attention {path}: {c['HGMMA']} HGMMA, "
+              f"{c['UTMALDG']} UTMALDG in {c['functions']} functions")
+    wg = sass.get("wgmma_prefill", {})
+    check(wg.get("HGMMA", 0) > 0 and wg.get("UTMALDG", 0) > 0,
+          f"the wgmma prefill's SASS holds no HGMMA or UTMALDG: {sass}")
 
     err = {"hot_gather": kernel_phase(torch, hot_gather_cuda,
                                       hot_gather_ref),

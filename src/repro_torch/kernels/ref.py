@@ -8,10 +8,13 @@ another order).
 """
 from __future__ import annotations
 
+import math
 from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+
+NEG_INF = -1e30
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -30,6 +33,78 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         kv_pos=torch.arange(Sk, dtype=torch.int32, device=q.device),
         causal=causal, window=window, logit_softcap=logit_softcap,
         block=block)
+
+
+LOG2E = 1.4426950408889634
+SPLIT_TILE = 64    # the decode kernel plans its splits in 64-key tiles
+
+
+def split_keys(Sk: int, splits: int) -> int:
+    """Keys each of ``splits`` contiguous ranges takes: whole 64-key tiles,
+    split ``s`` covering ``[s * n, min((s + 1) * n, Sk))``.  A split past
+    ``Sk`` is empty."""
+    tiles = -(-Sk // SPLIT_TILE)
+    return max(1, -(-tiles // max(1, splits))) * SPLIT_TILE
+
+
+def softcap_exp2(x: torch.Tensor, cap: float) -> torch.Tensor:
+    """``cap * tanh(x / cap)`` as the CUDA kernels compute it:
+    ``cap * (1 - 2 / (exp2(2 log2(e) x / cap) + 1))``, one exp2 and one
+    reciprocal, finite at +-inf and at the -1e30 mask (-> +-cap)."""
+    e = torch.exp2(x * (2.0 * LOG2E / cap))
+    return cap * (1.0 - 2.0 / (e + 1.0))
+
+
+def flash_attention_split_ref(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, *, splits: int,
+                              causal: bool = True,
+                              window: Optional[int] = None,
+                              logit_softcap: float = 0.0) -> torch.Tensor:
+    """The split-K decode kernel's arithmetic in plain PyTorch: each of
+    ``splits`` contiguous key ranges (:func:`split_keys`) gives f32
+    partials ``(m_s, l_s, acc_s)`` (``p = exp(x - m_s)`` rounded to v's
+    type before ``p . v``, ``l_s`` the sum of the unrounded ``p``; a split
+    that sees no key gives ``m_s = -1e30, l_s = 0``), combined in split
+    order: ``m = max m_s``, ``l = sum l_s e^(m_s - m)``, ``out = sum acc_s
+    e^(m_s - m) / max(l, 1e-30)``.  Positions are the implicit aranges.
+    Only the tests use it."""
+    B, Sq, H, D = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    G = H // Hkv
+    f32 = torch.float32
+    qg = q.reshape(B, Sq, Hkv, G, D).to(f32)
+    qp = torch.arange(Sq, device=q.device)[:, None]
+    n = split_keys(Sk, splits)
+    ms, ls, accs = [], [], []
+    for s in range(splits):
+        lo, hi = min(s * n, Sk), min((s + 1) * n, Sk)
+        kp = torch.arange(lo, hi, device=q.device)[None, :]
+        x = torch.einsum("bshgd,bthd->bhgst", qg, k[:, lo:hi].to(f32))
+        x = x / math.sqrt(D)
+        if logit_softcap:
+            x = logit_softcap * torch.tanh(x / logit_softcap)
+        mask = torch.ones((Sq, hi - lo), dtype=torch.bool, device=q.device)
+        if causal:
+            mask = mask & (kp <= qp)
+        if window is not None:
+            mask = mask & (qp - kp < window)
+        x = torch.where(mask, x, NEG_INF)
+        m = x.amax(dim=-1) if hi > lo else torch.full(
+            (B, Hkv, G, Sq), NEG_INF, dtype=f32, device=q.device)
+        p = torch.where(mask, torch.exp(x - m[..., None]), 0.0)
+        ms.append(m)
+        ls.append(p.sum(dim=-1))
+        accs.append(torch.einsum("bhgst,bthd->bhgsd", p.to(v.dtype).to(f32),
+                                 v[:, lo:hi].to(f32)))
+    m = torch.stack(ms).amax(dim=0)
+    l = torch.zeros_like(m)
+    acc = torch.zeros_like(accs[0])
+    for m_s, l_s, a_s in zip(ms, ls, accs):
+        w = torch.exp(m_s - m)
+        l = l + l_s * w
+        acc = acc + a_s * w[..., None]
+    out = acc / l.clamp_min(1e-30)[..., None]          # (B, Hkv, G, Sq, D)
+    return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, D).to(q.dtype)
 
 
 def ssd_scan_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,

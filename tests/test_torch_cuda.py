@@ -8,6 +8,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels import flash_attention as fa_mod
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as TR
 
@@ -317,6 +318,110 @@ def test_flash_attention_kernel_rejects_what_it_does_not_take(cuda):
     with pytest.raises(ValueError):             # last dim not dense
         ops.flash_attention(q, k.transpose(1, 3).contiguous().transpose(1, 3),
                             v)
+
+
+# split-K decode: G * Sq <= 64 rows a kv head; (B, Hkv) = (2, 2)
+DEC_CASES = [(Sq, G, Sk, D) for Sq in (1, 4) for G in (1, 2, 8)
+             for Sk in (1, 63, 64, 65, 1000, 6176) for D in (32, 128, 256)]
+# (causal, window, cap): none, causal, window + softcap, all three
+DEC_MASKS = [(False, None, 0.0), (True, None, 0.0), (False, 50, 50.0),
+             (True, 700, 30.0)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Sq,G,Sk,D", DEC_CASES)
+def test_flash_attention_split_k_decode_equals_plain(cuda, Sq, G, Sk, D):
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v = _fa_inputs(2, Sq, Sk, 2 * G, 2, D, dtype, cuda, seed=Sk)
+        for causal, window, cap in DEC_MASKS:
+            kw = dict(causal=causal, window=window, logit_softcap=cap)
+            out = ops.flash_attention(q, k, v, **kw)
+            torch.cuda.synchronize()
+            assert fa_mod.last_path == "split_k_decode"
+            ref = TR.flash_attention_ref(q, k, v, **kw)
+            torch.testing.assert_close(out.float(), ref.float(),
+                                       **_fa_tol(dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lo,hi", [(0, 1), (37, 161), (900, 2901),
+                                   (0, 6176)])
+def test_flash_attention_split_k_decode_reads_the_cache_in_place(cuda, lo,
+                                                                  hi):
+    """gemma2-9b's decode shape over a strided slice of a (2, 6176, 8, 256)
+    cache: equal to a contiguous copy bit for bit, and call == call."""
+    _, ck, cv = _fa_inputs(2, 1, 6176, 16, 8, 256, torch.bfloat16, cuda,
+                           seed=4)
+    q = _fa_inputs(2, 1, 1, 16, 8, 256, torch.bfloat16, cuda, seed=5)[0]
+    ks, vs = ck[:, lo:hi], cv[:, lo:hi]
+    kw = dict(causal=False, logit_softcap=50.0)
+    out = ops.flash_attention(q, ks, vs, **kw)
+    assert fa_mod.last_path == "split_k_decode"
+    assert torch.equal(out, ops.flash_attention(q, ks, vs, **kw))
+    assert torch.equal(out, ops.flash_attention(q, ks.contiguous(),
+                                                vs.contiguous(), **kw))
+    ref = TR.flash_attention_ref(q, ks, vs, **kw)
+    torch.testing.assert_close(out.float(), ref.float(),
+                               **_fa_tol(torch.bfloat16))
+
+
+# wgmma prefill: Sq not a multiple of 128, D in {64, 128, 256}
+PRE_CASES = [(Sq, D) for Sq in (130, 300, 1000) for D in (64, 128, 256)]
+PRE_MASKS = [(True, None, 0.0), (True, 256, 50.0), (False, None, 30.0)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Sq,D", PRE_CASES)
+@pytest.mark.parametrize("causal,window,cap", PRE_MASKS)
+def test_flash_attention_wgmma_prefill_equals_plain(cuda, Sq, D, causal,
+                                                    window, cap):
+    q, k, v = _fa_inputs(2, Sq, Sq, 8, 4, D, torch.bfloat16, cuda, seed=Sq)
+    kw = dict(causal=causal, window=window, logit_softcap=cap)
+    out = ops.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert fa_mod.last_path == "wgmma_prefill"
+    ref = TR.flash_attention_ref(q, k, v, **kw)
+    torch.testing.assert_close(out.float(), ref.float(),
+                               **_fa_tol(torch.bfloat16))
+
+
+@pytest.mark.cuda
+def test_flash_attention_wgmma_prefill_reads_cache_slices_in_place(cuda):
+    """k and v as the first S slots of a longer cache (the prefill's
+    ``ck[:, :S]``), and more keys than queries: equal to contiguous copies
+    bit for bit, call == call."""
+    _, ck, cv = _fa_inputs(2, 1, 1500, 16, 8, 256, torch.bfloat16, cuda,
+                           seed=6)
+    for Sq, Sk, causal in ((333, 333, True), (300, 1000, False)):
+        q = _fa_inputs(2, Sq, 1, 16, 8, 256, torch.bfloat16, cuda,
+                       seed=7)[0]
+        ks, vs = ck[:, :Sk], cv[:, :Sk]
+        kw = dict(causal=causal, window=200, logit_softcap=50.0)
+        out = ops.flash_attention(q, ks, vs, **kw)
+        assert fa_mod.last_path == "wgmma_prefill"
+        assert torch.equal(out, ops.flash_attention(q, ks, vs, **kw))
+        assert torch.equal(out, ops.flash_attention(q, ks.contiguous(),
+                                                    vs.contiguous(), **kw))
+        ref = TR.flash_attention_ref(q, ks, vs, **kw)
+        torch.testing.assert_close(out.float(), ref.float(),
+                                   **_fa_tol(torch.bfloat16))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,dtype,path", [
+    ((2, 1, 6176, 16, 8, 256), torch.bfloat16, "split_k_decode"),
+    ((1, 64, 64, 4, 4, 32), torch.float32, "split_k_decode"),
+    ((2, 300, 300, 16, 8, 256), torch.bfloat16, "wgmma_prefill"),
+    ((1, 64, 64, 4, 1, 64), torch.bfloat16, "wgmma_prefill"),
+    ((1, 70, 70, 2, 1, 24), torch.bfloat16, "mma_sync"),
+    ((2, 100, 100, 4, 2, 32), torch.float32, "f32")])
+def test_flash_attention_takes_the_path_its_rule_names(cuda, shape, dtype,
+                                                       path):
+    B, Sq, Sk, H, Hkv, D = shape
+    q, k, v = _fa_inputs(B, Sq, Sk, H, Hkv, D, dtype, cuda)
+    assert fa_mod.choose_path(Sq, H, Hkv, D, dtype) == path
+    ops.flash_attention(q, k, v)
+    assert fa_mod.last_path == path
 
 
 @pytest.mark.cuda
