@@ -8,7 +8,9 @@
    per source, all started together).
 2. Kernel phase: each kernel against its plain PyTorch version.
    ``hot_gather`` against ``index_select`` too, on the reference's test
-   shapes and the serving path's shape, bit for bit.  ``ssd_scan`` on
+   shapes and the serving path's shape, and with duplicate hot ids (Hn
+   40, the first match wins) under half-cold traffic, bit for bit.
+   ``ssd_scan`` on
    the reference's four test shapes (f32 and bf16, that test's
    tolerances), a G = 2 case and the mamba2-1.3b serving shape with a
    non-zero initial state (tolerance stated at ``SSD_TOL``), plus equal
@@ -50,7 +52,9 @@
 6. Each kernel timed on the inputs its main path gave it (device time:
    calls captured in a CUDA graph, replays timed with CUDA events),
    beside its plain version, its library call where one exists, and its
-   bound.
+   bound; ``hot_gather`` also with every other token cold (its own
+   ``[time]`` line), ``ssd_scan`` also by pass (torch.profiler) and with
+   its bound on the tensor cores (3xTF32) beside the CUDA cores' figure.
 7. Model phase: gemma2-9b (``src/repro/configs/gemma2_9b.py``) at full
    width and depth, bf16 weights from seed 0, through
    ``make_prefill_step`` / ``make_decode_step``: a prefill of 2 x 6144
@@ -87,6 +91,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM data sheet
 F32_FLOP_PER_S = 67e12          # H100 SXM, f32 outside the tensor cores
+TF32_FLOP_PER_S = 495e12        # H100 SXM, dense TF32 tensor cores
 KERNELS = {                     # name -> (source, TPU kernel it replaces)
     "hot_gather": ("src/repro_torch/kernels/csrc/hot_gather.cu",
                    "src/repro/kernels/hot_gather.py:42"),
@@ -268,10 +273,27 @@ def kernel_phase(torch, hot_gather_cuda, hot_gather_ref) -> float:
                   torch.tensor([1, 2, 3, 1, 2], dtype=torch.int32)))
     cases.append(("all_cold", table, hot_ids,
                   torch.tensor([9, 10, 11], dtype=torch.int32)))
+    # duplicate hot ids (each of 20 twice, so Hn = 40: two ballot steps),
+    # half the tokens cold, at a small width and the serving width
+    for V, D, T in [(64, 16, 200), (32064, 4096, 512)]:
+        for dtype in (torch.float32, torch.bfloat16):
+            table = torch.randn(V, D, generator=gen).to(dtype)
+            ids = torch.randperm(V, generator=gen)[:20].int()
+            hot_ids = torch.cat([ids, ids.flip(0)])
+            cold = torch.arange(V)[~torch.isin(torch.arange(V), ids)]
+            pick = torch.rand(T, generator=gen) < 0.5
+            idx = torch.where(
+                pick, ids[torch.randint(0, 20, (T,), generator=gen)],
+                cold[torch.randint(0, cold.numel(), (T,), generator=gen)])
+            cases.append((f"dup_V{V}_D{D}_H40_T{T}_half_cold_{dtype}",
+                          table, hot_ids, idx.int()))
     worst = 0.0
     for name, table, hot_ids, idx in cases:
         table, hot_ids, idx = (t.cuda() for t in (table, hot_ids, idx))
         hot_rows = table.index_select(0, hot_ids)
+        if name.startswith("dup"):
+            # the second copy of each id differs: a later match would show
+            hot_rows[20:] = -hot_rows[20:]
         out = hot_gather_cuda(table, hot_rows, hot_ids, idx)
         plain = hot_gather_ref(table, hot_rows, hot_ids, idx)
         lib = table.index_select(0, idx)
@@ -387,7 +409,7 @@ def serving_phase(torch, ops):
 
 
 def time_hot_gather(torch, hot_gather_cuda, hot_gather_ref, table, hot_ids,
-                    idx):
+                    idx, label: str = "serving path"):
     hot_rows = table.index_select(0, hot_ids)
     T, (V, D) = idx.shape[0], table.shape
     row = D * table.element_size()
@@ -401,7 +423,7 @@ def time_hot_gather(torch, hot_gather_cuda, hot_gather_ref, table, hot_ids,
     plain = lambda: hot_gather_ref(table, hot_rows, hot_ids, idx)
     lib = lambda: table.index_select(0, idx)
     check(torch.equal(kern(), plain()) and torch.equal(kern(), lib()),
-          "hot_gather differs on the serving path's own inputs")
+          f"hot_gather differs on the {label}'s inputs")
     n0 = ops.launches().get("hot_gather", 0)
     res = {
         "ms": device_ms(torch, kern),
@@ -413,8 +435,9 @@ def time_hot_gather(torch, hot_gather_cuda, hot_gather_ref, table, hot_ids,
     check(ops.launches()["hot_gather"] > n0, "timing did not launch")
     eager = {k: eager_ms(torch, f) for k, f in
              (("kernel", kern), ("plain", plain), ("index_select", lib))}
-    print(f"[time] eager calls, host enqueue included (ms): {eager}")
-    print(f"[time] hot_gather V={V} D={D} Hn={hot_ids.numel()} T={T} "
+    print(f"[time] hot_gather {label} eager calls, host enqueue included "
+          f"(ms): {eager}")
+    print(f"[time] hot_gather {label} V={V} D={D} Hn={hot_ids.numel()} T={T} "
           f"{table.dtype}: {n_cold_rows} cold rows, {nbytes} bytes, {res}")
     return res
 
@@ -650,6 +673,27 @@ def conformance_phase() -> None:
                   f"host's")
 
 
+def kernel_times(torch, fn, calls: int = 20) -> dict:
+    """Device microseconds per ``fn()`` call by kernel function name
+    (torch.profiler over ``calls`` calls after a warm-up); empty when the
+    trace holds no device time."""
+    from torch.profiler import ProfilerActivity, profile as prof_
+    fn()
+    torch.cuda.synchronize()
+    with prof_(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", 0)
+        name = re.search(r"(\w+)(<[^(]*>)?\(", e.key)
+        if us > 0 and name:
+            key = name.group(1)
+            out[key] = out.get(key, 0.0) + us / calls
+    return out
+
+
 def time_ssd_scan(torch, ssd_scan_cuda, ssd_scan_ref, args, kw):
     x, dt, A, Bm, Cm = args
     chunk, init = kw["chunk"], kw["init_state"]
@@ -670,7 +714,11 @@ def time_ssd_scan(torch, ssd_scan_cuda, ssd_scan_ref, args, kw):
     nbytes = (2 * x.numel() * elt + dt.numel() * 4 + A.numel() * 4
               + (Bm.numel() + Cm.numel()) * elt
               + (2 if init is not None else 1) * B * H * P * N * 4)
-    t_ops, t_bytes = 2 * macs / F32_FLOP_PER_S, nbytes / HBM_BYTES_PER_S
+    # the same work to the same tolerance on the tensor cores: three TF32
+    # products (3xTF32) for each f32 one; on the CUDA cores beside it
+    t_ops = 3 * 2 * macs / TF32_FLOP_PER_S
+    t_cuda_cores = 2 * macs / F32_FLOP_PER_S
+    t_bytes = nbytes / HBM_BYTES_PER_S
     from repro_torch.kernels import ops
     n0 = ops.launches().get("ssd_scan", 0)
     res = {
@@ -685,6 +733,13 @@ def time_ssd_scan(torch, ssd_scan_cuda, ssd_scan_ref, args, kw):
              (("kernel", kern), ("plain", plain))}
     print(f"[time] ssd_scan eager calls, host enqueue included (ms): "
           f"{eager}")
+    passes = kernel_times(torch, kern)
+    print(f"[time] ssd_scan passes, device us per call: "
+          f"{ {k: round(v, 1) for k, v in passes.items()} or 'not measured'}")
+    print(f"[time] ssd_scan bound: {t_ops * 1e3:.4f} ms by 3xTF32 operations "
+          f"at {TF32_FLOP_PER_S / 1e12:.0f} TFLOP/s, {t_bytes * 1e3:.4f} ms "
+          f"by bytes; {t_cuda_cores * 1e3:.4f} ms on the CUDA cores at "
+          f"{F32_FLOP_PER_S / 1e12:.0f} TFLOP/s")
     print(f"[time] ssd_scan B={B} S={S} H={H} P={P} N={N} G={G} "
           f"chunk={chunk} {x.dtype}: {2 * macs / 1e9:.2f} GFLOP, "
           f"{nbytes / 1e6:.1f} MB, max |y - plain| {dy:.3e}, max |state - "
@@ -1065,6 +1120,16 @@ def main() -> int:
     timing = {"hot_gather": time_hot_gather(torch, hot_gather_cuda,
                                             hot_gather_ref, table, hot_ids,
                                             idx)}
+    # the serving shape with every other token replaced by a cold id
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    cold = torch.arange(table.shape[0], device="cuda", dtype=torch.int32)
+    cold = cold[~torch.isin(cold, hot_ids)]
+    half_cold = idx.clone()
+    half_cold[::2] = cold[torch.randint(0, cold.numel(),
+                                        (half_cold[::2].numel(),),
+                                        generator=gen, device="cuda")]
+    time_hot_gather(torch, hot_gather_cuda, hot_gather_ref, table, hot_ids,
+                    half_cold, label="half cold")
     timing["ssd_scan"], path_err = time_ssd_scan(
         torch, ssd_scan_cuda, ssd_scan_ref, ssd_args, ssd_kw)
     err["ssd_scan"] = max(err["ssd_scan"], path_err)

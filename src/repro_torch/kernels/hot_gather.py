@@ -2,9 +2,11 @@
 
 Replaces the Pallas TPU kernel ``repro/kernels/hot_gather.py``
 (``hot_gather_kernel``).  The source is ``csrc/hot_gather.cu``; its
-header says how the design follows from the card (the hot set is staged
-in shared memory per D-tile; cold rows come from device memory).  The
-function is bound by bytes moved: it copies rows and computes nothing.
+header says how the design follows from the card (one warp per token and
+row slice resolves the hit by a ballot over ``hot_ids`` and copies from
+``hot_rows``, which stay in L2, or from the table; nothing is staged).
+The function is bound by bytes moved: it copies rows and computes
+nothing.
 
 :func:`hot_gather_cuda` is the wrapper: it checks its inputs, allocates
 the output, launches on the current stream and counts the launch in

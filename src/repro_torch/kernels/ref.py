@@ -172,6 +172,95 @@ def ssd_scan_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     return torch.cat(ys, dim=1)[:, :S_orig], state
 
 
+def round_tf32(t: torch.Tensor) -> torch.Tensor:
+    """f32 -> the nearest TF32 value (10 mantissa bits), ties away from
+    zero: the card's ``cvt.rna.tf32.f32``, as a mask of the low 13 bits of
+    the rounded bit pattern."""
+    bits = t.to(torch.float32).contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def matmul_tf32(a: torch.Tensor, b: torch.Tensor,
+                terms: int = 3) -> torch.Tensor:
+    """``a @ b`` (f32) as the tensor cores compute it from TF32 inputs.
+    ``terms=3`` is the 3xTF32 split: each operand is ``hi + lo`` with
+    both TF32, and ``lo . hi + hi . lo + hi . hi`` is summed in f32 (the
+    ``lo . lo`` term, ~2^-22 of the product, is dropped).  ``terms=1`` is
+    plain TF32, ``hi . hi`` alone."""
+    ah, bh = round_tf32(a), round_tf32(b)
+    if terms == 1:
+        return ah @ bh
+    al, bl = round_tf32(a - ah), round_tf32(b - bh)
+    return (al @ bh + ah @ bl) + ah @ bh
+
+
+def ssd_scan_blocked_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                         Bm: torch.Tensor, Cm: torch.Tensor, chunk: int,
+                         init_state: Optional[torch.Tensor] = None, *,
+                         tf32_terms: int = 3
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """What the ``ssd_scan`` CUDA kernel computes, in plain PyTorch: the
+    function of :func:`ssd_scan_ref` in the kernel's three passes and with
+    its tensor-core arithmetic (:func:`matmul_tf32`, ``tf32_terms`` TF32
+    products a term).
+
+    1. Per chunk and head, in parallel: ``da_cs``, the weights ``w_q =
+       exp(da_tot - da_cs_q) dt_q`` and the chunk's own state increment
+       ``(w x)^T . B``.
+    2. The state pass, the only sequential part: ``s <- s exp(da_tot) +
+       increment``, giving the state entering each chunk.
+    3. Per chunk: ``C . B^T`` once per group (the kernel forms it once per
+       block of heads that share the group, which gives the same values),
+       then per head ``L = (C . B^T) exp(da_cs_i - da_cs_j) dt_j`` masked
+       to ``j <= i`` before the exp, and ``y = exp(da_cs_i) (C . state^T)
+       + L . x``.
+
+    bf16 inputs are exact in TF32 (8 mantissa bits of 10), so their low
+    halves are zero.  Only the tests use it."""
+    Bsz, S, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    Q, rep = chunk, H // G
+    f32 = torch.float32
+    nc = -(-S // Q)
+    pad = nc * Q - S
+    # padded steps: dt = 0, x = B = C = 0 (they leave the state alone)
+    xq = F.pad(x.to(f32), (0, 0, 0, 0, 0, pad)).reshape(Bsz, nc, Q, H, P)
+    dtq = F.pad(dt.to(f32), (0, 0, 0, pad)).reshape(Bsz, nc, Q, H)
+    Bq = F.pad(Bm.to(f32), (0, 0, 0, 0, 0, pad)).reshape(Bsz, nc, Q, G, N)
+    Cq = F.pad(Cm.to(f32), (0, 0, 0, 0, 0, pad)).reshape(Bsz, nc, Q, G, N)
+    mm = lambda a, b: matmul_tf32(a, b, tf32_terms)
+    grp = torch.arange(H, device=x.device) // rep
+
+    # pass 1: (B, nc, H, ...) with heads moved before the step axis
+    da_cs = torch.cumsum(dtq * A.to(f32), dim=2).permute(0, 1, 3, 2)
+    dth = dtq.permute(0, 1, 3, 2)                            # (B,nc,H,Q)
+    w = torch.exp(da_cs[..., -1:] - da_cs) * dth
+    xh = xq.permute(0, 1, 3, 2, 4)                           # (B,nc,H,Q,P)
+    Bh = Bq.permute(0, 1, 3, 2, 4)[:, :, grp]                # (B,nc,H,Q,N)
+    Ch = Cq.permute(0, 1, 3, 2, 4)[:, :, grp]
+    inc = mm((xh * w[..., None]).transpose(-1, -2), Bh)     # (B,nc,H,P,N)
+
+    # pass 2
+    s = (torch.zeros((Bsz, H, P, N), dtype=f32, device=x.device)
+         if init_state is None else init_state.to(f32))
+    entering = []
+    for c in range(nc):
+        entering.append(s)
+        s = s * torch.exp(da_cs[:, c, :, -1])[..., None, None] + inc[:, c]
+    states = torch.stack(entering, dim=1)                    # (B,nc,H,P,N)
+
+    # pass 3
+    cb = mm(Cq.permute(0, 1, 3, 2, 4),
+            Bq.permute(0, 1, 3, 4, 2))[:, :, grp]            # (B,nc,H,Q,Q)
+    tri = torch.ones((Q, Q), dtype=torch.bool, device=x.device).tril()
+    seg = torch.where(tri, da_cs[..., :, None] - da_cs[..., None, :], 0.0)
+    L = torch.where(tri, cb * torch.exp(seg) * dth[..., None, :], 0.0)
+    y = (mm(Ch, states.transpose(-1, -2)) * torch.exp(da_cs)[..., None]
+         + mm(L, xh))                                        # (B,nc,H,Q,P)
+    y = y.permute(0, 1, 3, 2, 4).reshape(Bsz, nc * Q, H, P)[:, :S]
+    return y.to(x.dtype), s
+
+
 def ssd_decode_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                    Bm: torch.Tensor, Cm: torch.Tensor, state: torch.Tensor
                    ) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -3,8 +3,12 @@
 Replaces the Pallas TPU kernel ``repro/kernels/ssd_scan.py``
 (``ssd_scan_kernel``).  The source is ``csrc/ssd_scan.cu``; its header
 says how the design follows from the card (chunks in parallel, a short
-sequential pass over the carried state, 64-row output blocks that never
-hold the whole Q x Q matrix).  The function is bound by operations.
+sequential pass over the carried state, 32-row output strips that form
+C.B^T once for a block of heads sharing a group, every product on the
+tensor cores with the 3xTF32 split).  The function is bound by
+operations.  Its arithmetic in plain PyTorch is
+:func:`~.ref.ssd_scan_blocked_ref`, which the CPU tests hold against the
+JAX package.
 
 :func:`ssd_scan_cuda` is the wrapper: it checks its inputs, allocates
 the outputs and scratch, launches on the current stream and counts the
@@ -26,7 +30,7 @@ from .hot_gather import LAUNCHES
 from .ref import ssd_scan_ref  # noqa: F401  (the plain version)
 
 SUPPORTED_DTYPES = (torch.float32, torch.bfloat16)
-MAX_P, MAX_N, MAX_CHUNK = 64, 128, 1024   # the kernel's register tiles
+MAX_P, MAX_N, MAX_CHUNK = 64, 128, 1024   # the kernel's warp tiles
 
 
 def _lib() -> ctypes.CDLL:

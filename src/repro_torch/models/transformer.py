@@ -173,6 +173,13 @@ def init_lm_cache(cfg: ModelConfig, batch: int, cap: int, device="cuda"):
 # Whole-model forward
 # ---------------------------------------------------------------------------
 
+def _capacity(cache) -> int:
+    """Slots of a cache tree from ``init_lm_cache`` (every layer's the same)."""
+    layer = (cache["prefix0"] if "prefix0" in cache
+             else next(iter(cache["blocks"].values())))
+    return layer["kv"]["pos"].shape[-1]
+
+
 def lm_forward(params, cfg: ModelConfig, tokens: torch.Tensor,
                start: int = 0, cache=None,
                media_embeds: Optional[torch.Tensor] = None,
@@ -195,6 +202,10 @@ def lm_forward(params, cfg: ModelConfig, tokens: torch.Tensor,
         raise ValueError(
             f"a step at position {start} would leave a gap: the cache holds "
             f"the contiguous positions 0..{cache['filled'] - 1}")
+    if cache is not None and start + S > _capacity(cache):
+        raise ValueError(
+            f"a step writing positions {start}..{start + S - 1} overflows "
+            f"the cache's {_capacity(cache)} slots")
     x = embed(params["embed"], tokens)
 
     # dense layers only (the rest raise): no aux loss, nothing dropped

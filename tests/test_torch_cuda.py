@@ -16,7 +16,7 @@ SHAPES = [(64, 16, 4, 32), (512, 64, 8, 100), (128, 32, 1, 7),
           (32064, 4096, 32, 512),
           # every access width: 12-byte f32 rows, 10-byte bf16 rows
           (40, 3, 5, 64), (40, 5, 5, 64),
-          # a hot set too large to stage in shared memory
+          # a hot set of many ballot steps
           (8192, 8, 4000, 300),
           (16, 8, 2, 0)]
 
@@ -61,6 +61,34 @@ def test_hot_gather_kernel_clamps_out_of_range_ids(cuda):
     out = ops.hot_gather(table, rows, hot_ids, idx)
     assert torch.equal(out, table[idx.clamp(0, 15).long()])
     assert torch.equal(out, TR.hot_gather_ref(table, rows, hot_ids, idx))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("V,D,Hn,T", [(64, 16, 40, 200),
+                                      (32064, 4096, 32, 512),
+                                      (512, 33, 2, 64)])
+def test_hot_gather_kernel_duplicate_hot_ids_and_half_cold(cuda, V, D, Hn, T,
+                                                           dtype):
+    """Each of Hn / 2 hot ids appears twice (the first position wins, and
+    the rows at the two positions differ), Hn = 40 past one 32-id ballot
+    step, and half the tokens cold: equal to the plain version and
+    index_select."""
+    rng = np.random.default_rng(7)
+    table = torch.from_numpy(rng.standard_normal((V, D)).astype(
+        np.float32)).to(device=cuda, dtype=dtype)
+    ids = rng.choice(V, Hn // 2, replace=False).astype(np.int32)
+    hot_ids = np.concatenate([ids, ids[::-1]])
+    cold = np.setdiff1d(np.arange(V), ids)
+    idx = np.where(rng.random(T) < 0.5, rng.choice(ids, T),
+                   rng.choice(cold, T)).astype(np.int32)
+    hot_ids, idx = (torch.from_numpy(a).to(cuda) for a in (hot_ids, idx))
+    rows = table.index_select(0, hot_ids).clone()
+    rows[Hn // 2:] = -rows[Hn // 2:]     # a later duplicate would show
+    out = ops.hot_gather(table, rows, hot_ids, idx)
+    torch.cuda.synchronize()
+    assert torch.equal(out, TR.hot_gather_ref(table, rows, hot_ids, idx))
+    assert torch.equal(out, table.index_select(0, idx))
 
 
 @pytest.mark.cuda
@@ -166,6 +194,55 @@ def test_ssd_scan_kernel_is_deterministic_and_zero_init_is_none(cuda):
     y1, f1 = ops.ssd_scan(x, dt, A, Bm, Cm, chunk=32,
                           init_state=torch.zeros_like(f0))
     y2, f2 = ops.ssd_scan(x, dt, A, Bm, Cm, chunk=32)
+    assert torch.equal(y0, y1) and torch.equal(f0, f1)
+    assert torch.equal(y0, y2) and torch.equal(f0, f2)
+
+
+# head blocks (B, S, H, P, N, chunk, G): H/G = 1, 2, 8 and 6 heads a group
+# (the kernel takes hblk = the largest divisor of H/G up to 8: 1, 2, 8,
+# 6), S ragged against the chunk; then chunks past the 256 source steps
+# whose C.B^T a block keeps (the scores are recomputed per head there)
+SSD_HEAD_BLOCKS = [(2, 200, 4, 32, 64, 64, 4), (2, 200, 8, 32, 64, 64, 4),
+                   (1, 300, 16, 64, 128, 128, 2), (1, 150, 12, 16, 32, 64, 2)]
+SSD_LONG_CHUNKS = [(1, 700, 4, 32, 64, 512, 2), (1, 1100, 2, 16, 32, 1024, 1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,H,P,N,chunk,G",
+                         SSD_HEAD_BLOCKS + SSD_LONG_CHUNKS)
+def test_ssd_scan_kernel_head_blocks_and_long_chunks(cuda, B, S, H, P, N,
+                                                      chunk, G, dtype):
+    """y within SSD_TOL of chip_smoke.py: f32 at the serving widths
+    (N = 128, a carried state) normwise, 1e-4 * max|y_plain|, since there
+    y sums 128-term products of both signs over chunks whose running
+    sums of dt*A reach ~100, and the order of that running sum alone (the
+    kernel's 32 fixed runs against torch.cumsum) moves single elements
+    past an elementwise 2e-5; the other shapes elementwise as above."""
+    x, dt, A, Bm, Cm, s0 = _ssd_inputs(B, S, H, P, N, G, dtype, cuda,
+                                       seed=5, init=True)
+    y, fin = ops.ssd_scan(x, dt, A, Bm, Cm, chunk=chunk, init_state=s0)
+    yr, finr = TR.ssd_scan_ref(x, dt, A, Bm, Cm, chunk, init_state=s0)
+    if dtype == torch.float32 and N == 128:
+        err = (y - yr).abs().max().item()
+        assert err <= 1e-4 * yr.abs().max().item(), err
+    else:
+        torch.testing.assert_close(y.float(), yr.float(),
+                                   **_ssd_tol(dtype, N, chunk))
+    torch.testing.assert_close(fin, finr, rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_scan_kernel_head_blocks_repeat_bits(cuda, dtype):
+    """8 heads a block and two blocks a group, a ragged last chunk: the
+    same bits call to call, and a None init equal to a zero one."""
+    x, dt, A, Bm, Cm, _ = _ssd_inputs(2, 600, 32, 64, 128, 2, dtype, cuda,
+                                      seed=6)
+    y0, f0 = ops.ssd_scan(x, dt, A, Bm, Cm, chunk=256)
+    y1, f1 = ops.ssd_scan(x, dt, A, Bm, Cm, chunk=256,
+                          init_state=torch.zeros_like(f0))
+    y2, f2 = ops.ssd_scan(x, dt, A, Bm, Cm, chunk=256)
     assert torch.equal(y0, y1) and torch.equal(f0, f1)
     assert torch.equal(y0, y2) and torch.equal(f0, f2)
 

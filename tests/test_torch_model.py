@@ -275,6 +275,24 @@ def test_decode_step_raises_on_a_gap_and_rolls_back_exactly():
     assert cache["filled"] == 12
 
 
+def test_decode_step_raises_on_a_full_cache_and_writes_nothing():
+    """A step past the cache's capacity raises before any write (the
+    reference's dynamic_update_slice clamps it silently onto the last
+    slot, models/attention.py:230-235)."""
+    _, _, tm, tp = _reference("llama3-8b", f32=True)
+    toks = torch.from_numpy(_tokens(tm.cfg, 1, 9))
+    cache = tm.init_cache(1, 8, device="cpu")
+    _, cache = tm.prefill(tp, cache, {"tokens": toks[:, :8]})
+    before = {key: {n: t.clone() for n, t in blk["kv"].items()}
+              for key, blk in cache["blocks"].items()}
+    with pytest.raises(ValueError, match="overflows the cache's 8 slots"):
+        tm.decode_step(tp, cache, toks[:, 8:9], 8)
+    assert cache["filled"] == 8
+    for key, blk in cache["blocks"].items():
+        for n in ("k", "v", "pos"):
+            assert torch.equal(blk["kv"][n], before[key][n]), (key, n)
+
+
 def test_unported_branches_raise():
     for arch in ("mamba2-1.3b", "jamba-v0.1-52b", "phi3.5-moe-42b-a6.6b",
                  "deepseek-v2-236b"):
