@@ -33,6 +33,22 @@
    specialized output must equal the generic oracle bit for bit, a
    control update must deopt, and a second recompile must restore the
    plan.
+3b. Frontend phase over the serving phase's params (no copy): a fresh
+   specialized runtime and a fresh generic oracle (the DeadCodePass-only
+   registry of the conformance harness).  ``step_many`` at K 1, 2, 4
+   beside ``step`` on full buckets of 8 and 16 (ms per step); then
+   ``ServingFrontend`` on its batcher thread under an ``OpenLoopDriver``:
+   384 requests of Poisson arrivals at half the measured capacity C
+   (16 requests over the bucket-16 K-1 step time), a blocking recompile
+   from the arrival profile, 384 more under ON/OFF arrivals.  Per run it
+   prints offered and achieved req/s, the request accounting, SLO
+   attainment, latency quantiles, windows by (bucket, K), the pad share
+   and locked stats calls per window.  It fails unless every request is
+   accounted with none failed, the recompiled plan holds ``hot_cache``
+   at ``vocab_embed#0``, ``moe_fastpath`` and the
+   ``__frontend__#batch_shape`` site, ``hot_gather`` launched, and every
+   call the runtime ran, replayed on the oracle, gives equal outputs
+   and tables bit for bit.
 4. Arch-zoo phase at the full width of mamba2-1.3b
    (``src/repro/configs/mamba2_1p3b.py``; its plane's one distinct block,
    as the plane compresses depth; seq 1024 = 4 chunks, batch 4): generic
@@ -42,13 +58,14 @@
    bit on a fresh batch (the fast branch) and a warm one (the gather
    branch), a warming control update that must deopt, and a recompile
    that must decline ``ssd_fastpath``.
-   Phases 3 and 4 each zero the launch counts just before and read them
+   Phases 3, 3b and 4 each zero the launch counts just before and read them
    just after, and fail unless every kernel of their path launched; both
    print ms/step (host clock, synchronized), a torch.profiler breakdown
    of device time by kernel, and phase 4 the host syncs per step.
-5. Conformance on the card: ``run_conformance(arch, "plain", seed=0)``
-   for mamba2-1.3b and jamba-v0.1-52b at smoke scale; mamba2's report
-   must equal the same run's on the host.
+5. Conformance on the card at smoke scale: ``run_conformance`` of
+   mamba2-1.3b in the plain, fused and frontend modes, jamba-v0.1-52b
+   plain and phi3.5-MoE fused; each mamba2 report must equal the same
+   run's on the host.
 6. Each kernel timed on the inputs its main path gave it (device time:
    calls captured in a CUDA graph, replays timed with CUDA events),
    beside its plain version, its library call where one exists, and its
@@ -398,14 +415,217 @@ def serving_phase(torch, ops):
               f"{ {k: v for k, v in snap.items() if isinstance(v, int)} }")
         print(f"[serve] recompile cycles (s): t1 {snap['t1_history']} "
               f"t2 {snap['t2_history']} swap {snap['swap_history']}")
-        # the main path's own hot_gather inputs, for timing
+        # the main path's own hot_gather inputs, for timing, and the
+        # params for the frontend phase
         table = rt.state.tables["vocab_embed"]["vec"]
         hot_ids = torch.tensor(dict(rt.plan.sites)["vocab_embed#0"].hot_keys,
                                dtype=torch.int32, device="cuda")
         idx = b["tokens"].reshape(-1).contiguous()
-        return table, hot_ids, idx
+        return table, hot_ids, idx, cfg, params
     finally:
         rt.close()
+
+
+def frontend_phase(torch, cfg, params) -> None:
+    """The request path at the serving phase's full width: requests
+    through ``ServingFrontend`` over a fresh specialized runtime built on
+    the serving phase's params (no copy), every window the runtime ran
+    replayed on a fresh generic oracle (the DeadCodePass-only registry
+    conformance uses) and held to it bit for bit."""
+    from repro_torch.core import BATCH_SHAPE_SITE, EngineConfig, \
+        MorpheusRuntime, PassRegistry, SketchConfig, plan_batch_shape
+    from repro_torch.core.passes.dead_code import DeadCodePass
+    from repro_torch.serving import build_tables, make_request_batch, \
+        make_request_rows, make_serve_step, make_synthetic_batch
+    from repro_torch.serving.frontend import FrontendConfig, \
+        OpenLoopDriver, ServingFrontend, bursty_onoff_gaps, poisson_gaps
+
+    t0 = time.perf_counter()
+    sketch = dict(sample_every=4, max_hot=32, hot_coverage=0.8)
+    features = {"vision_enabled": False, "track_sessions": True}
+    example = make_synthetic_batch(cfg, seed=0)
+    spec = MorpheusRuntime(
+        make_serve_step(cfg), build_tables(cfg), params, example,
+        cfg=EngineConfig(sketch=SketchConfig(**sketch),
+                         features=dict(features), moe_router_table="router"))
+    oracle = MorpheusRuntime(
+        make_serve_step(cfg), build_tables(cfg), params, example,
+        cfg=EngineConfig(sketch=SketchConfig(**sketch),
+                         features=dict(features),
+                         passes=PassRegistry((DeadCodePass(),))))
+    # everything the specialized runtime runs is captured, in order, with
+    # its table version after the call (frontend mispredict deopts bump it)
+    captured = []
+    real_many, real_step = spec.step_many, spec.step
+
+    def tap_many(batches, k=None):
+        out = real_many(batches, k=k)
+        captured.append((batches, k, out, spec.tables.version))
+        return out
+
+    def tap_step(batch):
+        out = real_step(batch)
+        captured.append((batch, None, out, spec.tables.version))
+        return out
+
+    def mirror(v):
+        while oracle.tables.version < v:
+            oracle.tables.bump_version("mirror")
+
+    def replay(label: str) -> int:
+        n = len(captured)
+        for batch, k, out, v in captured:
+            mirror(v)
+            ref = (oracle.step(batch) if k is None
+                   else oracle.step_many(batch, k=k))
+            check(torch.equal(out, ref),
+                  f"frontend {label}: a window differs from the oracle's "
+                  f"replay")
+        captured.clear()
+        mirror(spec.tables.version)
+        for name, fields in spec.state.tables.items():
+            for f, v in fields.items():
+                check(torch.equal(v, oracle.state.tables[name][f]),
+                      f"frontend {label}: table {name}.{f} differs from "
+                      f"the oracle's")
+        print(f"[frontend] {label}: {n} calls replayed on the generic "
+              f"oracle, outputs and tables equal bit for bit")
+        return n
+
+    spec.step_many, spec.step = tap_many, tap_step
+    fe = None
+    try:
+        torch.cuda.synchronize()
+        print(f"[frontend] two runtimes over the serving phase's params "
+              f"(specialized, and a DeadCodePass-only oracle): "
+              f"{time.perf_counter() - t0:.1f} s")
+
+        # 1. fused windows against single steps, full buckets
+        def timed(fn, n: int = 8) -> float:
+            fn()                                 # builds its executable
+            ts = []
+            for _ in range(n):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                ts.append(time.perf_counter() - t)
+            return statistics.median(ts) * 1e3
+
+        rows = make_request_rows(cfg, 100, 16, locality="high")
+        per_step = {}
+        for bucket in (8, 16):
+            b = spec.place_batch(make_request_batch(rows[:bucket], bucket))
+            line = {"step": timed(lambda: spec.step(b))}
+            for k in (1, 2, 4):
+                w = spec.place_batch([b] * k, fused=True)
+                line[f"K{k}"] = timed(lambda: spec.step_many(w, k=k)) / k
+            per_step[bucket] = line
+            print(f"[frontend] bucket {bucket} x seq {cfg.seq}, ms per step "
+                  f"(host clock, synchronized, median of 8 calls): "
+                  f"{ {k: round(v, 3) for k, v in line.items()} }")
+            replay(f"timing, bucket {bucket}")
+        step_s = per_step[16]["K1"] / 1e3
+        capacity = 16 / step_s
+        print(f"[frontend] capacity C = 16 / {step_s * 1e3:.3f} ms = "
+              f"{capacity:.1f} req/s (bucket 16, K 1)")
+
+        # 2. open loop: Poisson, a blocking recompile, then ON/OFF
+        fe = ServingFrontend(spec, FrontendConfig(
+            capacity=256, max_batch=16, max_wait_s=2e-3, window_k_max=4,
+            inflight=2, default_slo_s=20 * step_s), keep_outputs=False)
+        fe.start()
+        reqs = make_request_rows(cfg, 0, 768, locality="high")
+        rate = 0.5 * capacity
+        series = ("request_total_s", "request_queue_wait_s",
+                  "request_batch_wait_s", "request_execute_s")
+        keys = ("requests_submitted", "requests_completed",
+                "requests_rejected", "requests_shed", "requests_failed",
+                "slo_met", "slo_missed", "pad_rows", "batches_formed",
+                "locked_calls", "steps", "deopt_steps", "instr_steps")
+
+        def open_loop(label: str, payloads, gaps) -> None:
+            spec.stats.reset_hist(*series)
+            before = spec.stats.snapshot()
+            n0 = len(captured)
+            driver = OpenLoopDriver([fe], payloads, gaps)
+            t = time.perf_counter()
+            driver.start()
+            driver.join(timeout=300)
+            check(fe.drain(timeout=300), f"frontend {label}: no drain")
+            wall = time.perf_counter() - t
+            after = spec.stats.snapshot()
+            d = {k: after[k] - before[k] for k in keys}
+            check(d["requests_submitted"] == len(payloads),
+                  f"frontend {label}: submitted {d}")
+            check(d["requests_submitted"] == d["requests_completed"]
+                  + d["requests_rejected"] + d["requests_shed"]
+                  + d["requests_failed"], f"frontend {label}: accounting {d}")
+            check(d["requests_failed"] == 0, f"frontend {label}: failed {d}")
+            windows = {}
+            for batch, k, _, _ in captured[n0:]:
+                key = (int(batch["tokens"].shape[1]), k)
+                windows[key] = windows.get(key, 0) + 1
+            n_win = len(captured) - n0
+            pad = d["pad_rows"] / max(d["pad_rows"] + d["requests_completed"],
+                                      1)
+            q = lambda name, p: spec.stats.quantile(name, p) * 1e3
+            slo = d["slo_met"] + d["slo_missed"]
+            # the driver's sleeps slip behind the batcher thread's GIL
+            # hold, so the arrivals' own span gives the rate that came
+            ts = [r.arrival_ts for r in driver.requests]
+            arrived = (len(ts) - 1) / (ts[-1] - ts[0])
+            print(f"[frontend] {label}: offered {rate:.1f} req/s, arrived "
+                  f"{arrived:.1f} req/s, achieved "
+                  f"{d['requests_completed'] / wall:.1f} req/s over {wall:.2f}"
+                  f" s; submitted {d['requests_submitted']}, completed "
+                  f"{d['requests_completed']}, rejected "
+                  f"{d['requests_rejected']}, shed {d['requests_shed']}, "
+                  f"failed {d['requests_failed']}; SLO "
+                  f"{20 * step_s * 1e3:.1f} ms met "
+                  f"{d['slo_met'] / max(slo, 1):.1%}")
+            print(f"[frontend] {label}: request_total_s p50 "
+                  f"{q('request_total_s', 0.5):.3f} ms, p99 "
+                  f"{q('request_total_s', 0.99):.3f} ms; p50 queue wait "
+                  f"{q('request_queue_wait_s', 0.5):.3f} ms, batch wait "
+                  f"{q('request_batch_wait_s', 0.5):.3f} ms, execute "
+                  f"{q('request_execute_s', 0.5):.3f} ms")
+            print(f"[frontend] {label}: {n_win} windows by (bucket, K) "
+                  f"{dict(sorted(windows.items()))}; pad rows {pad:.1%}; "
+                  f"locked_calls per window "
+                  f"{d['locked_calls'] / max(n_win, 1):.2f} (requests per "
+                  f"window {d['requests_completed'] / max(n_win, 1):.2f}); "
+                  f"deopt steps {d['deopt_steps']}, instrumented steps "
+                  f"{d['instr_steps']}")
+
+        open_loop("run 1 (Poisson)", reqs[:384], poisson_gaps(rate, 384, 0))
+        replay("run 1")
+        info = spec.recompile(block=True)
+        oracle.recompile(block=True)
+        mirror(spec.tables.version)
+        sites = dict(spec.plan.sites)
+        vocab = sites.get("vocab_embed#0")
+        check(vocab is not None and vocab.impl == "hot_cache",
+              f"frontend recompile: vocab_embed#0 planned {vocab}")
+        check(spec.hot_experts() is not None,
+              f"frontend recompile: no moe_fastpath on router: {sites}")
+        check(BATCH_SHAPE_SITE in sites,
+              f"frontend recompile: no {BATCH_SHAPE_SITE}: {sites}")
+        print(f"[frontend] recompile from the profile: BatchShapePass "
+              f"selected (buckets, K) = {plan_batch_shape(spec.plan)}; plan "
+              f"{ {k: v.impl for k, v in sites.items()} }, hot_experts="
+              f"{spec.hot_experts()}, passes {info['pass_stats']}")
+        open_loop("run 2 (ON/OFF)", reqs[384:],
+                  bursty_onoff_gaps(rate, 384, 1))
+        fe.stop()
+        fe = None
+        replay("run 2")
+    finally:
+        if fe is not None:
+            fe.stop(drain=False)
+        del spec.step_many, spec.step
+        spec.close()
+        oracle.close()
 
 
 def time_hot_gather(torch, hot_gather_cuda, hot_gather_ref, table, hot_ids,
@@ -658,19 +878,23 @@ def archzoo_phase(torch, ops):
 
 
 def conformance_phase() -> None:
-    """The differential harness on the card at smoke scale; mamba2's
-    report (weights play no part in its plans) must equal the host's."""
+    """The differential harness on the card at smoke scale, in every
+    serving mode; mamba2's reports (weights play no part in its plans)
+    must equal the host's."""
     from repro_torch.testing import run_conformance
-    for arch in ("mamba2-1.3b", "jamba-v0.1-52b"):
+    for arch, mode in (("mamba2-1.3b", "plain"), ("jamba-v0.1-52b", "plain"),
+                       ("mamba2-1.3b", "fused"), ("mamba2-1.3b", "frontend"),
+                       ("phi3.5-moe-42b-a6.6b", "fused")):
         t = time.perf_counter()
-        rep = run_conformance(arch, "plain", seed=0)
-        print(f"[conformance] {arch} plain on the card "
+        rep = run_conformance(arch, mode, seed=0)
+        print(f"[conformance] {arch} {mode} on the card "
               f"({time.perf_counter() - t:.1f} s): {rep}")
         if arch == "mamba2-1.3b":
-            host = run_conformance(arch, "plain", seed=0, device="cpu")
-            check(rep == host, f"{arch}: card report != host report {host}")
-            print(f"[conformance] {arch}: the card's report equals the "
-                  f"host's")
+            host = run_conformance(arch, mode, seed=0, device="cpu")
+            check(rep == host,
+                  f"{arch} {mode}: card report != host report {host}")
+            print(f"[conformance] {arch} {mode}: the card's report equals "
+                  f"the host's")
 
 
 def kernel_times(torch, fn, calls: int = 20) -> dict:
@@ -1096,10 +1320,8 @@ def main() -> int:
 
     # each main path: counts zeroed just before it, read just after it
     launches = {}
-    for phase, run, kernels in (
-            ("serving", lambda: serving_phase(torch, ops), ("hot_gather",)),
-            ("archzoo", lambda: archzoo_phase(torch, ops),
-             ("ssd_scan", "hot_gather"))):
+
+    def main_path(phase, run, kernels):
         ops.reset_launches()
         t = time.perf_counter()
         out = run()
@@ -1110,10 +1332,18 @@ def main() -> int:
             check(counts.get(name, 0) > 0,
                   f"{name} never launched in the {phase} phase")
             launches[name] = launches.get(name, 0) + counts[name]
-        if phase == "serving":
-            table, hot_ids, idx = out
-        else:
-            ssd_args, ssd_kw = out
+        return out
+
+    table, hot_ids, idx, serve_cfg, serve_params = main_path(
+        "serving", lambda: serving_phase(torch, ops), ("hot_gather",))
+    main_path("frontend",
+              lambda: frontend_phase(torch, serve_cfg, serve_params),
+              ("hot_gather",))
+    del serve_params
+    gc.collect()
+    torch.cuda.empty_cache()
+    ssd_args, ssd_kw = main_path("archzoo", lambda: archzoo_phase(torch, ops),
+                                 ("ssd_scan", "hot_gather"))
 
     conformance_phase()
 
@@ -1135,7 +1365,7 @@ def main() -> int:
     err["ssd_scan"] = max(err["ssd_scan"], path_err)
 
     # the earlier phases' tensors go before the model's 18.5 GB of params
-    del table, hot_ids, idx, ssd_args, ssd_kw, out
+    del table, hot_ids, idx, ssd_args, ssd_kw
     gc.collect()
     torch.cuda.empty_cache()
     ops.reset_launches()

@@ -10,7 +10,7 @@ from .instrument import SketchConfig, SketchDoubleBuffer
 from .passes import BATCH_SHAPE_SITE, BatchShapePass, PassRegistry, \
     SpecializationPass, SSDFastPathPass, default_registry, \
     plan_batch_shape
-from .runtime import MorpheusRuntime, RuntimeStats
+from .runtime import MorpheusRuntime, RuntimeStats, stack_batches
 from .snapshot import TableSnapshotWorker, VersionedSnapshot
 from .specialize import GENERIC_PLAN, SiteSpec, SpecializationPlan
 from .state import PlaneState

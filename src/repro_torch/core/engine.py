@@ -154,15 +154,18 @@ class MorpheusEngine:
 
     # ---- §4.2 + §4.3: read instrumentation, run the registry ---------------
     def build_plan(self, instr_state, instrumented: bool = False,
-                   snapshot=None, version: Optional[int] = None
+                   snapshot=None, version: Optional[int] = None,
+                   profile: Optional[Dict[str, Any]] = None
                    ) -> Tuple[SpecializationPlan, float, Dict]:
         """Plan a specialized executable from host copies of the
         instrumentation sketches (site id -> numpy sketch state) and a
         table snapshot.  ``snapshot``/``version`` inject a pre-taken
         snapshot and must be passed together: the plan is stamped with
         the snapshot's version, so a control update racing past it deopts
-        the plan through the program guard.  Returns ``(plan,
-        t1_seconds, pass_stats)``."""
+        the plan through the program guard.  ``profile`` is an optional
+        request-level traffic snapshot (the serving frontend's arrival
+        profile), exposed to plan-level passes as ``PlanInputs.profile``.
+        Returns ``(plan, t1_seconds, pass_stats)``."""
         assert self._analyzed
         t0 = time.time()
         if snapshot is None:
@@ -184,7 +187,8 @@ class MorpheusEngine:
 
         inputs = PlanInputs(mutability=dict(self.mutability),
                             hot_stats=hot_stats, sketch=self.cfg.sketch,
-                            features=dict(self.cfg.features))
+                            features=dict(self.cfg.features),
+                            profile=profile)
         draft = self.registry.build(self.sites, snapshot, inputs)
         specs = {sid: spec for sid, spec in draft.specs.items()
                  if spec is not None}
@@ -221,15 +225,39 @@ class MorpheusEngine:
             return out, ctx.outputs()
         return step
 
-    def compile(self, plan: SpecializationPlan,
-                state: PlaneState) -> Tuple[Callable, float]:
+    def make_fused_step_fn(self, plan: SpecializationPlan, k: int,
+                           consts: Optional[Dict] = None) -> Callable:
+        """The fused K-step variant of :meth:`make_step_fn`: one
+        executable runs K consecutive serving steps, threading the
+        :class:`PlaneState` from each into the next (table writes,
+        sketches and guards accumulate exactly as over K single steps).
+        Every batch field carries a leading window axis of size K, and
+        the step's output (a tensor) comes back stacked the same way.  It is a loop over
+        the plan's one step closure where the reference has a
+        ``lax.scan``, so a window's steps are the single step's
+        arithmetic, bit for bit."""
+        step = self.make_step_fn(plan, consts)
+
+        def fused(params, state: PlaneState, batches):
+            outs = []
+            for j in range(k):
+                out, state = step(params, state,
+                                  {f: v[j] for f, v in batches.items()})
+                outs.append(out)
+            return torch.stack(outs), state
+        return fused
+
+    def compile(self, plan: SpecializationPlan, state: PlaneState,
+                fuse: Optional[int] = None) -> Tuple[Callable, float]:
         """Build the executable for ``plan``: materialize its device
         constants once against ``state``'s tables and close over them.
-        Returns ``(executable, t2_seconds)``; call the executable as
+        ``fuse=K`` builds the fused K-step window instead.  Returns
+        ``(executable, t2_seconds)``; call the executable as
         ``out, new_state = executable(params, state, batch)``."""
         t0 = time.time()
         consts = plan_constants(plan, state.tables, self.device)
-        exe = self.make_step_fn(plan, consts)
+        exe = (self.make_step_fn(plan, consts) if fuse is None
+               else self.make_fused_step_fn(plan, fuse, consts))
         with self._count_lock:
             self.lower_count += 1
             self.compile_count += 1

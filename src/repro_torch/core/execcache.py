@@ -4,10 +4,11 @@ Keying executables by the plan's full ``key`` (which includes the
 TableSet version) would make a control-plane bump or an oscillating hot
 set (A -> B -> A) rebuild code that is behaviorally identical to an
 executable already in hand.  :class:`ExecutableCache` is an LRU map from
-``(namespace, plan signature, batch structure)`` to the executable; the
-signature carries exactly the plan's constants, so every plan that runs
-the same code shares one entry.  One instance can back several runtimes
-(one namespace each unless ``EngineConfig.cache_ns`` opts into sharing).
+``(namespace, plan signature, batch structure[, fused depth])`` to the
+executable; the signature carries exactly the plan's constants, so every
+plan that runs the same code shares one entry.  One instance can back
+several runtimes (one namespace each unless ``EngineConfig.cache_ns``
+opts into sharing).
 
 :meth:`ExecutableCache.get_or_compile` deduplicates in-flight builds per
 key, and :meth:`ExecutableCache.quarantine` poisons plan signatures whose
@@ -38,9 +39,12 @@ class CacheStats:
 
 
 def batch_key(batch: Dict[str, torch.Tensor]) -> Hashable:
-    """Hashable identity of a batch's *structure*: per-field
-    shape/dtype/device."""
-    return tuple((k, tuple(v.shape), str(v.dtype), str(v.device))
+    """Hashable identity of a batch's *structure*: per-field shape and
+    dtype.  The device is the runtime's (every batch is placed there
+    before it is keyed), so a ``device="meta"`` template of a window
+    (see ``runtime._induced_window_avals``) keys as the batches it
+    stands for."""
+    return tuple((k, tuple(v.shape), str(v.dtype))
                  for k, v in sorted(batch.items()))
 
 
@@ -59,11 +63,15 @@ class ExecutableCache:
         self._quarantined: set = set()  # poisoned plan signatures
 
     @staticmethod
-    def make_key(ns: Hashable, signature: Hashable,
-                 bkey: Hashable) -> Hashable:
+    def make_key(ns: Hashable, signature: Hashable, bkey: Hashable,
+                 fuse: Optional[int] = None) -> Hashable:
         """The cache key anatomy: ``(namespace, plan signature, batch
-        structure)``."""
-        return (ns, signature, bkey)
+        structure)``, extended with ``("fuse", K)`` for a fused K-step
+        window, so a window and a single step over the same plan never
+        share an entry."""
+        if fuse is None:
+            return (ns, signature, bkey)
+        return (ns, signature, bkey, ("fuse", fuse))
 
     def __len__(self) -> int:
         with self._lock:

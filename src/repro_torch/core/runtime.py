@@ -29,9 +29,21 @@ commits the fresh state in a second one; writers (the recompile's swap,
 control-plane table refreshes) wait for the in-flight step, mutate under
 the lock and bump the generation counter ``_gen``.
 
-Not ported yet (see ROADMAP.md): fused K-step windows (``step_many``,
-``warm_fused``), the dispatch fault boundary and degraded mode, mesh
-placement, and the request frontend's profile hook.
+:meth:`MorpheusRuntime.step_many` is the fused fast path: one K-step
+executable (a loop over the plan's step closure, in place of the
+reference's ``lax.scan``; cached in the
+:class:`~repro_torch.core.execcache.ExecutableCache` with K in the key)
+takes one claim/commit and one locked stats call per window.  The program
+guard and the sampling decision are hoisted to the window: a control
+update landing mid-window deopts the *next* window.
+:meth:`MorpheusRuntime.place_batch` places a batch (or a stacked window)
+on the device ahead of dispatch; a placed batch is never moved again.
+:meth:`MorpheusRuntime.attach_profile` feeds the serving frontend's
+arrival profile into every recompile cycle's plan inputs.
+
+Not ported yet (see ROADMAP.md): the dispatch fault boundary and
+degraded mode (a step or window that raises aborts its claim and
+re-raises), and mesh placement.
 """
 from __future__ import annotations
 
@@ -41,8 +53,9 @@ import itertools
 import threading
 import time
 import weakref
+from collections import OrderedDict
 from dataclasses import dataclass, field
-from typing import Any, Callable, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -51,18 +64,91 @@ from . import instrument
 from .controller import ControllerConfig, MorpheusController
 from .engine import EngineConfig, MorpheusEngine
 from .execcache import ExecutableCache, batch_key
+from .histogram import StreamingHistogram
+from .passes.batch_shape import plan_batch_shape
 from .snapshot import TableSnapshotWorker, VersionedSnapshot
 from .specialize import SpecializationPlan
 from .state import PlaneState
 from .tables import TableSet
 
 
+def _device_put(batch: Dict[str, Any], device: torch.device
+                ) -> Dict[str, torch.Tensor]:
+    """Move every leaf of one batch to ``device`` (numpy leaves are
+    copied into tensors).  Every batch placement the runtime performs
+    goes through this one function, so tests can count them.  A pageable
+    host tensor is staged by the copy itself, so the caller may drop it
+    as soon as this returns."""
+    out = {}
+    for k, v in batch.items():
+        t = v if isinstance(v, torch.Tensor) else torch.from_numpy(
+            np.array(v))
+        out[k] = t.to(device, non_blocking=True)
+    return out
+
+
+def stack_batches(batches: Sequence[Dict[str, Any]]
+                  ) -> Dict[str, torch.Tensor]:
+    """Stack K same-shaped batches into one batch with a leading window
+    axis: the input of :meth:`MorpheusRuntime.step_many`'s fused
+    executable.  Tensors stack on their own device; other leaves (numpy)
+    stack on the host as numpy, to be placed in one transfer.
+    :meth:`MorpheusRuntime.place_batch` with ``fused=True`` also places
+    the stack ahead of dispatch."""
+    out = {}
+    for f in batches[0]:
+        xs = [b[f] for b in batches]
+        out[f] = (torch.stack(xs)
+                  if all(isinstance(x, torch.Tensor) for x in xs)
+                  else np.stack([np.asarray(x) for x in xs]))
+    return out
+
+
+def _template(batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """A shape/dtype template of a batch: ``device="meta"`` tensors,
+    which hold no storage and key as the batch they stand for."""
+    return {f: torch.empty(v.shape, dtype=v.dtype, device="meta")
+            for f, v in batch.items()}
+
+
+def _induced_window_avals(plan, fused_shapes):
+    """Window shapes a batch-shape-selecting plan will *induce*: when
+    :class:`~repro_torch.core.passes.batch_shape.BatchShapePass` planned
+    ``(buckets, K)``, the batcher forms ``(bucket, k=1)`` windows for
+    every pad bucket plus ``(primary, 2..K)`` overflow chunks, shapes
+    traffic may not have shown yet.  Their templates come from the most
+    recently served window structure by resizing the two leading
+    (window, batch) axes; returns ``[((bkey, k), template), ...]`` for
+    the recompile cycle to precompile beside the shapes already served."""
+    sel = plan_batch_shape(plan)
+    if sel is None or not fused_shapes:
+        return []
+    buckets, kk = sel
+    primary = buckets[-1]
+    want = [(b, 1) for b in buckets]
+    want += [(primary, j) for j in range(2, max(kk, 1) + 1)]
+    _, template = fused_shapes[-1]          # MRU structure
+    if any(v.dim() < 2 for v in template.values()):
+        return []                           # not a stacked batch
+    out = []
+    for b, j in want:
+        t = {f: torch.empty((j, b) + tuple(v.shape[2:]), dtype=v.dtype,
+                            device="meta") for f, v in template.items()}
+        out.append(((batch_key(t), j), t))
+    return out
+
+
 @dataclass
 class RuntimeStats:
-    """Counters and timing histories of one runtime (all host-side).
-    Every write goes through :meth:`bump` or :meth:`log` under one
-    internal lock; :meth:`snapshot` returns a consistent plain-dict copy
-    (what ``controller.stats()`` aggregates across planes)."""
+    """Counters, timing histories and latency histograms of one runtime
+    (all host-side).  Every write goes through :meth:`bump`, :meth:`log`
+    or :meth:`observe` / :meth:`observe_many` under one internal lock;
+    :meth:`snapshot` returns a consistent plain-dict copy (what
+    ``controller.stats()`` aggregates across planes).  Latency
+    distributions (the serving frontend's per-request queue / batch /
+    execute / total times) are named
+    :class:`~repro_torch.core.histogram.StreamingHistogram` series in
+    ``hists``."""
     steps: int = 0
     deopt_steps: int = 0          # routed to generic by the program guard
     instr_steps: int = 0
@@ -72,13 +158,28 @@ class RuntimeStats:
     cache_hits: int = 0           # executables served from the exec cache
     cache_misses: int = 0         # executables that had to be built
     queued_updates: int = 0
-    batch_transfers: int = 0      # batches the runtime moved to the device
-    locked_calls: int = 0         # stats-lock acquisitions (one per step)
+    batch_transfers: int = 0      # batch placements onto the device
+    # ---- request-level accounting (repro_torch.serving.frontend) ----
+    requests_submitted: int = 0
+    requests_rejected: int = 0    # admission control: bounded queue full
+    requests_shed: int = 0        # deadline expired before dispatch
+    requests_completed: int = 0
+    slo_met: int = 0              # completed with deadline, in time
+    slo_missed: int = 0           # completed with deadline, late
+    batches_formed: int = 0
+    pad_rows: int = 0             # padding rows dispatched (occupancy)
+    shape_mispredicts: int = 0    # batches whose ideal pad bucket was
+                                  # not in the active plan's bucket set
+    locked_calls: int = 0         # stats-lock acquisitions: at most one
+                                  # per step or fused window
+    requests_rejected_degraded: int = 0   # admissions shed PLANE_DEGRADED
+    requests_failed: int = 0      # in-flight requests lost to a fault
     t1_history: List[float] = field(default_factory=list)
     t2_history: List[float] = field(default_factory=list)
     swap_history: List[float] = field(default_factory=list)
     pass_stats: Dict[str, int] = field(default_factory=dict)
     snapshot_versions: List[int] = field(default_factory=list)
+    hists: Dict[str, StreamingHistogram] = field(default_factory=dict)
 
     def __post_init__(self):
         self._lock = threading.Lock()
@@ -96,12 +197,54 @@ class RuntimeStats:
             self.locked_calls += 1
             getattr(self, name).append(value)
 
+    def observe(self, name: str, value: float, **counters: int) -> None:
+        """Record one sample into the named histogram (created on first
+        use), bumping ``counters`` in the same lock acquisition."""
+        self.observe_many({name: (value,)}, **counters)
+
+    def observe_many(self, series: Dict[str, Sequence[float]],
+                     **counters: int) -> None:
+        """Record many samples across several histograms plus scalar
+        counter deltas in ONE lock acquisition: the serving frontend
+        reports a whole fused window this way."""
+        with self._lock:
+            self.locked_calls += 1
+            for name, values in series.items():
+                h = self.hists.get(name)
+                if h is None:
+                    h = self.hists[name] = StreamingHistogram()
+                h.observe_all(values)
+            for cname, d in counters.items():
+                setattr(self, cname, getattr(self, cname) + d)
+
+    def quantile(self, name: str, q: float) -> float:
+        """The q-quantile of the named histogram (NaN when absent)."""
+        with self._lock:
+            h = self.hists.get(name)
+            return h.quantile(q) if h is not None else float("nan")
+
+    def hist(self, name: str) -> Optional[StreamingHistogram]:
+        """A consistent copy of the named histogram, or None."""
+        with self._lock:
+            h = self.hists.get(name)
+            return h.copy() if h is not None else None
+
+    def reset_hist(self, *names: str) -> None:
+        """Drop the named histogram series (e.g. a warm-up's)."""
+        with self._lock:
+            for name in names:
+                self.hists.pop(name, None)
+
     def snapshot(self) -> Dict[str, Any]:
+        """A consistent plain-dict copy of every field (lists and dicts
+        shallow-copied, histograms reduced to their ``summary()``)."""
         with self._lock:
             out: Dict[str, Any] = {}
             for f in dataclasses.fields(self):
                 v = getattr(self, f.name)
-                if isinstance(v, list):
+                if f.name == "hists":
+                    v = {k: h.summary() for k, h in v.items()}
+                elif isinstance(v, list):
                     v = list(v)
                 elif isinstance(v, dict):
                     v = dict(v)
@@ -181,6 +324,17 @@ class MorpheusRuntime:
         self._stepping = False
         self._writers = 0
         self._step_seq = 0            # dispatch ordinal (sampling cadence)
+        self._window_seq = 0          # fused-window ordinal
+        # fused executables of the current generation, cleared by every
+        # committed writer (see _fused_exec)
+        self._fused_memo: Dict[Any, Callable] = {}
+        # the most recent (window structure, K) pairs step_many served,
+        # as templates: recompile cycles build their fused executables
+        # beside the single-step twins.  LRU-bounded, so a cycle's work
+        # does not grow with every structure ever seen.
+        self._fused_shapes: "OrderedDict[Any, Dict]" = OrderedDict()
+        self._fused_shapes_cap = 8
+        self._warm_threads: List[threading.Thread] = []
         self._recompile_mutex = threading.Lock()
         self._compiling = False
         self._queued: List[tuple] = []
@@ -209,27 +363,44 @@ class MorpheusRuntime:
                             Callable] = (
             self.generic_plan, gen_exec, gen_instr, gen_exec)
         self._example_batch = example_batch
+        # a K=1 window of this structure may take the step() path; any
+        # other structure (a frontend pad bucket) takes the fused one
+        self._example_bkey = batch_key(example_batch)
+        # optional traffic-profile source (the serving frontend's
+        # ArrivalProfile), read at each recompile cycle: attach_profile
+        self._traffic_profile: Optional[Any] = None
 
         self._backbuf = instrument.SketchDoubleBuffer()
         self._backbuf.publish(self.state.instr)
 
     # ---- batch placement -----------------------------------------------
     def _place_batch(self, batch, count: Optional[dict] = None):
-        """Move every leaf of a request batch to the runtime's device
-        (numpy arrays are copied into tensors).  Leaves already there pass
-        through; ``count`` receives a ``transfers`` delta."""
-        out = {}
-        moved = False
-        for k, v in batch.items():
-            t = (v if isinstance(v, torch.Tensor)
-                 else torch.from_numpy(np.array(v)))
-            if t.device != self.device:
-                t = t.to(self.device, non_blocking=True)
-                moved = True
-            out[k] = t
-        if moved and count is not None:
+        """Place a request batch (or a stacked window) on the runtime's
+        device; numpy leaves are copied into tensors.  A batch whose
+        leaves are all tensors on the device is returned as is, so a
+        placed batch is never placed again.  ``count`` receives a
+        ``transfers`` delta: one per batch placed, whatever its number of
+        fields."""
+        if all(isinstance(v, torch.Tensor) and v.device == self.device
+               for v in batch.values()):
+            return batch
+        if count is not None:
             count["transfers"] = count.get("transfers", 0) + 1
-        return out
+        return _device_put(batch, self.device)
+
+    def place_batch(self, batch, *, fused: bool = False):
+        """Place ``batch`` on the device ahead of dispatch.  With
+        ``fused=True``, ``batch`` may be a *sequence* of K per-step
+        batches: they are stacked along a leading window axis, the input
+        :meth:`step_many` takes.  A placed batch passes through
+        untouched, so prefetching or re-stepping it moves nothing."""
+        if fused and isinstance(batch, (list, tuple)):
+            batch = stack_batches(batch)
+        count: dict = {}
+        placed = self._place_batch(batch, count=count)
+        if count:
+            self.stats.bump(batch_transfers=count["transfers"])
+        return placed
 
     # ---- executable cache --------------------------------------------
     @property
@@ -258,30 +429,34 @@ class MorpheusRuntime:
         return tuple(sorted(self.engine.instrumented_sites()))
 
     def _exec_key(self, plan: SpecializationPlan, batch,
-                  instr_struct: Tuple[str, ...]):
+                  instr_struct: Tuple[str, ...],
+                  fuse: Optional[int] = None):
         """Cache key: the plan's *signature* (or its version-stamped
         ``key`` when ``EngineConfig.signature_cache`` is off) × batch
-        structure × the instr structure."""
+        structure × the instr structure, and ``fuse=K`` for the fused
+        K-step window."""
         pkey = (plan.signature if self.engine.cfg.signature_cache
                 else plan.key)
         return ExecutableCache.make_key(self._cache_ns,
                                         (pkey, instr_struct),
-                                        batch_key(batch))
+                                        batch_key(batch), fuse=fuse)
 
     def _get_many(self, plans: List[SpecializationPlan], batch,
-                  instr_struct: Tuple[str, ...]) -> List[Callable]:
-        """Fetch one executable per plan, building the misses through the
-        cache's in-flight dedup."""
+                  instr_struct: Tuple[str, ...],
+                  fuse: Optional[int] = None) -> List[Callable]:
+        """Fetch one executable per plan (the fused K-step window with
+        ``fuse=K``), building the misses through the cache's in-flight
+        dedup."""
         out = []
         for plan in plans:
-            key = self._exec_key(plan, batch, instr_struct)
+            key = self._exec_key(plan, batch, instr_struct, fuse=fuse)
             exe = self.exec_cache.probe(key)
             if exe is not None:
                 self.stats.bump(cache_hits=1)
             else:
                 exe, t2 = self.exec_cache.get_or_compile(
                     key, lambda plan=plan: self.engine.compile(
-                        plan, self.state))
+                        plan, self.state, fuse=fuse))
                 if t2 is not None:          # this plane paid the t2
                     self.stats.log("t2_history", t2)
                     self.stats.bump(cache_misses=1)
@@ -302,17 +477,25 @@ class MorpheusRuntime:
                 while self._stepping:
                     self._cond.wait()
                 yield
+                # clear BEFORE bumping: a lock-free step_many reader that
+                # sees the new generation must already see the memo empty
+                self._fused_memo = {}
                 self._gen += 1
             finally:
                 self._writers -= 1
                 self._cond.notify_all()
 
-    def _begin_step(self):
+    def _begin_step(self, expect_gen: Optional[int] = None):
         """Claim the single in-flight step slot (brief critical section).
-        Returns ``(gen, active_tuple, state)``."""
+        Returns ``(gen, active_tuple, state)``, or None when
+        ``expect_gen`` no longer matches: work prepared outside the lock
+        (a fused executable fetched for the active plan) is committed to
+        only if no writer landed in between, else the caller retries."""
         with self._cond:
             while self._stepping or self._writers:
                 self._cond.wait()
+            if expect_gen is not None and self._gen != expect_gen:
+                return None
             self._stepping = True
             self._step_seq += 1
             return self._gen, self._active, self.state
@@ -325,6 +508,7 @@ class MorpheusRuntime:
         queued, self._queued = self._queued, []
         for (name, fields, n_valid) in queued:
             self._apply_update_locked(name, fields, n_valid)
+        self._fused_memo = {}        # cleared before the bump, as in _write
         self._gen += 1
         return True
 
@@ -386,6 +570,177 @@ class MorpheusRuntime:
         self._commit_step(gen, new_state, sampled, deltas)
         return out
 
+    def step_many(self, batches, k: Optional[int] = None):
+        """Run a fused window of K serving steps through ONE executable;
+        returns the stacked outputs (leading axis K).  ``batches`` is a
+        sequence of K same-shaped batches, or a pre-stacked (and maybe
+        pre-placed) batch from :meth:`place_batch` with ``fused=True``,
+        in which case ``k`` is REQUIRED and checked against every leaf's
+        leading axis: a plain per-step batch cannot be told from a
+        stacked window by its shape, and stepping over its batch
+        dimension would serve wrong outputs without an error.
+
+        One claim/commit pair and one locked stats call serve the whole
+        window.  The program guard and the sampling decision are hoisted
+        to the window: it runs specialized, instrumented or (guard
+        tripped) generic as a whole, and a control update landing
+        mid-window is queued and drained at the window's commit, so the
+        *next* window deopts.  Outputs equal K single steps' bit for
+        bit."""
+        if isinstance(batches, (list, tuple)):
+            if k is not None and k != len(batches):
+                raise ValueError(
+                    f"step_many: k={k} but {len(batches)} batches given")
+            k = len(batches)
+            stacked = stack_batches(batches)
+        else:
+            if k is None:
+                raise TypeError(
+                    "step_many(stacked_batch) needs an explicit k= "
+                    "(window size): pass the sequence of per-step "
+                    "batches instead, or the output of "
+                    "place_batch(batches, fused=True) together with "
+                    "k=len(batches)")
+            stacked = batches
+            lead = {int(v.shape[0]) for v in stacked.values()}
+            if lead != {k}:
+                raise ValueError(
+                    f"step_many: leading axes {sorted(lead)} do not "
+                    f"match the window size k={k}")
+        if k == 1:
+            # nothing to amortize: the single-step path, restacked so the
+            # output keeps its (K, ...) shape.  Only for the example
+            # batch's structure: a frontend pad bucket takes the fused
+            # machinery, which builds and caches per structure.
+            single = {f: torch.as_tensor(v)[0] for f, v in stacked.items()}
+            if batch_key(single) == self._example_bkey:
+                return self.step(single)[None]
+        cnt: dict = {}
+        stacked = self._place_batch(stacked, count=cnt)
+        with self._cond:
+            # the window ordinal drives the sampling cadence: two
+            # concurrent callers never share (and both sample) one
+            self._window_seq += 1
+            window = self._window_seq
+        while True:
+            # prepare OUTSIDE any lock: read the active world, pick the
+            # window's role and fetch (maybe build) its executable, then
+            # claim with generation validation; retry if a writer landed
+            gen = self._gen
+            plan = self._active[0]
+            isites = self._active_isites
+            deltas = {"steps": k}
+            if cnt:
+                deltas["batch_transfers"] = cnt["transfers"]
+            sampled = False
+            if self.tables.version != plan.version:
+                role_plan = self.generic_plan
+                deltas["deopt_steps"] = k
+            elif (self.enable and self.sampler.should_sample_window(
+                    window, k)):
+                role_plan = self._instr_twin(plan, isites)
+                sampled = True
+                deltas["instr_steps"] = k
+            else:
+                role_plan = plan
+            fexec, mkey = self._fused_exec(role_plan, stacked, isites, k)
+            claim = self._begin_step(expect_gen=gen)
+            if claim is not None:
+                break
+        gen, _, state = claim
+        # memoize only now: the claim validated the generation and
+        # writers wait while the slot is held, so the entry belongs to
+        # the current world
+        self._fused_memo[mkey] = fexec
+        try:
+            out, new_state = fexec(self.params, state, stacked)
+        except BaseException:
+            self._abort_step()
+            raise
+        self._commit_step(gen, new_state, sampled, deltas)
+        return out
+
+    def warm_fused(self, batches, k: Optional[int] = None) -> None:
+        """Build the K-step fused executables of a window structure AHEAD
+        of serving (the active plan, its instrumented twin and the
+        generic deopt target) and register the structure, so recompile
+        cycles keep its fused variants built.  A serving frontend calls
+        this once per pad bucket: the first real window (sampled or not,
+        deopted or not) then builds nothing inline."""
+        if isinstance(batches, (list, tuple)):
+            k = len(batches)
+            stacked = stack_batches(batches)
+        else:
+            if k is None:
+                raise TypeError("warm_fused(stacked_batch) needs k=")
+            stacked = batches
+        stacked = self._place_batch(stacked)
+        self._register_fused_shape(batch_key(stacked), k, stacked)
+        isites = self._active_isites
+        plan = self._active[0]
+        wanted = [plan, self._instr_twin(plan, isites),
+                  self.generic_plan,
+                  self._instr_twin(self.generic_plan, isites)]
+        self._get_many(wanted, stacked, isites, fuse=k)
+
+    def _register_fused_shape(self, bkey, k: int, stacked) -> None:
+        """First sight of a (window structure, K): record its template
+        (recompile cycles build fused executables for every registered
+        structure) and build the fused generic deopt target in the
+        background, so the first guard-tripped window after a control
+        update builds nothing inline.  Called only on a memo miss."""
+        warm = None
+        with self._cond:         # the recompile cycle iterates this map
+            if (bkey, k) in self._fused_shapes:
+                self._fused_shapes.move_to_end((bkey, k))
+            else:
+                self._fused_shapes[(bkey, k)] = _template(stacked)
+                while len(self._fused_shapes) > self._fused_shapes_cap:
+                    self._fused_shapes.popitem(last=False)
+                warm = threading.Thread(
+                    target=self._warm_fused_generic,
+                    args=(self._fused_shapes[(bkey, k)], k),
+                    name="morpheus-warm-fused", daemon=True)
+                # keep the list bounded; close() joins what still runs
+                self._warm_threads = [t for t in self._warm_threads
+                                      if t.is_alive()]
+                self._warm_threads.append(warm)
+        if warm is not None:
+            warm.start()
+
+    def _warm_fused_generic(self, template, k: int) -> None:
+        """Background build of the fused generic executable for a newly
+        seen (window structure, K), through the cache's in-flight dedup
+        and outside the serving counters (it is insurance, not a Morpheus
+        cycle)."""
+        key = self._exec_key(self.generic_plan, template,
+                             self._active_isites, fuse=k)
+        if self.exec_cache.peek(key) is None:
+            self.exec_cache.get_or_compile(
+                key, lambda: self.engine.compile(self.generic_plan,
+                                                 self.state, fuse=k))
+
+    def _fused_exec(self, plan: SpecializationPlan, stacked,
+                    instr_struct: Tuple[str, ...], k: int
+                    ) -> Tuple[Callable, Any]:
+        """Fetch (or build) the K-step fused executable for ``plan``;
+        returns ``(exe, memo_key)``.  A steady window pays one dict probe
+        (no cache lock, no stats lock); every committed writer clears the
+        memo, so a swap or control update forces a probe of the shared
+        cache.  The *caller* memoizes after a validated claim, never
+        here, where a racing writer could let a stale executable outlive
+        its generation."""
+        bkey = batch_key(stacked)
+        mkey = (plan.signature, bkey, k)
+        exe = self._fused_memo.get(mkey)
+        if exe is not None:
+            return exe, mkey
+        # memo miss (first window, or a writer just landed): the slow
+        # lane, and the moment to register the structure
+        self._register_fused_shape(bkey, k, stacked)
+        exe = self._get_many([plan], stacked, instr_struct, fuse=k)[0]
+        return exe, mkey
+
     def run_generic(self, batch):
         """Replay ``batch`` through the generic plan WITHOUT committing
         state — the reference-semantics oracle.  Executables never write
@@ -437,6 +792,16 @@ class MorpheusRuntime:
             self._apply_update_locked(name, fields, n_valid)
         self.controller.notify_update(self)
 
+    def attach_profile(self, profile) -> None:
+        """Attach a traffic-profile source: any object with a
+        ``snapshot() -> dict`` method, canonically the serving frontend's
+        :class:`~repro_torch.serving.frontend.ArrivalProfile`.  Every
+        recompile cycle reads one snapshot into ``PlanInputs.profile``,
+        so plan-level passes such as
+        :class:`~repro_torch.core.passes.batch_shape.BatchShapePass`
+        specialize against request-level dynamics.  ``None`` detaches."""
+        self._traffic_profile = profile
+
     def set_feature(self, name: str, value: bool) -> None:
         """Flip a control-plane feature flag.  Bumps the table version:
         flags are control-plane state, so the program guard deopts any
@@ -486,8 +851,16 @@ class MorpheusRuntime:
                 self._plan_instr = instr
             else:
                 instr = self._plan_instr or instr
+            src = self._traffic_profile
+            profile = src.snapshot() if src is not None else None
+            if profile is not None:
+                # the pass applies hysteresis against the shape actually
+                # serving, so a selection hovering at a bucket edge does
+                # not flip the plan signature every cycle
+                profile["prev_shape"] = plan_batch_shape(self._active[0])
             plan, t1, pass_stats = self.engine.build_plan(
-                instr, snapshot=snap.tables, version=snap.version)
+                instr, snapshot=snap.tables, version=snap.version,
+                profile=profile)
             self.stats.log("t1_history", t1)
             self.stats.pass_stats = pass_stats
             self._last_plan_signature = plan.signature
@@ -535,6 +908,21 @@ class MorpheusRuntime:
                 wanted += [self.generic_plan,
                            self._instr_twin(self.generic_plan, isites)]
             execs = self._get_many(wanted, self._example_batch, isites)
+            # the fused variants of every window structure step_many has
+            # served, and of those the NEW plan's batch shape induces,
+            # built here so a post-swap window builds nothing inline
+            with self._cond:     # step_many registers entries under it
+                fused_shapes = list(self._fused_shapes.items())
+            done = {sk for sk, _ in fused_shapes}
+            for sk, tmpl in _induced_window_avals(plan, fused_shapes):
+                if sk not in done:
+                    done.add(sk)
+                    fused_shapes.append((sk, tmpl))
+            for (_, k), tmpl in fused_shapes:
+                fused_wanted = [plan, self._instr_twin(plan, isites)]
+                if isites != self._active_isites:
+                    fused_wanted.append(self.generic_plan)
+                self._get_many(fused_wanted, tmpl, isites, fuse=k)
             new_generic = execs[2] if len(execs) > 2 else active_generic
             new_generic_instr = (execs[3] if len(execs) > 3
                                  else self.generic_instr_exec)
@@ -577,6 +965,9 @@ class MorpheusRuntime:
         recompiles raise."""
         self._closed = True
         self._finalizer.detach()
+        # fused-generic builds in flight must not outlive the teardown
+        for t in self._warm_threads:
+            t.join(timeout=60.0)
         if self._private_controller:
             self.controller.close()
         else:

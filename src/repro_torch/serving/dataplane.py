@@ -23,11 +23,16 @@ Weights: :func:`build_params` draws the port's own from a seeded
 across (its params tree as numpy arrays).  :func:`build_tables` draws
 from ``np.random.default_rng(0)`` as the reference does, so both
 packages' tables are byte-identical.
+
+Requests: :func:`make_request_rows` draws single-request payloads for
+the serving frontend, :func:`make_request_batch` packs a ragged group of
+them into one padded bucket with a ``valid`` mask, and
+:func:`make_request_windows` draws the K batches of one fused window.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict
+from typing import Dict, List
 
 import numpy as np
 import torch
@@ -206,6 +211,17 @@ def make_serve_step(cfg: ServeConfig):
     return serve_step
 
 
+def build_fleet(cfg: ServeConfig, n_planes: int, **table_kw) -> list:
+    """N data planes for one controller: a list of ``(step_fn, tables)``
+    pairs with **distinct** :class:`TableSet` instances (each plane's
+    control plane versions independently, so program guards do not
+    couple) but one shared step function and identical schemas, which
+    is what makes ``EngineConfig.cache_ns`` executable sharing across
+    the fleet valid.  ``table_kw`` forwards to :func:`build_tables`."""
+    step = make_serve_step(cfg)
+    return [(step, build_tables(cfg, **table_kw)) for _ in range(n_planes)]
+
+
 def make_synthetic_batch(cfg: ServeConfig, seed: int = 0, batch_size=8,
                          locality: str = "high", hot_classes=4,
                          hot_offset: int = 0, hot_slots: int = 0,
@@ -233,3 +249,59 @@ def make_synthetic_batch(cfg: ServeConfig, seed: int = 0, batch_size=8,
     return {"tokens": tokens.to(torch.int32).to(dev),
             "class_id": class_id.to(torch.int32).to(dev),
             "slot": slot.to(torch.int32).to(dev)}
+
+
+def make_request_rows(cfg: ServeConfig, seed: int, n: int,
+                      **kw) -> List[Dict[str, np.ndarray]]:
+    """N single-request payloads (each field without the batch dim, as
+    numpy): what the serving frontend's ``Request.payload`` carries.
+    Drawn from the same synthetic trace as :func:`make_synthetic_batch`
+    (``kw`` forwards locality / hot_offset / ...)."""
+    batch = make_synthetic_batch(cfg, seed, batch_size=n, device="cpu",
+                                 **kw)
+    batch = {f: v.numpy() for f, v in batch.items()}
+    return [{f: v[i] for f, v in batch.items()} for i in range(n)]
+
+
+def make_request_batch(rows, bucket: int) -> Dict[str, torch.Tensor]:
+    """Pack a ragged list of single-request rows into one batch of
+    leading dim ``bucket`` (host tensors; the runtime places them), plus
+    a ``"valid"`` ``(bucket,)`` bool mask, True for the real rows.
+
+    Pad rows REPLICATE row 0 rather than holding zeros: each is a
+    well-formed request over live table keys, and every RW scatter the
+    plane performs (the sessions write) sees identical values on the
+    duplicated slots, so whichever duplicate the last-write-wins scatter
+    keeps, the table is the same.  The plane never reads the mask; it is
+    consumed on the host at fan-back."""
+    n = len(rows)
+    if n == 0:
+        raise ValueError("make_request_batch: empty request list")
+    if n > bucket:
+        raise ValueError(
+            f"make_request_batch: {n} requests exceed bucket={bucket}")
+    out = {}
+    for f in rows[0]:
+        stacked = np.stack([np.asarray(r[f]) for r in rows])
+        if n < bucket:
+            pad = np.broadcast_to(stacked[:1],
+                                  (bucket - n,) + stacked.shape[1:])
+            stacked = np.concatenate([stacked, pad], axis=0)
+        out[f] = torch.from_numpy(stacked)
+    valid = np.zeros(bucket, bool)
+    valid[:n] = True
+    out["valid"] = torch.from_numpy(valid)
+    return out
+
+
+def make_request_windows(cfg: ServeConfig, seed: int, k: int,
+                         batch_size=8, device="cuda", **kw
+                         ) -> List[Dict[str, torch.Tensor]]:
+    """K consecutive request batches for one fused serving window
+    (``MorpheusRuntime.step_many`` / ``place_batch(..., fused=True)``),
+    each from its own seed spawned from ``seed``, so a window sees the
+    same traffic *distribution* as K single steps."""
+    seeds = [int(s.generate_state(1)[0])
+             for s in np.random.SeedSequence(seed).spawn(k)]
+    return [make_synthetic_batch(cfg, s, batch_size, device=device, **kw)
+            for s in seeds]

@@ -19,9 +19,8 @@ sequence, with guards catching every mispredict.
   * :mod:`~repro_torch.testing.fingerprint` hashes plan signatures
     canonically (the reference's serialization, byte for byte).
 
-Not ported yet (ROADMAP.md): the ``fused`` and ``frontend`` conformance
-modes, the chaos (fault-injection) harness and the cross-process
-fingerprint CLI.
+Not ported yet (ROADMAP.md): the chaos (fault-injection) harness and the
+cross-process fingerprint CLI.
 """
 from .archzoo import ArchPlane, build_plane, conformance_engine_config
 from .churn import ChurnEvent, generate_schedule, register_churn_move

@@ -14,8 +14,9 @@ one arch plane:
     side's, so the two sides deopt to generic on exactly the same steps.
 
 Both replay the same seeded churn schedule in lockstep; after every
-serving step the driver asserts ``torch.equal`` — bitwise equality — on
-the outputs AND on every table's device state.  This is Morpheus' §5
+serving step (or fused window, or frontend pump) the driver asserts
+``torch.equal`` — bitwise equality — on the outputs AND on every table's
+device state.  This is Morpheus' §5
 semantic-equivalence obligation made mechanical: specialization may
 change *how* a result is computed, never *what* is computed.
 
@@ -23,10 +24,19 @@ On the card both sides run the same CUDA kernels (``ssd_scan``,
 ``hot_gather``), and those kernels sum in a fixed order, so the
 obligation holds there too.
 
-Serving modes: ``plain`` (every ``step`` event is one ``runtime.step``
-call) is ported.  The reference's ``fused`` (``step_many`` windows) and
-``frontend`` (the request frontend's batcher) modes raise
-``NotImplementedError`` until their runtime paths are ported.
+Serving modes:
+
+  plain     every ``step`` event is one ``runtime.step`` call
+  fused     consecutive ``step`` events coalesce into ``step_many``
+            windows (flushed at every control event, matching the
+            window-granular guard)
+  frontend  ``step`` events submit request rows to a
+            :class:`~repro_torch.serving.frontend.ServingFrontend` on the
+            specialized side; the windows its batcher ACTUALLY
+            dispatches are captured (by wrapping ``step_many``) and
+            replayed verbatim on the oracle, with frontend-originated
+            version bumps (bucket-mispredict deopts) mirrored so guard
+            windows stay aligned.
 """
 from __future__ import annotations
 
@@ -44,6 +54,7 @@ from .churn import ChurnEvent, generate_schedule
 from .fingerprint import plan_fingerprint
 
 PIN_EVERY = 2          # pinned instrumentation cadence (determinism)
+FUSE_K = 3             # max fused-window depth in "fused" mode
 
 
 class ConformanceError(AssertionError):
@@ -197,16 +208,102 @@ def _drive_plain(pair: _Pair, schedule: List[ChurnEvent],
                 expect_deopt = pair.spec.stats.deopt_steps
 
 
-def _drive_fused(pair, schedule, report) -> None:
-    raise NotImplementedError(
-        "fused conformance needs the runtime's step_many windows "
-        "(ROADMAP.md Queue 1 item 5)")
+def _drive_fused(pair: _Pair, schedule: List[ChurnEvent],
+                 report: Report) -> None:
+    buf: List[dict] = []
+    expect_deopt: Optional[int] = None
+
+    def flush():
+        nonlocal expect_deopt
+        if not buf:
+            return
+        k = len(buf)
+        out_s = pair.spec.step_many(list(buf))
+        out_o = pair.oracle.step_many(list(buf))
+        report.steps += k
+        report.compares += 1
+        buf.clear()
+        _assert_equal(out_s, out_o,
+                      f"{report.arch}/fused window @{report.steps}")
+        _assert_tables_equal(pair.spec, pair.oracle,
+                             f"{report.arch}/fused window "
+                             f"@{report.steps}")
+        if expect_deopt is not None:
+            _check_deopt(pair, expect_deopt, report)
+            expect_deopt = None
+
+    for ev in schedule:
+        report.events += 1
+        if ev.kind == "step":
+            buf.append(ev.payload["batch"])
+            if len(buf) >= FUSE_K:
+                flush()
+        else:
+            flush()           # control events land at window boundaries
+            _apply_control(pair, ev, report)
+            if ev.kind == "inject_mispredict":
+                expect_deopt = pair.spec.stats.deopt_steps
+    flush()
 
 
-def _drive_frontend(pair, schedule, report) -> None:
-    raise NotImplementedError(
-        "frontend conformance needs the serving frontend "
-        "(ROADMAP.md Queue 1 item 6)")
+def _drive_frontend(pair: _Pair, schedule: List[ChurnEvent],
+                    report: Report) -> None:
+    from ..serving.frontend import FrontendConfig, ServingFrontend
+
+    t = [0.0]
+
+    def clock() -> float:       # virtual time: deterministic waits
+        t[0] += 1e-4
+        return t[0]
+
+    fe = ServingFrontend(pair.spec,
+                         FrontendConfig(max_batch=8, max_wait_s=0.0),
+                         clock=clock, keep_outputs=False)
+
+    captured: List[Tuple[Any, int, Any, int]] = []
+    real_step_many = pair.spec.step_many
+
+    def tapped(batches, k=None):
+        out = real_step_many(batches, k=k)
+        captured.append((batches, k, out, pair.spec.tables.version))
+        return out
+
+    pair.spec.step_many = tapped     # instance attr shadows the method
+    expect_deopt: Optional[int] = None
+    try:
+        for ev in schedule:
+            report.events += 1
+            if ev.kind == "step":
+                for row in ev.payload["rows"]:
+                    fe.submit(row)
+                while fe.pump() > 0:
+                    pass
+                fe.batcher.retire_all()
+                for stacked, k, out_s, v in captured:
+                    while pair.oracle.tables.version < v:
+                        pair.oracle.tables.bump_version("mirror")
+                    out_o = pair.oracle.step_many(stacked, k=k)
+                    report.steps += k
+                    report.compares += 1
+                    _assert_equal(
+                        out_s, out_o,
+                        f"{report.arch}/frontend window "
+                        f"@{report.steps}")
+                captured.clear()
+                pair.mirror_version()
+                _assert_tables_equal(pair.spec, pair.oracle,
+                                     f"{report.arch}/frontend "
+                                     f"@{report.steps}")
+                if expect_deopt is not None:
+                    _check_deopt(pair, expect_deopt, report)
+                    expect_deopt = None
+            else:
+                _apply_control(pair, ev, report)
+                if ev.kind == "inject_mispredict":
+                    expect_deopt = pair.spec.stats.deopt_steps
+    finally:
+        del pair.spec.step_many          # un-shadow the bound method
+        pair.spec.attach_profile(None)
 
 
 def _apply_control(pair: _Pair, ev: ChurnEvent, report: Report) -> None:

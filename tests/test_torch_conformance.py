@@ -5,7 +5,11 @@ outputs and tables bitwise equal at every step) passes for mamba2-1.3b
 and jamba-v0.1-52b; and mamba2's report — steps, recompiles, deopts,
 the implementations its plans chose and the final plan's fingerprint —
 equals the reference's for the same seed (its plans depend on the
-traffic and the tables, not on the weights)."""
+traffic and the tables, not on the weights).  The same holds in the
+``fused`` mode (``step_many`` windows) and the ``frontend`` mode (the
+request frontend's windows replayed on the oracle), and the reference's
+own quick cells of those modes, phi3.5-MoE fused and seamless frontend,
+pass."""
 import numpy as np
 import pytest
 
@@ -72,11 +76,35 @@ def test_plain_conformance_passes(arch, mamba2_reference_report):
         assert ("router", "moe_fastpath") in report["impls_seen"]
 
 
+def _has_teeth(report):
+    assert report["events"] >= 50 and report["steps"] >= 30
+    assert report["recompiles"] >= 3 and report["mispredicts"] >= 2
+    assert report["deopt_steps"] >= report["mispredicts"]
+
+
+@pytest.mark.parametrize("mode", ["fused", "frontend"])
+def test_mamba2_report_equals_the_reference_in_mode(mode):
+    report = run_conformance("mamba2-1.3b", mode, seed=0, device="cpu")
+    _has_teeth(report)
+    assert ("ssm_state", "ssd_fastpath") in report["impls_seen"]
+    if mode == "fused":    # a window serves several steps
+        assert report["compares"] < report["steps"]
+    ref = j_run_conformance("mamba2-1.3b", mode, seed=0)
+    assert {k: report[k] for k in REPORT_KEYS} == \
+        {k: ref[k] for k in REPORT_KEYS}
+
+
+@pytest.mark.parametrize("arch,mode,impl", [
+    ("phi3.5-moe-42b-a6.6b", "fused", ("router", "moe_fastpath")),
+    ("seamless-m4t-medium", "frontend", ("__frontend__", "batch_shape"))])
+def test_reference_quick_cells_pass(arch, mode, impl):
+    report = run_conformance(arch, mode, seed=0, device="cpu")
+    _has_teeth(report)
+    assert impl in report["impls_seen"]
+
+
 def test_unported_modes_and_chaos_schedules_raise():
     assert MODES == ("plain", "fused", "frontend")
-    for mode in ("fused", "frontend"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            run_conformance("mamba2-1.3b", mode, seed=0, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         generate_schedule(build_plane("mamba2-1.3b"), chaos=True)
     with pytest.raises(ValueError):

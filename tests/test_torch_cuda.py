@@ -543,3 +543,88 @@ def test_model_prefill_and_decode_on_the_card_go_through_the_kernel(cuda):
     for a, b, c in zip(on_card, on_host, on_host32):
         assert torch.isfinite(a).all()
         assert (a - b).abs().max() <= (b - c).abs().max()
+
+
+def _serving_runtime(device, cfg):
+    from repro_torch.core import EngineConfig, MorpheusRuntime, SketchConfig
+    from repro_torch.serving import build_params, build_tables, \
+        make_serve_step, make_synthetic_batch
+    params = build_params(cfg, seed=0, device=device)
+    for lp in params["layers"]:                  # a domain-skewed router
+        with torch.no_grad():
+            lp["moe"]["b_router"][:3] = 6.0
+    return MorpheusRuntime(
+        make_serve_step(cfg), build_tables(cfg), params,
+        make_synthetic_batch(cfg, seed=0, device=device),
+        cfg=EngineConfig(sketch=SketchConfig(sample_every=2, max_hot=32,
+                                             hot_coverage=0.8),
+                         features={"vision_enabled": False,
+                                   "track_sessions": True},
+                         moe_router_table="router", device=device))
+
+
+@pytest.mark.cuda
+def test_step_many_equals_k_steps_on_the_card(cuda):
+    """A fused window on the card equals K single steps on a twin
+    runtime bit for bit (outputs and the sessions table), on the
+    generic plan and on the specialized one, whose windows launch
+    hot_gather."""
+    from repro_torch.serving import ServeConfig, make_request_windows
+    cfg = ServeConfig()
+    rt1, rt2 = _serving_runtime(cuda, cfg), _serving_runtime(cuda, cfg)
+    try:
+        for rt in (rt1, rt2):
+            rt.sampler.pin(1)      # every step and window records traffic
+        for seed in (0, 1):
+            windows = make_request_windows(cfg, seed, 4, device=cuda)
+            singles = [rt1.step(b) for b in windows]
+            fused = rt2.step_many(windows)
+            for i, out in enumerate(singles):
+                assert torch.equal(out, fused[i])
+            for name in ("count", "last_token"):
+                assert torch.equal(rt1.state.tables["sessions"][name],
+                                   rt2.state.tables["sessions"][name])
+            if seed == 0:
+                rt1.recompile(block=True)
+                rt2.recompile(block=True)
+                assert dict(rt2.plan.sites)["vocab_embed#0"].impl == \
+                    "hot_cache"
+                ops.reset_launches()
+        assert ops.launches().get("hot_gather", 0) > 0
+    finally:
+        rt1.close()
+        rt2.close()
+
+
+@pytest.mark.cuda
+def test_frontend_pump_on_the_card(cuda):
+    """Requests through the frontend on the card: each window retires on
+    its own CUDA event, outputs come back on the host and equal the
+    generic oracle's rows bit for bit."""
+    from repro_torch.serving import ServeConfig, make_request_batch, \
+        make_request_rows
+    from repro_torch.serving.frontend import FrontendConfig, \
+        ServingFrontend
+    cfg = ServeConfig()
+    rt = _serving_runtime(cuda, cfg)
+    try:
+        fe = ServingFrontend(rt, FrontendConfig(capacity=32, max_batch=8,
+                                                max_wait_s=0.0,
+                                                inflight=2))
+        rows = make_request_rows(cfg, 3, 11)
+        reqs = [fe.submit(r) for r in rows]
+        assert fe.pump() == 8
+        assert fe.batcher.inflight == 1        # retired later
+        assert fe.drain(timeout=60.0)
+        assert [r.status for r in reqs] == ["ok"] * 11
+        for chunk in (reqs[:8], reqs[8:]):
+            bucket = 8 if len(chunk) == 8 else 4
+            ref = rt.run_generic(make_request_batch(
+                [r.payload for r in chunk], bucket)).cpu()
+            for i, r in enumerate(chunk):
+                assert r.output.device.type == "cpu"
+                assert torch.equal(r.output, ref[i])
+        assert rt.stats.requests_completed == 11
+        assert rt.stats.hist("request_execute_s").count == 11
+    finally:
+        rt.close()

@@ -1,7 +1,8 @@
-"""The port stands alone: no module of ``src/repro_torch`` and not
-``chip_smoke.py`` imports JAX or the reference package, importing the
-port leaves JAX unloaded, and its entry points default to the card and
-raise where there is none (nothing falls back to the CPU)."""
+"""The port stands alone: no module of ``src/repro_torch``, not
+``chip_smoke.py`` and not ``examples/quickstart_torch.py`` imports JAX
+or the reference package, importing the port leaves JAX unloaded, and
+its entry points default to the card and raise where there is none
+(nothing falls back to the CPU)."""
 import ast
 import os
 import subprocess
@@ -13,7 +14,7 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+    ROOT / "chip_smoke.py", ROOT / "examples" / "quickstart_torch.py"]
 
 
 def _imported_roots(path: Path):
@@ -38,7 +39,8 @@ def test_importing_the_port_leaves_jax_unloaded():
             " repro_torch.models.ssd, repro_torch.testing,"
             " repro_torch.kernels.flash_attention,"
             " repro_torch.models.attention, repro_torch.models.transformer,"
-            " repro_torch.models.model, repro_torch.launch.steps; "
+            " repro_torch.models.model, repro_torch.launch.steps,"
+            " repro_torch.serving.frontend; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; "
             "assert not bad, bad; print('ok')")
