@@ -49,6 +49,22 @@
    ``__frontend__#batch_shape`` site, ``hot_gather`` launched, and every
    call the runtime ran, replayed on the oracle, gives equal outputs
    and tables bit for bit.
+3c. Chaos phase over the same params: a fresh specialized runtime under
+   a controller with the chaos harness's health knobs, and a generic
+   oracle.  One arc per fault kind: a step fault and a device loss (the
+   faulted batch retried on the degraded plane), a failed recompile
+   (the scheduler's retry lands while serving goes on) and a straggler
+   stall (a StragglerMonitor fed real step times, then a 10x stall).
+   Each degraded arc serves 8 degraded steps (no ``hot_gather``
+   launch), recovers through ``controller.schedule`` + ``drain`` and
+   serves 8 specialized steps (``hot_gather`` launched); every step
+   equals the oracle's bit for bit.  Then one open-loop run of 192
+   requests at 0.5 C through the frontend with a window fault armed
+   mid-run: every request accounted, the faulted window's requests
+   failed with ``PLANE_FAULT``, rejections ``PLANE_DEGRADED`` until the
+   recovery, every window replayed on the oracle bit for bit.
+3d. ``launch.serve.run_serve`` at the same widths (fuse 4, inflight 2)
+   and ``launch.serve.main`` at its default config, on the card.
 4. Arch-zoo phase at the full width of mamba2-1.3b
    (``src/repro/configs/mamba2_1p3b.py``; its plane's one distinct block,
    as the plane compresses depth; seq 1024 = 4 chunks, batch 4): generic
@@ -56,16 +72,20 @@
    ``hot_cache`` at ``vocab_embed#0`` and ``ssd_fastpath`` on
    ``ssm_state``, specialized steps equal to the generic oracle bit for
    bit on a fresh batch (the fast branch) and a warm one (the gather
-   branch), a warming control update that must deopt, and a recompile
-   that must decline ``ssd_fastpath``.
-   Phases 3, 3b and 4 each zero the launch counts just before and read them
+   branch), a warming control update that must deopt, a recompile
+   that must decline ``ssd_fastpath``, then a step fault whose retried
+   batch and ``ssm_state`` table equal the generic executable's on the
+   pre-fault state, and the recompile that recovers the plane.
+   Phases 3, 3b, 3c and 4 each zero the launch counts just before and read them
    just after, and fail unless every kernel of their path launched; both
    print ms/step (host clock, synchronized), a torch.profiler breakdown
    of device time by kernel, and phase 4 the host syncs per step.
 5. Conformance on the card at smoke scale: ``run_conformance`` of
    mamba2-1.3b in the plain, fused and frontend modes, jamba-v0.1-52b
    plain and phi3.5-MoE fused; each mamba2 report must equal the same
-   run's on the host.
+   run's on the host.  Then the chaos cells: ``run_chaos`` of llama3-8b
+   plain and frontend and mamba2-1.3b plain, whose report must equal
+   the host's.
 6. Each kernel timed on the inputs its main path gave it (device time:
    calls captured in a CUDA graph, replays timed with CUDA events),
    beside its plain version, its library call where one exists, and its
@@ -426,33 +446,59 @@ def serving_phase(torch, ops):
         rt.close()
 
 
-def frontend_phase(torch, cfg, params) -> None:
-    """The request path at the serving phase's full width: requests
-    through ``ServingFrontend`` over a fresh specialized runtime built on
-    the serving phase's params (no copy), every window the runtime ran
-    replayed on a fresh generic oracle (the DeadCodePass-only registry
-    conformance uses) and held to it bit for bit."""
-    from repro_torch.core import BATCH_SHAPE_SITE, EngineConfig, \
-        MorpheusRuntime, PassRegistry, SketchConfig, plan_batch_shape
+def _serving_pair(cfg, params, controller):
+    """A specialized serving runtime under ``controller`` (None: its
+    own) and a DeadCodePass-only generic oracle (the conformance
+    harness's), both over ``params`` (no copy)."""
+    from repro_torch.core import EngineConfig, MorpheusRuntime, \
+        PassRegistry, SketchConfig
     from repro_torch.core.passes.dead_code import DeadCodePass
-    from repro_torch.serving import build_tables, make_request_batch, \
-        make_request_rows, make_serve_step, make_synthetic_batch
-    from repro_torch.serving.frontend import FrontendConfig, \
-        OpenLoopDriver, ServingFrontend, bursty_onoff_gaps, poisson_gaps
-
-    t0 = time.perf_counter()
+    from repro_torch.serving import build_tables, make_serve_step, \
+        make_synthetic_batch
     sketch = dict(sample_every=4, max_hot=32, hot_coverage=0.8)
     features = {"vision_enabled": False, "track_sessions": True}
     example = make_synthetic_batch(cfg, seed=0)
     spec = MorpheusRuntime(
         make_serve_step(cfg), build_tables(cfg), params, example,
         cfg=EngineConfig(sketch=SketchConfig(**sketch),
-                         features=dict(features), moe_router_table="router"))
+                         features=dict(features), moe_router_table="router"),
+        controller=controller)
     oracle = MorpheusRuntime(
         make_serve_step(cfg), build_tables(cfg), params, example,
         cfg=EngineConfig(sketch=SketchConfig(**sketch),
                          features=dict(features),
                          passes=PassRegistry((DeadCodePass(),))))
+    return spec, oracle
+
+
+def _mirror(oracle, version: int) -> None:
+    """Bump the oracle's table version up to ``version`` (the specialized
+    side's after a call), so guard windows stay aligned."""
+    while oracle.tables.version < version:
+        oracle.tables.bump_version("mirror")
+
+
+def _tables_equal(torch, spec, oracle, where: str) -> None:
+    for name, fields in spec.state.tables.items():
+        for f, v in fields.items():
+            check(torch.equal(v, oracle.state.tables[name][f]),
+                  f"{where}: table {name}.{f} differs from the oracle's")
+
+
+def frontend_phase(torch, cfg, params) -> float:
+    """The request path at the serving phase's full width: requests
+    through ``ServingFrontend`` over a fresh specialized runtime built on
+    the serving phase's params (no copy), every window the runtime ran
+    replayed on a fresh generic oracle (the DeadCodePass-only registry
+    conformance uses) and held to it bit for bit.  Returns the measured
+    capacity C in req/s."""
+    from repro_torch.core import BATCH_SHAPE_SITE, plan_batch_shape
+    from repro_torch.serving import make_request_batch, make_request_rows
+    from repro_torch.serving.frontend import FrontendConfig, \
+        OpenLoopDriver, ServingFrontend, bursty_onoff_gaps, poisson_gaps
+
+    t0 = time.perf_counter()
+    spec, oracle = _serving_pair(cfg, params, None)
     # everything the specialized runtime runs is captured, in order, with
     # its table version after the call (frontend mispredict deopts bump it)
     captured = []
@@ -468,26 +514,18 @@ def frontend_phase(torch, cfg, params) -> None:
         captured.append((batch, None, out, spec.tables.version))
         return out
 
-    def mirror(v):
-        while oracle.tables.version < v:
-            oracle.tables.bump_version("mirror")
-
     def replay(label: str) -> int:
         n = len(captured)
         for batch, k, out, v in captured:
-            mirror(v)
+            _mirror(oracle, v)
             ref = (oracle.step(batch) if k is None
                    else oracle.step_many(batch, k=k))
             check(torch.equal(out, ref),
                   f"frontend {label}: a window differs from the oracle's "
                   f"replay")
         captured.clear()
-        mirror(spec.tables.version)
-        for name, fields in spec.state.tables.items():
-            for f, v in fields.items():
-                check(torch.equal(v, oracle.state.tables[name][f]),
-                      f"frontend {label}: table {name}.{f} differs from "
-                      f"the oracle's")
+        _mirror(oracle, spec.tables.version)
+        _tables_equal(torch, spec, oracle, f"frontend {label}")
         print(f"[frontend] {label}: {n} calls replayed on the generic "
               f"oracle, outputs and tables equal bit for bit")
         return n
@@ -602,7 +640,7 @@ def frontend_phase(torch, cfg, params) -> None:
         replay("run 1")
         info = spec.recompile(block=True)
         oracle.recompile(block=True)
-        mirror(spec.tables.version)
+        _mirror(oracle, spec.tables.version)
         sites = dict(spec.plan.sites)
         vocab = sites.get("vocab_embed#0")
         check(vocab is not None and vocab.impl == "hot_cache",
@@ -620,12 +658,376 @@ def frontend_phase(torch, cfg, params) -> None:
         fe.stop()
         fe = None
         replay("run 2")
+        return capacity
     finally:
         if fe is not None:
             fe.stop(drain=False)
         del spec.step_many, spec.step
         spec.close()
         oracle.close()
+
+
+def chaos_phase(torch, ops, cfg, params) -> None:
+    """The fault boundary at the serving phase's full width: a fresh
+    specialized runtime under a controller with the chaos harness's
+    health knobs, held bit for bit to a generic oracle through one arc
+    of each fault kind (step, device loss, compile, straggler)."""
+    from repro_torch.core.controller import HEALTHY, ControllerConfig, \
+        MorpheusController
+    from repro_torch.distributed.fault import FailureInjector, \
+        SimulatedDeviceLoss, SimulatedFailure, StragglerMonitor
+    from repro_torch.serving import make_synthetic_batch
+    from repro_torch.testing.chaos import chaos_health_config
+
+    ctl = MorpheusController(ControllerConfig(
+        health=chaos_health_config("plain")))
+    spec, oracle = _serving_pair(cfg, params, ctl)
+    health = ctl.health_for(spec.plane_id)
+    inj = FailureInjector()
+    seed = [3000]
+    fault_at = {}                 # when the arc's degrade happened
+
+    def hot() -> int:
+        return ops.launches().get("hot_gather", 0)
+
+    def serve(n: int, label: str):
+        """``n`` steps on both sides, equal bit for bit; a step that
+        faults is retried once on the (now degraded) plane.  Returns the
+        spec side's ms per step (host clock, synchronized), the number of
+        retries and hot_gather launches over the spec steps."""
+        ts, retried, launched = [], 0, 0
+        for _ in range(n):
+            b = make_synthetic_batch(cfg, seed=seed[0], locality="high")
+            seed[0] += 1
+            torch.cuda.synchronize()
+            h0, t = hot(), time.perf_counter()
+            try:
+                out = spec.step(b)
+            except SimulatedFailure:
+                check(spec.degraded, f"chaos {label}: a fault did not "
+                                     f"degrade the plane")
+                fault_at["t"] = time.perf_counter()
+                retried += 1
+                t = time.perf_counter()
+                out = spec.step(b)
+            torch.cuda.synchronize()
+            ts.append(time.perf_counter() - t)
+            launched += hot() - h0
+            check(torch.equal(out, oracle.step(b)),
+                  f"chaos {label}: a step differs from the oracle's")
+        _tables_equal(torch, spec, oracle, f"chaos {label}")
+        return statistics.median(ts) * 1e3, retried, launched, ts
+
+    def recover(label: str):
+        """The health-gated schedule + drain loop; returns the seconds
+        to HEALTHY and what the last cycle did."""
+        r0 = spec.stats.revalidations
+        t = time.perf_counter()
+        for _ in range(20):
+            ctl.schedule(spec)
+            ctl.drain(timeout=120.0)
+            if health.state == HEALTHY and not spec.degraded:
+                break
+        else:
+            raise SmokeFailure(f"chaos {label}: the plane never recovered "
+                               f"({health.state}, degraded={spec.degraded})")
+        secs = time.perf_counter() - t
+        oracle.recompile(block=True)
+        _mirror(oracle, spec.tables.version)
+        snap = spec.stats.snapshot()
+        how = ("revalidated" if snap["revalidations"] > r0 else
+               f"swap {snap['swap_history'][-1] * 1e3:.3f} ms")
+        return secs, f"t1 {snap['t1_history'][-1]:.3f} s, {how}"
+
+    def counters() -> dict:
+        s = spec.stats
+        return {"faults": s.faults, "degraded_steps": s.degraded_steps,
+                "recoveries": s.recoveries,
+                "straggler_events": s.straggler_events}
+
+    try:
+        serve(8, "warm-up")
+        spec.recompile(block=True)
+        oracle.recompile(block=True)
+        _mirror(oracle, spec.tables.version)
+        check(dict(spec.plan.sites)["vocab_embed#0"].impl == "hot_cache",
+              f"chaos: no hot_cache after the first recompile: "
+              f"{spec.plan.sites}")
+        spec.set_fault_injector(inj)
+        for kind in ("step", "device_loss", "compile", "straggler"):
+            fault_at.clear()
+            ms_spec, _, _, base = serve(8, f"{kind} (before)")
+            if kind == "compile":
+                # a control update makes the next cycle a real rebuild;
+                # the armed fault fails it once and the scheduler's
+                # backoff retry lands it while serving goes on
+                temps = torch.linspace(0.6, 1.4, cfg.n_classes).numpy()
+                spec.control_update("req_class", {"temperature": temps})
+                oracle.control_update("req_class", {"temperature": temps})
+                _mirror(oracle, spec.tables.version)
+                retries0 = ctl.stats().scheduler["retries"]
+                spec.arm_compile_faults(1)
+                t = time.perf_counter()
+                ctl.schedule(spec)
+                _, _, _, during = serve(8, "compile (during the retry)")
+                check(ctl.drain(timeout=120.0), "chaos compile: no drain")
+                secs = time.perf_counter() - t
+                sched = ctl.stats().scheduler
+                oracle.recompile(block=True)
+                _mirror(oracle, spec.tables.version)
+                check(sched["retries"] > retries0 and not spec.degraded
+                      and health.state == HEALTHY
+                      and spec.plan.version == spec.tables.version,
+                      f"chaos compile: the retry did not land "
+                      f"({sched}, degraded={spec.degraded}, "
+                      f"{health.state})")
+                ms_after, _, launched, _ = serve(8, "compile (after)")
+                check(launched > 0, "chaos compile: no hot_gather after "
+                                    "the retried cycle")
+                print(f"[chaos] compile: the cycle failed once, the "
+                      f"scheduler's retry landed {secs:.3f} s after the "
+                      f"schedule (retries {sched['retries'] - retries0}, "
+                      f"t1 {spec.stats.t1_history[-1]:.3f} s); never "
+                      f"degraded, {health.state}; slowest step during the"
+                      f" retry {max(during) * 1e3:.3f} ms against the "
+                      f"median {statistics.median(during) * 1e3:.3f} ms "
+                      f"(before: {ms_spec:.3f} ms/step); {ms_after:.3f} "
+                      f"ms/step after with {launched} hot_gather launches;"
+                      f" every step equal to the oracle's; {counters()}")
+                continue
+            if kind == "step":
+                inj.arm_next(SimulatedFailure("chaos: injected step fault"))
+            elif kind == "device_loss":
+                inj.arm_next(SimulatedDeviceLoss("chaos: injected device "
+                                                 "loss"))
+            else:
+                def fired(step, secs):
+                    spec.stats.bump(straggler_events=1)
+                    spec.degrade_to_generic(f"straggler stall @step {step}")
+                    fault_at["t"] = time.perf_counter()
+                mon = StragglerMonitor(threshold=2.0, patience=2, window=16,
+                                       on_straggler=fired)
+                for i, s in enumerate(base):        # real step latencies
+                    mon.observe(i, s)
+                stall = 10 * statistics.median(base)
+                for i in range(8, 16):              # a 10x stall
+                    if mon.observe(i, stall):
+                        break
+                check(spec.degraded, "chaos straggler: the monitor did "
+                                     "not degrade the plane")
+            # the faulted batch and its retry, then 8 degraded steps
+            _, retried, launched_deg, _ = (
+                serve(1, f"{kind} (fault)") if kind != "straggler"
+                else (0, 0, 0, None))
+            ms_deg, _, launched, _ = serve(8, f"{kind} (degraded)")
+            launched_deg += launched
+            check(spec.degraded and health.state != HEALTHY,
+                  f"chaos {kind}: not degraded after the fault")
+            check(retried == (kind != "straggler"),
+                  f"chaos {kind}: {retried} retried steps")
+            check(launched_deg == 0, f"chaos {kind}: {launched_deg} "
+                                     f"hot_gather launches while degraded")
+            secs, cycle = recover(kind)
+            to_healthy = time.perf_counter() - fault_at["t"]
+            ms_rec, _, launched_rec, _ = serve(8, f"{kind} (recovered)")
+            check(launched_rec > 0, f"chaos {kind}: no hot_gather after "
+                                    f"the recovery")
+            print(f"[chaos] {kind}: degraded, "
+                  f"{'the faulted batch retried, ' if retried else ''}"
+                  f"{ms_deg:.3f} ms/step degraded against {ms_spec:.3f} "
+                  f"specialized before and {ms_rec:.3f} after (median of 8"
+                  f"); hot_gather launches {launched_deg} degraded, "
+                  f"{launched_rec} after recovery; fault to HEALTHY "
+                  f"{to_healthy:.3f} s (8 degraded steps served), schedule "
+                  f"to HEALTHY {secs:.3f} s ({cycle}); every step equal "
+                  f"to the oracle's, tables equal; {counters()}")
+        print(f"[chaos] controller health {health.snapshot()}")
+    finally:
+        spec.close()
+        oracle.close()
+        ctl.close()
+
+
+def chaos_frontend_arc(torch, cfg, params, capacity: float) -> None:
+    """One open-loop run through the serving frontend at 0.5 C with a
+    window fault armed mid-run: every request is accounted, the faulted
+    window's requests fail with PLANE_FAULT, the degraded plane rejects
+    with PLANE_DEGRADED until the controller's recovery, and every
+    window that ran equals the oracle's replay bit for bit."""
+    import threading
+    from repro_torch.core.controller import HEALTHY, ControllerConfig, \
+        MorpheusController
+    from repro_torch.distributed.fault import FailureInjector, \
+        SimulatedFailure
+    from repro_torch.serving import make_request_rows, make_synthetic_batch
+    from repro_torch.serving.frontend import FrontendConfig, \
+        OpenLoopDriver, ServingFrontend, poisson_gaps
+    from repro_torch.testing.chaos import chaos_health_config
+
+    ctl = MorpheusController(ControllerConfig(
+        health=chaos_health_config("frontend")))
+    spec, oracle = _serving_pair(cfg, params, ctl)
+    health = ctl.health_for(spec.plane_id)
+    captured, marks = [], {}
+    real_many = spec.step_many
+
+    def tap(batches, k=None):
+        try:
+            out = real_many(batches, k=k)
+        except SimulatedFailure:
+            marks.setdefault("fault", time.perf_counter())
+            raise
+        captured.append((batches, k, out, spec.tables.version))
+        return out
+
+    fe = None
+    try:
+        for i in range(4):
+            b = make_synthetic_batch(cfg, seed=4000 + i)
+            check(torch.equal(spec.step(b), oracle.step(b)),
+                  "chaos frontend: a warm-up step differs")
+        spec.recompile(block=True)
+        oracle.recompile(block=True)
+        _mirror(oracle, spec.tables.version)
+        inj = FailureInjector()
+        spec.set_fault_injector(inj)
+        spec.step_many = tap
+        step_s = 16 / capacity
+        fe = ServingFrontend(spec, FrontendConfig(
+            capacity=256, max_batch=16, max_wait_s=2e-3, window_k_max=4,
+            inflight=2, default_slo_s=20 * step_s), keep_outputs=False)
+        fe.start()
+        n, rate = 192, 0.5 * capacity
+        driver = OpenLoopDriver(
+            [fe], make_request_rows(cfg, 5, n, locality="high"),
+            poisson_gaps(rate, n, 5))
+        arm = threading.Timer(0.4 * n / rate, lambda: inj.arm_next(
+            SimulatedFailure("chaos: window fault")))
+        def poll() -> None:
+            # the recovery ticker: a degraded plane is scheduled (the
+            # controller's health gate decides), and HEALTHY is timed
+            if spec.degraded:
+                ctl.schedule(spec)
+            elif "fault" in marks and health.state == HEALTHY:
+                marks.setdefault("healthy", time.perf_counter())
+            check(time.perf_counter() - t < 120, "chaos frontend: stuck")
+            time.sleep(0.002)
+
+        t = time.perf_counter()
+        driver.start()
+        arm.start()
+        while driver._thread.is_alive():
+            poll()
+        driver.join()
+        arm.join()
+        check(fe.drain(timeout=120), "chaos frontend: no drain")
+        wall = time.perf_counter() - t
+        while spec.degraded or ("fault" in marks and "healthy" not in marks):
+            poll()
+        fe.stop()
+        fe = None
+        ctl.drain(timeout=120.0)
+        check("fault" in marks, "chaos frontend: the armed window fault "
+                                "never fired")
+        s = spec.stats
+        reasons = {}
+        for r in driver.requests:
+            reasons[r.reason] = reasons.get(r.reason, 0) + 1
+        terminal = (s.requests_completed + s.requests_rejected
+                    + s.requests_shed + s.requests_failed)
+        check(s.requests_submitted == n == terminal,
+              f"chaos frontend: accounting {s.snapshot()}")
+        check(s.requests_failed >= 1
+              and reasons.get("PLANE_FAULT", 0) == s.requests_failed,
+              f"chaos frontend: failed {s.requests_failed}, {reasons}")
+        check(reasons.get("PLANE_DEGRADED", 0)
+              == s.requests_rejected_degraded,
+              f"chaos frontend: rejections {reasons}")
+        for batches, k, out, v in captured:
+            _mirror(oracle, v)
+            check(torch.equal(out, oracle.step_many(batches, k=k)),
+                  "chaos frontend: a window differs from the oracle's")
+        _mirror(oracle, spec.tables.version)
+        _tables_equal(torch, spec, oracle, "chaos frontend")
+        q = lambda p: s.quantile("request_total_s", p) * 1e3
+        print(f"[chaos] frontend: {n} requests at {rate:.1f} req/s "
+              f"(0.5 C) over {wall:.2f} s: submitted "
+              f"{s.requests_submitted} = completed {s.requests_completed} "
+              f"+ rejected {s.requests_rejected} + shed {s.requests_shed} "
+              f"+ failed {s.requests_failed}; PLANE_FAULT "
+              f"{reasons.get('PLANE_FAULT', 0)}, PLANE_DEGRADED "
+              f"{s.requests_rejected_degraded}; request_total_s p50 "
+              f"{q(0.5):.3f} ms, p99 {q(0.99):.3f} ms; window fault to "
+              f"HEALTHY {marks['healthy'] - marks['fault']:.3f} s "
+              f"(t1 {s.t1_history[-1]:.3f} s); {len(captured)} windows "
+              f"replayed on the oracle, outputs and tables equal bit for "
+              f"bit; faults {s.faults}, recoveries {s.recoveries}")
+    finally:
+        if fe is not None:
+            fe.stop(drain=False)
+        spec.__dict__.pop("step_many", None)     # un-shadow the method
+        spec.close()
+        oracle.close()
+        ctl.close()
+
+
+def serve_cli_phase(torch, ops, cfg) -> None:
+    """``launch.serve.run_serve`` at the serving phase's widths with
+    fused windows of 4 and two in flight, then the CLI's ``main`` at its
+    default config, both on the card."""
+    from repro_torch.launch import serve as serve_mod
+    ops.reset_launches()
+    t = time.perf_counter()
+    stats, rt = serve_mod.run_serve(steps=64, recompile_every=32,
+                                    serve_cfg=cfg, fuse=4, inflight=2)
+    try:
+        counts = ops.launches()
+        plan = {k: v.impl for k, v in rt.plan.sites}
+        check(stats["steps"] == 64 and rt.stats.recompiles == 2,
+              f"run_serve: {stats['steps']} steps, "
+              f"{rt.stats.recompiles} recompiles")
+        check("hot_cache" not in plan.values()
+              or counts.get("hot_gather", 0) > 0,
+              f"run_serve planned hot_cache but launched no hot_gather "
+              f"{counts}")
+        print(f"[serve-cli] run_serve at the [serve] widths, fuse 4, "
+              f"inflight 2 ({time.perf_counter() - t:.1f} s, params "
+              f"built): {stats['req_per_s']:.1f} req/s, p50 "
+              f"{stats['p50_ms']:.3f} ms/step, p99 {stats['p99_ms']:.3f} "
+              f"ms/step (each window timed from its dispatch to its "
+              f"CUDA event, so a window waits behind the one before it), "
+              f"straggler_events {stats['straggler_events']}, plan {plan},"
+              f" hot_experts {stats['hot_experts']}, launches {counts}")
+    finally:
+        rt.close()
+        del rt, stats
+        gc.collect()
+        torch.cuda.empty_cache()
+    ops.reset_launches()
+    t = time.perf_counter()
+    check(serve_mod.main(["--steps", "60", "--recompile-every", "30"]) == 0,
+          "launch.serve.main did not return 0")
+    print(f"[serve-cli] launch.serve.main(['--steps', '60', "
+          f"'--recompile-every', '30']) on the card: "
+          f"{time.perf_counter() - t:.1f} s, launches {ops.launches()}")
+
+
+def chaos_conformance_phase() -> None:
+    """The chaos cells on the card at smoke scale: llama3-8b in both
+    modes, mamba2-1.3b plain, whose report must equal the host's."""
+    from repro_torch.testing import run_chaos
+    for arch, mode in (("llama3-8b", "plain"), ("llama3-8b", "frontend"),
+                       ("mamba2-1.3b", "plain")):
+        t = time.perf_counter()
+        rep = run_chaos(arch, mode, seed=0)
+        print(f"[chaos-conformance] {arch} {mode} on the card "
+              f"({time.perf_counter() - t:.1f} s): {rep}")
+        if arch == "mamba2-1.3b":
+            host = run_chaos(arch, mode, seed=0, device="cpu")
+            check(rep == host,
+                  f"{arch} {mode}: card report != host report {host}")
+            print(f"[chaos-conformance] {arch} {mode}: the card's report "
+                  f"equals the host's")
 
 
 def time_hot_gather(torch, hot_gather_cuda, hot_gather_ref, table, hot_ids,
@@ -872,9 +1274,67 @@ def archzoo_phase(torch, ops):
               f"of 8); host syncs per step: generic {sync_generic:g}, "
               f"specialized {sync_spec:g}; deopt_steps="
               f"{rt.stats.deopt_steps}")
+        step_fault_arc(torch, ops, rt, batches)
         return captured["args"], captured["kw"]
     finally:
         rt.close()
+
+
+def step_fault_arc(torch, ops, rt, batches) -> None:
+    """A step fault on the arch-zoo plane: the step aborts with nothing
+    committed, the plane degrades, and the retried batch's output and
+    the RW SSM state table equal the generic executable's on the
+    pre-fault state bit for bit; the recompile recovers it."""
+    from repro_torch.distributed.fault import FailureInjector, \
+        SimulatedFailure
+    inj = FailureInjector()
+    rt.set_fault_injector(inj)
+    b = rt.place_batch(batches(1)[0])
+    pre = rt.state
+    n0 = dict(ops.launches())
+    inj.arm_next(SimulatedFailure("chaos: injected step fault"))
+    try:
+        rt.step(b)
+        raise SmokeFailure("archzoo: the armed step fault did not fire")
+    except SimulatedFailure:
+        pass
+    check(rt.degraded and rt.state is pre,
+          "archzoo: the faulted step degraded nothing or committed state")
+    out_o, st_o = rt.generic_exec(rt.params, pre, b)   # the oracle
+    out = rt.step(b)                                   # the retry
+    torch.cuda.synchronize()
+    check(torch.equal(out, out_o), "archzoo: the retried step differs "
+                                   "from the generic oracle")
+    for f, v in rt.state.tables["ssm_state"].items():
+        check(torch.equal(v, st_o.tables["ssm_state"][f]),
+              f"archzoo: ssm_state.{f} differs from the oracle's after "
+              f"the retried step")
+    degraded = {k: v - n0.get(k, 0) for k, v in ops.launches().items()}
+    check(degraded.get("ssd_scan", 0) > 0
+          and degraded.get("hot_gather", 0) == 0,
+          f"archzoo: launches while degraded {degraded}")
+    t = time.perf_counter()
+    info = rt.recompile(block=True)
+    secs = time.perf_counter() - t
+    check(info.get("recovered") is True and not rt.degraded,
+          f"archzoo: the recompile did not recover the plane {info}")
+    n1 = dict(ops.launches())
+    b2 = batches(1)[0]
+    out_g = rt.run_generic(b2)
+    check(torch.equal(rt.step(b2), out_g),
+          "archzoo: the recovered step differs from generic")
+    after = {k: v - n1.get(k, 0) for k, v in ops.launches().items()}
+    check(after.get("hot_gather", 0) > 0 and after.get("ssd_scan", 0) > 0,
+          f"archzoo: launches after recovery {after}")
+    s = rt.stats
+    print(f"[archzoo] step fault: aborted with nothing committed, degraded;"
+          f" the retried batch and the ssm_state table equal the generic "
+          f"oracle's bit for bit; launches while degraded {degraded}; "
+          f"recovered by one recompile in {secs:.3f} s "
+          f"({'revalidated' if info.get('revalidated') else 'swapped'}); "
+          f"launches after {after}; faults {s.faults}, degraded_steps "
+          f"{s.degraded_steps}, recoveries {s.recoveries}")
+    rt.set_fault_injector(None)
 
 
 def conformance_phase() -> None:
@@ -1336,9 +1796,16 @@ def main() -> int:
 
     table, hot_ids, idx, serve_cfg, serve_params = main_path(
         "serving", lambda: serving_phase(torch, ops), ("hot_gather",))
-    main_path("frontend",
-              lambda: frontend_phase(torch, serve_cfg, serve_params),
+    capacity = main_path(
+        "frontend", lambda: frontend_phase(torch, serve_cfg, serve_params),
+        ("hot_gather",))
+    main_path("chaos",
+              lambda: chaos_phase(torch, ops, serve_cfg, serve_params),
               ("hot_gather",))
+    main_path("chaos-frontend",
+              lambda: chaos_frontend_arc(torch, serve_cfg, serve_params,
+                                         capacity), ("hot_gather",))
+    serve_cli_phase(torch, ops, serve_cfg)
     del serve_params
     gc.collect()
     torch.cuda.empty_cache()
@@ -1346,6 +1813,7 @@ def main() -> int:
                                  ("ssd_scan", "hot_gather"))
 
     conformance_phase()
+    chaos_conformance_phase()
 
     timing = {"hot_gather": time_hot_gather(torch, hot_gather_cuda,
                                             hot_gather_ref, table, hot_ids,

@@ -41,9 +41,18 @@ on the device ahead of dispatch; a placed batch is never moved again.
 :meth:`MorpheusRuntime.attach_profile` feeds the serving frontend's
 arrival profile into every recompile cycle's plan inputs.
 
-Not ported yet (see ROADMAP.md): the dispatch fault boundary and
-degraded mode (a step or window that raises aborts its claim and
-re-raises), and mesh placement.
+The dispatch fault boundary: a step or window that raises aborts its
+claim (nothing is committed, and since executables never write their
+input the state is as it was), degrades the plane to generic-only
+dispatch and re-raises, so the caller can retry the same batch through
+the generic executable.  The controller's health-gated recovery clears
+the degrade at the next revalidation or swap.  A chaos hook
+(:class:`~repro_torch.distributed.fault.FailureInjector`) fires inside
+the step's try block before the executable, and armed compile faults
+fail recompile cycles right after planning.
+
+Not ported yet (see ROADMAP.md): mesh placement, and with it the mesh
+branch of :meth:`MorpheusRuntime.simulate_device_loss` (Queue 1 item 12).
 """
 from __future__ import annotations
 
@@ -61,6 +70,7 @@ import numpy as np
 import torch
 
 from . import instrument
+from ..distributed.fault import SimulatedCompileFailure, SimulatedDeviceLoss
 from .controller import ControllerConfig, MorpheusController
 from .engine import EngineConfig, MorpheusEngine
 from .execcache import ExecutableCache, batch_key
@@ -172,6 +182,11 @@ class RuntimeStats:
                                   # not in the active plan's bucket set
     locked_calls: int = 0         # stats-lock acquisitions: at most one
                                   # per step or fused window
+    # ---- fleet health (repro_torch.core.controller.health) ----
+    faults: int = 0               # dispatch-layer faults survived
+    degraded_steps: int = 0       # steps served generic-only (degraded)
+    recoveries: int = 0           # degraded -> specialized swaps
+    straggler_events: int = 0     # StragglerMonitor mitigations fired
     requests_rejected_degraded: int = 0   # admissions shed PLANE_DEGRADED
     requests_failed: int = 0      # in-flight requests lost to a fault
     t1_history: List[float] = field(default_factory=list)
@@ -339,6 +354,17 @@ class MorpheusRuntime:
         self._compiling = False
         self._queued: List[tuple] = []
         self._closed = False
+        # ---- fleet health (dispatch fault boundary) ----
+        # `_degraded` flips only under _write() (so every claim's
+        # generation check observes it); while set, dispatch is
+        # generic-only whatever the guard says.  `_fault_injector` is the
+        # chaos hook: its check runs inside the step's try block BEFORE
+        # the executable, so an injected fault aborts the claim with the
+        # state untouched and the same batch can be retried.
+        self._degraded = False
+        self._degrade_reason: Optional[str] = None
+        self._fault_injector: Optional[Any] = None
+        self._compile_faults = 0      # armed recompile-cycle failures
         self._last_plan_signature: Optional[Any] = None
         self.last_snapshot: Optional[VersionedSnapshot] = None
         self._steps_at_cycle = 0
@@ -553,7 +579,12 @@ class MorpheusRuntime:
         deltas = {"steps": 1}
         if cnt:
             deltas["batch_transfers"] = cnt["transfers"]
-        if self.tables.version != plan.version:
+        # degraded mode first, then the program guard: a faulted plane
+        # serves generic-only until a re-specialization clears the flag
+        if self._degraded:
+            exec_ = generic_exec
+            deltas["degraded_steps"] = 1
+        elif self.tables.version != plan.version:
             exec_ = generic_exec
             deltas["deopt_steps"] = 1
         elif self.enable and self.sampler.should_sample(self._step_seq):
@@ -563,9 +594,15 @@ class MorpheusRuntime:
         else:
             exec_ = spec_exec
         try:
+            # the chaos hook fires before the executable; either way the
+            # abort below commits nothing, so the batch can be retried
+            if self._fault_injector is not None:
+                self._fault_injector.check(self._step_seq)
             out, new_state = exec_(self.params, state, batch)
-        except BaseException:
+        except BaseException as e:
             self._abort_step()
+            if isinstance(e, Exception):
+                self._on_step_fault(e)
             raise
         self._commit_step(gen, new_state, sampled, deltas)
         return out
@@ -633,7 +670,13 @@ class MorpheusRuntime:
             if cnt:
                 deltas["batch_transfers"] = cnt["transfers"]
             sampled = False
-            if self.tables.version != plan.version:
+            if self._degraded:
+                # read lock-free: the flag flips only under _write(),
+                # which bumps the generation, so a stale read fails the
+                # claim below and retries
+                role_plan = self.generic_plan
+                deltas["degraded_steps"] = k
+            elif self.tables.version != plan.version:
                 role_plan = self.generic_plan
                 deltas["deopt_steps"] = k
             elif (self.enable and self.sampler.should_sample_window(
@@ -653,9 +696,13 @@ class MorpheusRuntime:
         # the current world
         self._fused_memo[mkey] = fexec
         try:
+            if self._fault_injector is not None:
+                self._fault_injector.check(self._step_seq)
             out, new_state = fexec(self.params, state, stacked)
-        except BaseException:
+        except BaseException as e:
             self._abort_step()
+            if isinstance(e, Exception):
+                self._on_step_fault(e)
             raise
         self._commit_step(gen, new_state, sampled, deltas)
         return out
@@ -810,6 +857,69 @@ class MorpheusRuntime:
         self.tables.bump_version(f"flag:{name}")
         self.controller.notify_update(self)
 
+    # ---- fleet health: the dispatch fault boundary ---------------------
+    @property
+    def degraded(self) -> bool:
+        """True while this plane serves generic-only after a fault."""
+        return self._degraded
+
+    @property
+    def degrade_reason(self) -> Optional[str]:
+        return self._degrade_reason
+
+    def set_fault_injector(self, injector) -> None:
+        """Attach a chaos hook (:class:`~repro_torch.distributed.fault.\
+FailureInjector`): its ``check(step)`` runs inside every step's or
+        window's try block before the executable, so an injected fault
+        exercises the real abort/degrade/recover path.  ``None``
+        detaches."""
+        self._fault_injector = injector
+
+    def arm_compile_faults(self, n: int = 1) -> None:
+        """Make the next ``n`` recompile cycles raise a
+        :class:`~repro_torch.distributed.fault.SimulatedCompileFailure`
+        right after planning, exercising the scheduler's backoff retry
+        and, past ``max_retries``, the signature quarantine."""
+        self._compile_faults += n
+
+    def degrade_to_generic(self, reason: str) -> None:
+        """Swap this plane to generic-only dispatch (the deopt target
+        doubles as the fault-survival mode) until a re-specialization
+        cycle clears the flag.  The flip happens under the write side of
+        the seqlock, so dispatch work prepared against the healthy world
+        fails its claim check and retries into the degraded path."""
+        with self._write():
+            self._degraded = True
+            self._degrade_reason = str(reason)
+        self.stats.bump(faults=1)
+        try:
+            self.controller.on_plane_fault(self, reason)
+        except Exception:
+            pass        # the fault path must survive a closed controller
+
+    def simulate_device_loss(self, reason: str = "device-loss") -> None:
+        """Fault path for a lost device.  The port places a plane on one
+        device, so there is no mesh to shrink: this is the plain degrade
+        (the reference's single-device branch).  The mesh branch, which
+        hands live state over to a shrunk mesh, waits for ROADMAP.md
+        Queue 1 item 12."""
+        self.degrade_to_generic(reason)
+
+    def _on_step_fault(self, exc: Exception) -> None:
+        """A step or window raised: route the plane into degraded mode.
+        Runs AFTER ``_abort_step`` released the slot (so the degrade's
+        write-side wait cannot deadlock on our own claim) and never
+        masks the original exception."""
+        if self._closed:
+            return
+        try:
+            if isinstance(exc, SimulatedDeviceLoss):
+                self.simulate_device_loss(f"device-loss: {exc!r}")
+            else:
+                self.degrade_to_generic(f"step-fault: {exc!r}")
+        except Exception:
+            pass
+
     # ---- recompilation ---------------------------------------------------
     def recompile(self, block: bool = True) -> Optional[dict]:
         """Run one Morpheus compilation cycle (§4.4).  ``block=False``
@@ -863,9 +973,22 @@ class MorpheusRuntime:
                 profile=profile)
             self.stats.log("t1_history", t1)
             self.stats.pass_stats = pass_stats
+            # recorded BEFORE any failure below: the scheduler's give-up
+            # hook quarantines exactly the signature whose cycle died
             self._last_plan_signature = plan.signature
+            if self._compile_faults > 0:      # chaos: injected failure
+                self._compile_faults -= 1
+                raise SimulatedCompileFailure("injected recompile failure")
             if self.exec_cache.is_quarantined(plan.signature):
-                # poisoned signature: never re-attempted, keep serving
+                # poisoned signature: never re-attempted, keep serving; a
+                # degraded plane drops back to DEGRADED (the schedule
+                # gate had flipped it RECOVERING)
+                if self._degraded:
+                    try:
+                        self.controller.on_plane_fault(
+                            self, "quarantined plan signature")
+                    except Exception:
+                        pass
                 self._steps_at_cycle = self.stats.steps
                 return {"t1": t1, "pass_stats": pass_stats,
                         "plan": plan.label, "n_sites": len(plan.sites),
@@ -888,6 +1011,7 @@ class MorpheusRuntime:
                 # REVALIDATION: the planned code is what already runs —
                 # restamp the version, re-arm the sketch window and
                 # guards, build nothing
+                recovered = False
                 with self._write():
                     self._active = (
                         dataclasses.replace(active_plan,
@@ -896,11 +1020,21 @@ class MorpheusRuntime:
                     self.state = self.state.replace(
                         instr=fresh_instr, guards=fresh_guards)
                     self._backbuf.publish(fresh_instr)
-                self.stats.bump(revalidations=1, recompiles=1)
+                    if self._degraded:      # the code is validated
+                        self._degraded = False    # afresh: recovered
+                        self._degrade_reason = None
+                        recovered = True
+                deltas = {"revalidations": 1, "recompiles": 1}
+                if recovered:
+                    deltas["recoveries"] = 1
+                self.stats.bump(**deltas)
+                if recovered:
+                    self.controller.on_plane_recovered(self)
                 self._steps_at_cycle = self.stats.steps
                 return {"t1": t1, "pass_stats": pass_stats,
                         "plan": self.plan.label,
-                        "n_sites": len(plan.sites), "revalidated": True}
+                        "n_sites": len(plan.sites), "revalidated": True,
+                        "recovered": recovered}
 
             wanted = [plan, self._instr_twin(plan, isites)]
             if isites != self._active_isites:
@@ -927,6 +1061,7 @@ class MorpheusRuntime:
             new_generic_instr = (execs[3] if len(execs) > 3
                                  else self.generic_instr_exec)
             t0 = time.time()
+            recovered = False
             with self._write():
                 # ATOMIC swap: one reference assignment replaces the tuple
                 self._active = (plan, execs[0], execs[1], new_generic)
@@ -935,12 +1070,21 @@ class MorpheusRuntime:
                 self.state = self.state.replace(
                     instr=fresh_instr, guards=fresh_guards)
                 self._backbuf.publish(fresh_instr)
+                if self._degraded:      # specialized code is back
+                    self._degraded = False
+                    self._degrade_reason = None
+                    recovered = True
             self.stats.log("swap_history", time.time() - t0)
-            self.stats.bump(recompiles=1, swaps=1)
+            deltas = {"recompiles": 1, "swaps": 1}
+            if recovered:
+                deltas["recoveries"] = 1
+            self.stats.bump(**deltas)
+            if recovered:
+                self.controller.on_plane_recovered(self)
             self._steps_at_cycle = self.stats.steps
             return {"t1": t1, "pass_stats": pass_stats,
                     "plan": plan.label, "n_sites": len(plan.sites),
-                    "revalidated": False}
+                    "revalidated": False, "recovered": recovered}
         finally:
             # replay queued control updates (§4.4) BEFORE clearing
             # _compiling, in FIFO order, also when the cycle failed

@@ -16,13 +16,18 @@ sequence, with guards catching every mispredict.
     :class:`~repro_torch.core.MorpheusRuntime` through a schedule while
     a lock-stepped generic oracle replays it, asserting outputs and
     table state bitwise equal at every step;
+  * :mod:`~repro_torch.testing.chaos` extends the harness with fault
+    injection: degraded-mode serving held to the oracle, and the
+    health-gated recovery after every fault;
   * :mod:`~repro_torch.testing.fingerprint` hashes plan signatures
     canonically (the reference's serialization, byte for byte).
 
-Not ported yet (ROADMAP.md): the chaos (fault-injection) harness and the
+Not ported yet (ROADMAP.md): the training chaos cells and the
 cross-process fingerprint CLI.
 """
 from .archzoo import ArchPlane, build_plane, conformance_engine_config
+from .chaos import CHAOS_MODES, FAULT_KINDS, chaos_health_config, \
+    run_chaos, run_train_chaos
 from .churn import ChurnEvent, generate_schedule, register_churn_move
 from .conformance import ConformanceError, run_conformance
 from .fingerprint import plan_fingerprint
@@ -31,5 +36,7 @@ __all__ = [
     "ArchPlane", "build_plane", "conformance_engine_config",
     "ChurnEvent", "generate_schedule", "register_churn_move",
     "ConformanceError", "run_conformance",
+    "CHAOS_MODES", "FAULT_KINDS", "chaos_health_config", "run_chaos",
+    "run_train_chaos",
     "plan_fingerprint",
 ]

@@ -19,9 +19,11 @@ The move registry is extensible (:func:`register_churn_move`);
 ``generate_schedule`` makes every applicable move fire at least once.
 The SSD fast path's ``ssm_flush`` / ``ssm_warm`` moves drive
 :class:`~repro_torch.core.passes.ssd_fastpath.SSDFastPathPass` through
-its claim/decline/re-claim cycle.  The reference's chaos (fault
-injection) moves wait for the fault-tolerance slice of the port:
-``generate_schedule(..., chaos=True)`` raises until then.
+its claim/decline/re-claim cycle.  The chaos (fault-injection) moves are
+registered with ``chaos=True``: they join only the schedules
+``generate_schedule(..., chaos=True)`` builds, for the chaos harness
+(:mod:`~repro_torch.testing.chaos`), and plain schedules stay free of
+them.
 """
 from __future__ import annotations
 
@@ -52,6 +54,13 @@ class ChurnEvent:
     recompile         blocking recompile cycle on both runtimes
     inject_mispredict ``tables.bump_version()`` on both — the next step
                       MUST deopt through the program guard
+    chaos_fault       (chaos schedules only) arm a fault on the SPEC
+                      side: ``payload["fault"]`` is "step" /
+                      "device_loss" / "compile" / "straggler" — the
+                      oracle never faults
+    schedule_recovery (chaos schedules only) drive the controller's
+                      health-gated schedule + drain until the spec
+                      plane re-specializes
     """
     kind: str
     payload: Dict = field(default_factory=dict)
@@ -70,21 +79,26 @@ _MOVES: Dict[str, Dict] = {}
 
 def register_churn_move(name: str, factory: MoveFactory,
                         applies: Optional[Callable[[ArchPlane], bool]]
-                        = None, weight: float = 1.0) -> None:
+                        = None, weight: float = 1.0,
+                        chaos: bool = False) -> None:
     """Add (or replace) a churn move.  ``factory(plane, rng, traffic)``
     returns the materialized event or a list of events (an episode); it
     may also mutate ``traffic`` — that's how hot-set rotation works.
     ``applies(plane)`` gates the move per architecture; ``weight``
-    biases random selection."""
+    biases random selection; ``chaos=True`` marks a fault-injection
+    move, which only chaos schedules include."""
     _MOVES[name] = {"factory": factory,
                     "applies": applies or (lambda plane: True),
-                    "weight": weight}
+                    "weight": weight,
+                    "chaos": bool(chaos)}
 
 
-def churn_moves(plane: ArchPlane) -> List[str]:
+def churn_moves(plane: ArchPlane, chaos: bool = False) -> List[str]:
     """Registered move names applicable to ``plane``, in registration
-    order."""
-    return [n for n, m in _MOVES.items() if m["applies"](plane)]
+    order.  Chaos (fault-injection) moves are included only with
+    ``chaos=True``."""
+    return [n for n, m in _MOVES.items()
+            if m["applies"](plane) and (chaos or not m["chaos"])]
 
 
 # ---- built-in moves -----------------------------------------------------
@@ -168,6 +182,48 @@ def _mv_ssm_warm(plane, rng, traffic):
                    "count": np.ones(rows, np.int32)}})
 
 
+# ---- chaos (fault-injection) moves --------------------------------------
+
+def _chaos_episode(fault: str, plane, rng, traffic,
+                   probe_steps: int = 3) -> List[ChurnEvent]:
+    """One fault's full arc: arm the fault, serve the step it fires on
+    (the chaos driver retries it through the degraded path), serve
+    enough further steps for the recovery probe, drive the health-gated
+    re-specialization, then prove the recovered plane serves.  A list,
+    so the arc stays contiguous in the schedule."""
+    ev = [ChurnEvent("chaos_fault", {"fault": fault})]
+    for _ in range(probe_steps):
+        ev.append(_step_event(plane, rng, traffic))
+    ev.append(ChurnEvent("schedule_recovery", {}))
+    ev.append(_step_event(plane, rng, traffic))
+    return ev
+
+
+def _mv_chaos_step_fault(plane, rng, traffic):
+    """An executable raising mid-step."""
+    return _chaos_episode("step", plane, rng, traffic)
+
+
+def _mv_chaos_device_loss(plane, rng, traffic):
+    """A device dropping out mid-step."""
+    return _chaos_episode("device_loss", plane, rng, traffic)
+
+
+def _mv_chaos_compile_fault(plane, rng, traffic):
+    """A recompile cycle failing: the scheduler's backoff retry must
+    absorb it (one armed failure < max_retries) with serving unharmed."""
+    return [ChurnEvent("chaos_fault", {"fault": "compile", "n": 1}),
+            _step_event(plane, rng, traffic),
+            ChurnEvent("schedule_recovery", {}),
+            _step_event(plane, rng, traffic)]
+
+
+def _mv_chaos_straggler(plane, rng, traffic):
+    """A straggler stall: synthetic slow-window observations trip the
+    StragglerMonitor, whose mitigation degrades the plane."""
+    return _chaos_episode("straggler", plane, rng, traffic)
+
+
 register_churn_move("update_req_class", _mv_update_req_class)
 register_churn_move("update_vocab", _mv_update_vocab)
 register_churn_move("update_cross", _mv_update_cross,
@@ -179,6 +235,11 @@ register_churn_move("ssm_flush", _mv_ssm_flush,
                     applies=lambda p: p.has_ssm)
 register_churn_move("ssm_warm", _mv_ssm_warm,
                     applies=lambda p: p.has_ssm)
+register_churn_move("chaos_step_fault", _mv_chaos_step_fault, chaos=True)
+register_churn_move("chaos_device_loss", _mv_chaos_device_loss, chaos=True)
+register_churn_move("chaos_compile_fault", _mv_chaos_compile_fault,
+                    chaos=True)
+register_churn_move("chaos_straggler", _mv_chaos_straggler, chaos=True)
 
 
 # ---- schedule generation ------------------------------------------------
@@ -200,11 +261,10 @@ def generate_schedule(plane: ArchPlane, seed: int = 0,
     injected mispredicts, each immediately followed by a step (so the
     guard's deopt is observable); periodic recompiles; and a final
     recompile followed by steps, so the terminal plan is exercised too.
+    With ``chaos=True`` the fault-injection moves join the pool, each
+    firing as a contiguous episode (fault, probe steps, recovery) and,
+    like every move, at least once.
     """
-    if chaos:
-        raise NotImplementedError(
-            "chaos schedules wait for the fault-tolerance slice of the "
-            "port (ROADMAP.md Queue 1 item 9)")
     rng = np.random.default_rng(seed)
     traffic = TrafficState()
     ev: List[ChurnEvent] = []
@@ -217,7 +277,7 @@ def generate_schedule(plane: ArchPlane, seed: int = 0,
         ev.append(_step_event(plane, rng, traffic))
     ev.append(ChurnEvent("recompile", {}))
 
-    names = churn_moves(plane)
+    names = churn_moves(plane, chaos=chaos)
     weights = np.array([_MOVES[n]["weight"] for n in names], np.float64)
     weights = weights / weights.sum()
     pending = list(names)          # each applicable move >= once

@@ -116,14 +116,19 @@ class _Pair:
     """The two lock-stepped runtimes + the mirroring discipline.  Both
     read one params tree (the executables never write it)."""
 
-    def __init__(self, plane: ArchPlane, seed: int, device="cuda"):
+    def __init__(self, plane: ArchPlane, seed: int, device="cuda",
+                 controller=None):
         self.plane = plane
         example = make_batch(plane, np.random.default_rng(seed + 999))
         step = make_step(plane)
         params = build_params(plane, seed, device)
+        # chaos runs hand the SPEC side an explicit controller (health
+        # state machine + retrying scheduler); the oracle stays on its
+        # private one — faults are never injected on the oracle
         self.spec = MorpheusRuntime(
             step, build_tables(plane, seed), params, example,
-            conformance_engine_config(plane, device=device))
+            conformance_engine_config(plane, device=device),
+            controller=controller)
         self.oracle = MorpheusRuntime(
             step, build_tables(plane, seed), params, example,
             EngineConfig(

@@ -4,6 +4,8 @@ where only PyTorch is installed:
 
     PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py
 """
+import time
+
 import numpy as np
 import pytest
 import torch
@@ -545,7 +547,7 @@ def test_model_prefill_and_decode_on_the_card_go_through_the_kernel(cuda):
         assert (a - b).abs().max() <= (b - c).abs().max()
 
 
-def _serving_runtime(device, cfg):
+def _serving_runtime(device, cfg, controller=None):
     from repro_torch.core import EngineConfig, MorpheusRuntime, SketchConfig
     from repro_torch.serving import build_params, build_tables, \
         make_serve_step, make_synthetic_batch
@@ -560,7 +562,8 @@ def _serving_runtime(device, cfg):
                                              hot_coverage=0.8),
                          features={"vision_enabled": False,
                                    "track_sessions": True},
-                         moe_router_table="router", device=device))
+                         moe_router_table="router", device=device),
+        controller=controller)
 
 
 @pytest.mark.cuda
@@ -628,3 +631,173 @@ def test_frontend_pump_on_the_card(cuda):
         assert rt.stats.hist("request_execute_s").count == 11
     finally:
         rt.close()
+
+
+def _warm_serving(rt, cfg, device, n=6):
+    from repro_torch.serving import make_synthetic_batch
+    for i in range(n):
+        rt.step(make_synthetic_batch(cfg, seed=100 + i, device=device))
+    rt.recompile(block=True)
+    assert dict(rt.plan.sites)["vocab_embed#0"].impl == "hot_cache"
+
+
+@pytest.mark.cuda
+def test_step_fault_on_the_card_retries_bit_for_bit(cuda):
+    """A step fault on the card: the step is aborted with nothing
+    committed (work already queued for it is dropped with its state),
+    the plane degrades, and the retried batch and the sessions table
+    equal a fault-free twin's bit for bit; the recompile recovers."""
+    from repro_torch.distributed.fault import FailureInjector, \
+        SimulatedFailure
+    from repro_torch.serving import ServeConfig, make_synthetic_batch
+    cfg = ServeConfig()
+    rt, twin = _serving_runtime(cuda, cfg), _serving_runtime(cuda, cfg)
+    try:
+        _warm_serving(rt, cfg, cuda)
+        _warm_serving(twin, cfg, cuda)
+        inj = FailureInjector()
+        rt.set_fault_injector(inj)
+        b = make_synthetic_batch(cfg, seed=500, device=cuda)
+        inj.arm_next(SimulatedFailure("injected"))
+        with pytest.raises(SimulatedFailure):
+            rt.step(b)
+        assert rt.degraded and rt.stats.faults == 1
+        assert torch.equal(rt.step(b), twin.step(b))
+        for f in ("count", "last_token"):
+            assert torch.equal(rt.state.tables["sessions"][f],
+                               twin.state.tables["sessions"][f])
+        assert rt.stats.degraded_steps == 1
+        assert rt.recompile(block=True)["recovered"] is True
+        b2 = make_synthetic_batch(cfg, seed=501, device=cuda)
+        assert torch.equal(rt.step(b2), twin.step(b2))
+    finally:
+        rt.close()
+        twin.close()
+
+
+@pytest.mark.cuda
+def test_fault_after_enqueue_on_the_card_commits_nothing(cuda):
+    """An executable that raises after its kernels were enqueued on the
+    card (hot_gather among them): that work still runs, its outputs are
+    dropped, nothing reaches the state, and the retried batch and the
+    sessions table equal a fault-free twin's bit for bit."""
+    from repro_torch.serving import ServeConfig, make_synthetic_batch
+    cfg = ServeConfig()
+    rt, twin = _serving_runtime(cuda, cfg), _serving_runtime(cuda, cfg)
+    try:
+        _warm_serving(rt, cfg, cuda)
+        _warm_serving(twin, cfg, cuda)
+        rt.sampler.pin(1000)
+        twin.sampler.pin(1000)
+        plan, spec, instr, gen = rt._active
+
+        def run_then_raise(params, state, batch):
+            spec(params, state, batch)
+            raise RuntimeError("fault after enqueue")
+
+        rt._active = (plan, run_then_raise, run_then_raise, gen)
+        pre = rt.state
+        b = make_synthetic_batch(cfg, seed=550, device=cuda)
+        ops.reset_launches()
+        with pytest.raises(RuntimeError, match="after enqueue"):
+            rt.step(b)
+        assert ops.launches().get("hot_gather", 0) > 0
+        assert rt.state is pre and rt.degraded
+        assert torch.equal(rt.step(b), twin.step(b))
+        for f in ("count", "last_token"):
+            assert torch.equal(rt.state.tables["sessions"][f],
+                               twin.state.tables["sessions"][f])
+        rt._active = (plan, spec, instr, gen)
+        assert rt.recompile(block=True)["recovered"] is True
+    finally:
+        rt.close()
+        twin.close()
+
+
+@pytest.mark.cuda
+def test_degraded_steps_launch_no_hot_gather(cuda):
+    """The generic plan has no hot_cache site: degraded steps launch no
+    hot_gather, and steps after the recovery launch it again."""
+    from repro_torch.serving import ServeConfig, make_synthetic_batch
+    cfg = ServeConfig()
+    rt = _serving_runtime(cuda, cfg)
+    try:
+        _warm_serving(rt, cfg, cuda)
+        rt.sampler.pin(1000)
+        rt.degrade_to_generic("injected")
+        ops.reset_launches()
+        for i in range(4):
+            rt.step(make_synthetic_batch(cfg, seed=600 + i, device=cuda))
+        torch.cuda.synchronize()
+        assert ops.launches().get("hot_gather", 0) == 0
+        assert rt.stats.degraded_steps == 4
+        assert rt.recompile(block=True)["recovered"] is True
+        ops.reset_launches()
+        for i in range(4):
+            rt.step(make_synthetic_batch(cfg, seed=700 + i, device=cuda))
+        torch.cuda.synchronize()
+        assert ops.launches().get("hot_gather", 0) > 0
+    finally:
+        rt.close()
+
+
+@pytest.mark.cuda
+def test_window_fault_on_the_card_fails_its_requests_and_serves_on(cuda):
+    """A window whose step_many raised leaves no event for the retire
+    loop: its requests end failed with PLANE_FAULT, the degraded plane
+    rejects new ones with PLANE_DEGRADED, and after the recovery the
+    batcher thread serves requests to completion."""
+    from repro_torch.core.controller import ControllerConfig, \
+        MorpheusController
+    from repro_torch.distributed.fault import FailureInjector, \
+        SimulatedFailure
+    from repro_torch.serving import ServeConfig, make_request_rows
+    from repro_torch.serving.frontend import FrontendConfig, \
+        ServingFrontend
+    from repro_torch.testing.chaos import chaos_health_config
+    cfg = ServeConfig()
+    ctl = MorpheusController(ControllerConfig(
+        health=chaos_health_config("frontend")))
+    rt = _serving_runtime(cuda, cfg, controller=ctl)
+    fe = None
+    try:
+        _warm_serving(rt, cfg, cuda)
+        fe = ServingFrontend(rt, FrontendConfig(capacity=64, max_batch=8,
+                                                max_wait_s=0.0,
+                                                inflight=2))
+        inj = FailureInjector()
+        rt.set_fault_injector(inj)
+        inj.arm_next(SimulatedFailure("window fault"))
+        rows = make_request_rows(cfg, 9, 24)
+        failed = [fe.submit(r) for r in rows[:8]]
+        assert fe.pump() == 8
+        assert fe.batcher.inflight == 0
+        assert [(r.status, r.reason) for r in failed] == \
+            [("failed", "PLANE_FAULT")] * 8
+        assert rt.degraded
+        r = fe.submit(rows[8])
+        assert (r.status, r.reason) == ("rejected", "PLANE_DEGRADED")
+        ctl.schedule(rt)
+        assert ctl.drain(timeout=120.0)
+        assert not rt.degraded
+        fe.start()
+        ok = []
+        for row in rows[9:]:
+            ok.append(fe.submit(row))
+            time.sleep(0.01)      # inside the admission ramp's rate
+        # stop joins the batcher thread after its last window, so no
+        # window taken from the queue is still being dispatched
+        fe.stop()
+        fe = None
+        assert [x.status for x in ok] == ["ok"] * len(ok)
+        s = rt.stats
+        assert s.requests_failed == 8
+        assert s.requests_submitted == (s.requests_completed
+                                        + s.requests_rejected
+                                        + s.requests_shed
+                                        + s.requests_failed)
+    finally:
+        if fe is not None:
+            fe.stop(drain=False)
+        rt.close()
+        ctl.close()

@@ -33,6 +33,15 @@ def test_port_module_imports_neither_jax_nor_the_reference(path):
     assert not bad, f"{path} imports {bad}"
 
 
+def test_fault_chaos_and_serve_modules_are_checked():
+    """The fault-tolerance slice's modules are among the files held to
+    import neither JAX nor the reference."""
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    for rel in ("distributed/fault.py", "distributed/__init__.py",
+                "testing/chaos.py", "launch/serve.py"):
+        assert f"src/repro_torch/{rel}" in names
+
+
 def test_importing_the_port_leaves_jax_unloaded():
     code = ("import sys, repro_torch, repro_torch.core, repro_torch.serving,"
             " repro_torch.kernels.ops, repro_torch.configs,"
@@ -40,7 +49,8 @@ def test_importing_the_port_leaves_jax_unloaded():
             " repro_torch.kernels.flash_attention,"
             " repro_torch.models.attention, repro_torch.models.transformer,"
             " repro_torch.models.model, repro_torch.launch.steps,"
-            " repro_torch.serving.frontend; "
+            " repro_torch.serving.frontend, repro_torch.distributed.fault,"
+            " repro_torch.testing.chaos, repro_torch.launch.serve; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; "
             "assert not bad, bad; print('ok')")
