@@ -107,6 +107,27 @@
    and timed beside the plain version and SDPA (the kernels JSON carries
    the global prefill call).  The earlier phases' tensors are released
    first.
+8. MoE model phase: phi3.5-MoE (``src/repro/configs/phi3p5_moe.py``) at
+   every published width, cut to 24 of its 32 layers (the whole model's
+   78.0 GiB of bf16 params leave no room on one card), after gemma2's
+   params are released, the same way: 2 x 4096 random tokens and 32
+   greedy decode steps, twice.  It fails unless ``flash_attention``
+   launched 24 times in every call through the same two paths, the
+   logits are finite, the two runs are equal bit for bit, each layer's
+   ``expert_counts`` row sums to B*S*K at prefill and B*K at decode, and
+   every layer of the decode path, fed the prefill's input and cache at
+   that layer, gives the prefill's output within ``LAYER_TOL`` (the
+   comment at ``LAYER_TOL`` says why not the logits after all 24
+   layers).  It prints the free-running decode's routing flips against
+   the prefill by layer and its logits' difference from the prefill's
+   rows, the experts each layer used, host syncs per decode
+   step (one per MoE layer) and a profile split into expert and other
+   GEMMs, ``flash_*``, sort and gather/scatter work; then the kernel on
+   its layer 0's own q, k, v against its plain version and SDPA.
+
+In both model phases the kernels JSON counts ``flash_attention``'s
+launches over the two served runs alone (counts zeroed just before the
+first, read just after the second), not over the checks after them.
 
 The last three lines are the kernels JSON, the nvidia-smi line and the
 device JSON.  Any failure raises (exit code != 0) and prints no result;
@@ -115,6 +136,7 @@ script exits with 2.
 """
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import re
@@ -212,15 +234,27 @@ def eager_ms(torch, fn, iters: int = 50) -> float:
     return statistics.median(a.elapsed_time(b) for a, b in ev)
 
 
-def profile_steps(torch, label: str, step, batches) -> None:
+# device kernels by class, from their names (the first pattern that
+# matches); the rest is elementwise and other work
+KERNEL_CLASSES = (("GEMM", r"gemm|Gemm|GEMM|cutlass|xmma|nvjet|cublas"),
+                  ("flash", r"flash_"),
+                  ("sort", r"[Ss]ort|[Rr]adix"),
+                  ("gather/scatter", r"[Ii]ndex|[Ss]catter|[Gg]ather|Cat"))
+
+
+def profile_steps(torch, label: str, step, batches,
+                  gemm_dim=None) -> None:
     """Device time by kernel over one ``step`` per batch (torch.profiler),
-    and the share of the window's wall time the device was busy (the
-    profiler's own overhead included)."""
+    by kernel class, and the share of the window's wall time the device
+    was busy (the profiler's own overhead included).  With ``gemm_dim``,
+    the GEMMs (``aten::mm`` by input shape) split into those with an
+    operand dimension of ``gemm_dim`` (a MoE's expert width) and the
+    rest."""
     from torch.profiler import ProfilerActivity, profile as prof_
     n = len(batches)
     torch.cuda.synchronize()
-    with prof_(activities=[ProfilerActivity.CPU,
-                           ProfilerActivity.CUDA]) as prof:
+    with prof_(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+               record_shapes=gemm_dim is not None) as prof:
         t = time.perf_counter()
         for b in batches:
             step(b)
@@ -241,6 +275,22 @@ def profile_steps(torch, label: str, step, batches) -> None:
     for e in sorted(events, key=dev, reverse=True)[:12]:
         print(f"[profile]   {dev(e) / n:9.1f} us/step "
               f"{e.count / n:6.1f} calls/step  {e.key[:90]}")
+    by_class = {}
+    for e in events:
+        cls = next((c for c, pat in KERNEL_CLASSES if re.search(pat, e.key)),
+                   "elementwise and other")
+        by_class[cls] = by_class.get(cls, 0) + dev(e)
+    print(f"[profile]   by class, us/step: " + ", ".join(
+        f"{c} {v / n:.1f} ({v / busy:.1%})" for c, v in by_class.items()))
+    if gemm_dim is not None:
+        mm = [e for e in prof.key_averages(group_by_input_shape=True)
+              if e.key in ("aten::mm", "aten::addmm", "aten::bmm")]
+        expert = sum(dev(e) for e in mm
+                     if any(gemm_dim in s for s in e.input_shapes))
+        rest = sum(dev(e) for e in mm) - expert
+        print(f"[profile]   GEMMs by operand: expert (a dimension "
+              f"{gemm_dim}) {expert / n:.1f} us/step, attention "
+              f"projections, router and unembedding {rest / n:.1f} us/step")
 
 
 def host_syncs(torch, step, batches) -> float:
@@ -1445,7 +1495,46 @@ BF16_FLOP_PER_S = 989e12        # H100 SXM, dense bf16 tensor cores
 # 12,352-row prefill are different cuBLAS kernels that round at other
 # places, and the attention kernel tiles the two differently.
 MODEL_TOL = 0.1
-MODEL = dict(arch="gemma2-9b", batch=2, prompt=6144, decode=32, seed=0)
+# the model phases, each through make_prefill_step / make_decode_step with
+# bf16 params from the seed: gemma2-9b whole; phi3.5-MoE at every
+# published width, cut to 24 of its 32 layers (whole it is 41.87 B params,
+# 78.0 GiB in bf16, which leaves no room for a cache and activations on an
+# 80 GB card; cut, 31.47 B and 58.6 GiB, plus a 0.76 GiB cache)
+MODEL = dict(tag="model", arch="gemma2-9b", batch=2, prompt=6144,
+             decode=32, seed=0, layers=None)
+MOE_MODEL = dict(tag="moe-model", arch="phi3.5-moe-42b-a6.6b", batch=2,
+                 prompt=4096, decode=32, seed=0, layers=24)
+# phi3.5-MoE from random weights is chaotic in depth: a difference in
+# the last bits grows many times over in every layer, in the reference as
+# in the port (tools/moe_depth_witness.py runs both on the CPU at these
+# widths), and a token whose top-2 router logits nearly tie then takes
+# another expert.  So its decode logits cannot be held against the
+# prefill's after 24 layers; the decode path is held to the prefill path
+# one layer at a time instead (teacher_forced): each layer's decode
+# output, fed the prefill's input at that layer and its cache, within
+# LAYER_TOL of the prefill's output (max|decode - prefill| <= LAYER_TOL *
+# max|prefill| over the layer's decode rows: bf16 outputs rounded in
+# other orders, a few 2^-8 steps), except where that layer's routing
+# flips, which at most FLIP_MAX of the (layer, token) pairs may.
+LAYER_TOL, FLIP_MAX = 2e-2, 0.05
+
+
+@contextlib.contextmanager
+def route_tap(sink: list):
+    """Appends the router's top-k ids of every MoE layer call to ``sink``
+    while open (references to its output: no copy, no launch)."""
+    from repro_torch.models import moe as moe_mod
+    real = moe_mod.route
+
+    def tap(*a, **kw):
+        out = real(*a, **kw)
+        sink.append(out[1])
+        return out
+    moe_mod.route = tap
+    try:
+        yield sink
+    finally:
+        moe_mod.route = real
 
 
 def fa_inputs(torch, gen, B, Sq, Sk, H, Hkv, D, dtype):
@@ -1534,45 +1623,78 @@ def visible_pairs(Sq: int, Sk: int, causal: bool, window) -> int:
     return n
 
 
-def model_phase(torch, ops):
-    """gemma2-9b at full width and depth: prefill 2 x 6144 tokens, then
-    32 greedy decode steps, twice; returns the main path's own
-    flash_attention inputs (one local and one global layer, at prefill
-    and at decode) and the counts of launches per call."""
+def model_phase(torch, ops, spec):
+    """One model (``MODEL`` or ``MOE_MODEL``) at full width through
+    ``make_prefill_step`` / ``make_decode_step``: prefill B x S tokens,
+    then N greedy decode steps, twice (the main path), then checks.
+    Returns the main path's own flash_attention inputs (each pattern
+    position's first layer, at prefill and at the last decode step) and
+    its flash_attention launches, counted from 0 over the two served runs
+    alone."""
     from repro_torch.configs import get_config
     from repro_torch.launch.steps import make_decode_step, make_prefill_step
     from repro_torch.models.model import Model
+    from repro_torch.models import transformer as tf_mod
     from repro_torch.models.params import param_count
+    from repro_torch.models.transformer import lm_forward
     from repro_torch.kernels import flash_attention as fa_mod
 
-    cfg = get_config(MODEL["arch"])
-    B, S, N = MODEL["batch"], MODEL["prompt"], MODEL["decode"]
+    tag = spec["tag"]
+
+    def say(msg):
+        print(f"[{tag}] {msg}")
+
+    whole = get_config(spec["arch"])
+    cfg = (whole if spec["layers"] is None
+           else whole.replace(n_layers=spec["layers"]))
+    B, S, N = spec["batch"], spec["prompt"], spec["decode"]
+    moe = cfg.moe
     model = Model(cfg)
+    # shapes on the meta device first: the params must fit beside the
+    # cache and the activations
+    meta = model.init(device="meta")
+    nbytes = sum(p.numel() * p.element_size() for p in meta.parameters())
+    free = torch.cuda.mem_get_info()[0]
+    check(nbytes < 0.9 * free, f"{cfg.name}: {nbytes / 2**30:.1f} GiB of "
+                               f"params, {free / 2**30:.1f} GiB free")
+    if cfg is not whole:
+        n_whole = param_count(Model(whole).init(device="meta"))
+        say(f"depth cut: {cfg.n_layers} of {whole.n_layers} layers, every "
+            f"width as published ({n_whole / 1e9:.2f} B params, "
+            f"{2 * n_whole / 2**30:.1f} GiB in bf16 whole; "
+            f"{param_count(meta) / 1e9:.2f} B, {nbytes / 2**30:.1f} GiB "
+            f"cut), so that the params fit one card beside a cache")
+    del meta
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    params = model.init(MODEL["seed"], device="cuda")
+    params = model.init(spec["seed"], device="cuda")
     torch.cuda.synchronize()
-    n_layers = cfg.n_layers
-    print(f"[model] {cfg.name}: {n_layers} layers, d_model {cfg.d_model}, "
-          f"{cfg.n_heads}/{cfg.n_kv_heads} heads x {cfg.head_dim_}, d_ff "
-          f"{cfg.d_ff}, vocab {cfg.padded_vocab}, window "
-          f"{cfg.pattern[0].window}, softcaps {cfg.attn_logit_softcap}/"
-          f"{cfg.final_logit_softcap}; {param_count(params) / 1e9:.3f} B "
-          f"params bf16 ({torch.cuda.memory_allocated() / 2**30:.2f} GiB "
-          f"on the card) in {time.perf_counter() - t0:.1f} s")
-    gen = torch.Generator(device="cuda").manual_seed(MODEL["seed"])
+    ffn = (f"{moe.num_experts} experts top-{moe.top_k} x d_ff "
+           f"{moe.expert_d_ff}" if moe else f"d_ff {cfg.d_ff}")
+    say(f"{cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.n_heads}/{cfg.n_kv_heads} heads x {cfg.head_dim_}, {ffn}, "
+        f"vocab {cfg.padded_vocab}, window {cfg.pattern[0].window}, "
+        f"softcaps {cfg.attn_logit_softcap}/{cfg.final_logit_softcap}; "
+        f"{param_count(params) / 1e9:.3f} B params bf16 "
+        f"({torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card) in "
+        f"{time.perf_counter() - t0:.1f} s")
+    gen = torch.Generator(device="cuda").manual_seed(spec["seed"])
     prompt = torch.randint(0, cfg.vocab, (B, S), generator=gen,
                            device="cuda", dtype=torch.int32)
     prefill, decode = make_prefill_step(model), make_decode_step(model)
     fa = lambda: ops.launches().get("flash_attention", 0)
+    n_pattern = len(cfg.pattern)
+    n_moe = cfg.n_periods * sum(s.ffn == "moe" for s in cfg.pattern)
 
     captured = {}
     real = ops.flash_attention
 
     def tap(label):
         def f(q, k, v, **kw):
-            # layer 0 is local (window 4096), layer 1 global
+            # layer i of the first period is pattern position i (gemma2:
+            # 0 local, 1 global)
             n = len([x for x in captured if x.startswith(label)])
-            if n < 2:      # copies in the same (strided) layout
+            if n < n_pattern:      # copies in the same (strided) layout
                 keep = lambda t: torch.empty_strided(
                     t.shape, t.stride(), dtype=t.dtype,
                     device=t.device).copy_(t)
@@ -1581,37 +1703,41 @@ def model_phase(torch, ops):
             return real(q, k, v, **kw)
         return f
 
+    # the router's top-k ids of every MoE layer call of run 1
+    served = []
+
     def serve(capture: bool):
         cache = model.init_cache(B, S + N)
         torch.cuda.synchronize()
         n0, t = fa(), time.perf_counter()
-        if capture:
-            ops.flash_attention = tap("prefill")   # models.attention calls it
-        try:
-            logits, cache = prefill(params, cache, {"tokens": prompt})
-        finally:
-            ops.flash_attention = real
-        torch.cuda.synchronize()
-        t_pre = time.perf_counter() - t
-        paths["prefill"] = fa_mod.last_path
-        per_call = [fa() - n0]
-        nxt = logits[:, -1:].argmax(-1).to(torch.int32)
-        fed, dec = [nxt], []
-        t = time.perf_counter()
-        for step in range(N):
-            n0 = fa()
-            if capture and step == N - 1:
-                ops.flash_attention = tap("decode")
+        with route_tap(served) if capture else contextlib.nullcontext():
+            if capture:                 # models.attention calls it
+                ops.flash_attention = tap("prefill")
             try:
-                lg, cache = decode(params, cache, nxt, S + step)
+                logits, cache = prefill(params, cache, {"tokens": prompt})
             finally:
                 ops.flash_attention = real
-            per_call.append(fa() - n0)
-            paths["decode"] = fa_mod.last_path
-            dec.append(lg)
-            nxt = lg[:, -1:].argmax(-1).to(torch.int32)
-            fed.append(nxt)
-        torch.cuda.synchronize()
+            torch.cuda.synchronize()
+            t_pre = time.perf_counter() - t
+            paths["prefill"] = fa_mod.last_path
+            per_call = [fa() - n0]
+            nxt = logits[:, -1:].argmax(-1).to(torch.int32)
+            fed, dec = [nxt], []
+            t = time.perf_counter()
+            for step in range(N):
+                n0 = fa()
+                if capture and step == N - 1:
+                    ops.flash_attention = tap("decode")
+                try:
+                    lg, cache = decode(params, cache, nxt, S + step)
+                finally:
+                    ops.flash_attention = real
+                per_call.append(fa() - n0)
+                paths["decode"] = fa_mod.last_path
+                dec.append(lg)
+                nxt = lg[:, -1:].argmax(-1).to(torch.int32)
+                fed.append(nxt)
+            torch.cuda.synchronize()
         t_dec = (time.perf_counter() - t) / N
         check(cache["filled"] == S + N, f"cache filled {cache['filled']}")
         del cache
@@ -1619,29 +1745,35 @@ def model_phase(torch, ops):
                 t_pre, t_dec)
 
     paths = {}
+    ops.reset_launches()        # the main path: the two served runs
     pre1, dec1, fed1, calls1, t_pre, t_dec = serve(capture=True)
     check(paths == {"prefill": "wgmma_prefill", "decode": "split_k_decode"},
           f"flash_attention paths {paths}")
-    print(f"[model] flash_attention path per call kind: {paths}")
-    check(all(c == n_layers for c in calls1),
+    say(f"flash_attention path per call kind: {paths}")
+    check(all(c == cfg.n_layers for c in calls1),
           f"flash_attention launches per call {calls1}: expected "
-          f"{n_layers} per prefill and per decode step")
+          f"{cfg.n_layers} per prefill and per decode step")
     check(bool(torch.isfinite(pre1).all())
           and bool(torch.isfinite(dec1).all()), "non-finite logits")
     check(pre1.shape == (B, S, cfg.padded_vocab)
           and dec1.shape == (B, N, cfg.padded_vocab),
           f"logits {tuple(pre1.shape)} {tuple(dec1.shape)}")
-    print(f"[model] run 1: prefill {B} x {S} tokens {t_pre * 1e3:.1f} ms, "
-          f"decode {t_dec * 1e3:.2f} ms/token (batch {B}, {N} steps); "
-          f"flash_attention launches per call {calls1[0]} (prefill), "
-          f"{sorted(set(calls1[1:]))} (decode)")
+    say(f"run 1: prefill {B} x {S} tokens {t_pre * 1e3:.1f} ms, "
+        f"decode {t_dec * 1e3:.2f} ms/token (batch {B}, {N} steps); "
+        f"flash_attention launches per call {calls1[0]} (prefill), "
+        f"{sorted(set(calls1[1:]))} (decode)")
     pre2, dec2, fed2, calls2, t_pre2, t_dec2 = serve(capture=False)
+    launches = ops.launches()
+    say(f"launches during the two served runs: {launches}")
+    check(launches.get("flash_attention", 0) == sum(calls1) + sum(calls2),
+          f"flash_attention launches {launches} against {sum(calls1)} + "
+          f"{sum(calls2)} counted per call")
     check(torch.equal(fed1, fed2) and torch.equal(pre1, pre2)
           and torch.equal(dec1, dec2),
           "two runs differ: greedy tokens or logits are not bit for bit")
-    print(f"[model] run 2: prefill {t_pre2 * 1e3:.1f} ms, decode "
-          f"{t_dec2 * 1e3:.2f} ms/token; greedy tokens and all logits equal "
-          f"to run 1's bit for bit")
+    say(f"run 2: prefill {t_pre2 * 1e3:.1f} ms, decode "
+        f"{t_dec2 * 1e3:.2f} ms/token; greedy tokens and all logits equal "
+        f"to run 1's bit for bit")
     del pre1, pre2, dec2
     torch.cuda.empty_cache()
 
@@ -1649,52 +1781,167 @@ def model_phase(torch, ops):
     # of the same S + N tokens (causal: row p reads tokens 0..p only)
     full = torch.cat([prompt, fed1[:, :N]], dim=1)
     cache = model.init_cache(B, S + N)
-    ref, cache = prefill(params, cache, {"tokens": full})
-    del cache
+    routes = []
+    layers = []                  # each layer's (input, output) rows S..
+    real_layer = tf_mod.layer_forward
+
+    def tap_layer(p, cfg_, spec_, x, *a, **kw):
+        out = real_layer(p, cfg_, spec_, x, *a, **kw)
+        layers.append((x[:, S:].clone(), out[0][:, S:].clone()))
+        return out
+    if moe is not None:
+        tf_mod.layer_forward = tap_layer
+    try:
+        with route_tap(routes):
+            ref, cache = prefill(params, cache, {"tokens": full})
+    finally:
+        tf_mod.layer_forward = real_layer
     ref = ref[:, S:].float()
     got = dec1.float()
     del dec1
     err, scale = (got - ref).abs().max().item(), ref.abs().max().item()
     agree = (got.argmax(-1) == ref.argmax(-1)).float().mean().item()
-    check(err <= MODEL_TOL * scale,
-          f"decode logits differ from the prefill's rows by {err} "
-          f"(max|prefill| {scale}, tol {MODEL_TOL} normwise)")
-    print(f"[model] decode vs prefill of the same {S + N} tokens, all {N} "
-          f"positions: max |decode - prefill| {err:.4f} = "
-          f"{err / scale:.4f} of max|prefill| {scale:.3f} (tol {MODEL_TOL}); "
-          f"greedy tokens agree at {agree:.1%} of positions")
-    del ref, got, full
+    if moe is None:
+        check(err <= MODEL_TOL * scale,
+              f"decode logits differ from the prefill's rows by {err} "
+              f"(max|prefill| {scale}, tol {MODEL_TOL} normwise)")
+    else:
+        # the served decode tokens' top-k sets against the check's
+        # prefill's, by layer: where decode and prefill part
+        srt = lambda t: t.sort(-1).values
+        K = moe.top_k
+        dec_ids = srt(torch.stack(served[n_moe:]).view(N, n_moe, B, K))
+        ref_ids = srt(torch.stack(routes).view(n_moe, B, S + N, K))
+        flips = (dec_ids.permute(1, 2, 0, 3) != ref_ids[:, :, S:]).any(-1)
+        say(f"routing: the served decode tokens' top-{K} sets differ from "
+            f"the check prefill's at {flips.sum().item()} of "
+            f"{flips.numel()} (layer, token) pairs; by layer "
+            f"{flips.sum((1, 2)).tolist()}")
+        teacher_forced(torch, say, cfg, params, cache, layers, routes, S)
+    held = "tol" if moe is None else "not held, see LAYER_TOL; tol"
+    say(f"decode vs prefill of the same {S + N} tokens, all {N} "
+        f"positions: max |decode - prefill| {err:.4f} = "
+        f"{err / scale:.4f} of max|prefill| {scale:.3f} ({held} "
+        f"{MODEL_TOL}); greedy tokens agree at {agree:.1%} of positions")
+    del ref, got, full, cache, served, routes, layers
     torch.cuda.empty_cache()
 
-    # host syncs per decode step, and the device's busy share
+    # the metrics of a prefill through forward, host syncs per decode
+    # step, the device's busy share, the metrics of one decode step
     cache = model.init_cache(B, S + N)
-    _, cache = prefill(params, cache, {"tokens": prompt})
+    with torch.no_grad():
+        _, cache, met = model.forward(params, {"tokens": prompt}, cache)
+    if moe is not None:
+        counts = met["expert_counts"]
+        per_layer = B * S * moe.top_k * n_moe // cfg.n_periods
+        check(tuple(counts.shape) == (cfg.n_periods, moe.num_experts)
+              and bool((counts.sum(1) == per_layer).all()),
+              f"prefill expert_counts {counts.tolist()}: rows must sum to "
+              f"{per_layer}")
+        say(f"experts used per layer at prefill (of {moe.num_experts}): "
+            f"{(counts > 0).sum(1).tolist()}; tokens per expert min / max "
+            f"{counts.min().item()} / {counts.max().item()} (mean "
+            f"{per_layer / moe.num_experts:g}); aux_loss "
+            f"{met['aux_loss'].item():.4f}")
     nxt = fed1[:, :1]
     steps = iter(range(8))             # 4 steps each, positions S..S+7
     dstep = lambda _: decode(params, cache, nxt, S + next(steps))
     syncs = host_syncs(torch, dstep, [None] * 4)
-    profile_steps(torch, "gemma2-9b decode", dstep, [None] * 4)
-    profile_steps(torch, "gemma2-9b prefill",
+    gemm_dim = moe.expert_d_ff if moe is not None else None
+    profile_steps(torch, f"{cfg.name} decode", dstep, [None] * 4, gemm_dim)
+    profile_steps(torch, f"{cfg.name} prefill",
                   lambda _: prefill(params, cache, {"tokens": prompt}),
-                  [None])
-    print(f"[model] host syncs per decode step: {syncs:g}; peak device "
-          f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+                  [None], gemm_dim)
+    if moe is not None:
+        with torch.no_grad():
+            _, cache, met = lm_forward(params, cfg, nxt, S + 8, cache=cache)
+        counts = met["expert_counts"]
+        per_layer = B * moe.top_k * n_moe // cfg.n_periods
+        check(bool((counts.sum(1) == per_layer).all()),
+              f"decode expert_counts {counts.tolist()}: rows must sum to "
+              f"{per_layer}")
+        say(f"decode step expert_counts rows sum to {per_layer}; experts "
+            f"used per layer {(counts > 0).sum(1).tolist()}")
+    expected = (f" (expected one per MoE layer, {n_moe})" if moe is not None
+                else "")
+    say(f"host syncs per decode step: {syncs:g}{expected}; peak device "
+        f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     del cache, params
+    gc.collect()
     torch.cuda.empty_cache()
-    return captured, calls1
+    return captured, launches["flash_attention"]
+
+
+def teacher_forced(torch, say, cfg, params, cache, layers, routes, S):
+    """Each layer of the decode path against the prefill path where no
+    depth has amplified anything: for every layer l and decode position
+    p = S + j, ``layer_forward`` on one token, fed the prefill's input
+    to layer l at row p, at start p, over the prefill's cache of layer l
+    (the step writes its own k, v at p, as a decode does).  Its output
+    must lie within ``LAYER_TOL`` of the prefill's output at row p
+    (normwise over the layer's decode rows) wherever the step routes as
+    the prefill did; at most ``FLIP_MAX`` of the (layer, token) pairs
+    may route otherwise.  ``layers``: each layer call's (input, output)
+    rows S..; ``routes``: each MoE layer call's top-k ids."""
+    from repro_torch.models.params import index_tree
+    from repro_torch.models.transformer import layer_forward
+    B, N = layers[0][0].shape[:2]
+    K = cfg.moe.top_k
+    srt = lambda t: t.sort(-1).values
+    errs, flips, n, picked = [], [], 0, []
+    with route_tap(picked):
+        for i in range(cfg.n_periods):
+            for pos, spec in enumerate(cfg.pattern):
+                lp = index_tree(params["blocks"][f"pos{pos}"], i)
+                lc = index_tree(cache["blocks"][f"pos{pos}"], i)
+                x_in, x_out = layers[n]
+                ref_ids = (routes[n].view(B, -1, K)[:, S:]
+                           if spec.ffn == "moe" else None)
+                n += 1
+                row_err, row_flip = [], []
+                for j in range(N):
+                    picked.clear()
+                    with torch.no_grad():
+                        y, _, _ = layer_forward(
+                            lp, cfg, spec, x_in[:, j:j + 1], S + j, lc,
+                            aux_loss=False)
+                    row_err.append((y[:, 0] - x_out[:, j]).abs().amax(-1))
+                    row_flip.append(
+                        (srt(picked[0]) != srt(ref_ids[:, j])).any(-1)
+                        if ref_ids is not None else
+                        torch.zeros(B, dtype=torch.bool, device=y.device))
+                errs.append(torch.stack(row_err, 1)
+                            / x_out.float().abs().max())    # (B, N)
+                flips.append(torch.stack(row_flip, 1))
+    err = torch.stack(errs).float()                 # (layers, B, N)
+    flip = torch.stack(flips)
+    kept = err[~flip]
+    by_layer = err.masked_fill(flip, 0).amax((1, 2))
+    say(f"teacher-forced decode, layer by layer ({err.shape[0]} layers x "
+        f"{B * N} tokens, each fed the prefill's input and cache): "
+        f"routing differs from the prefill's at {flip.sum().item()} of "
+        f"{flip.numel()} (layer, token) pairs (tol {FLIP_MAX:.0%}); "
+        f"output vs the prefill's, normwise, by layer "
+        f"{[round(x, 4) for x in by_layer.tolist()]} (tol {LAYER_TOL})")
+    check(flip.float().mean().item() <= FLIP_MAX,
+          f"teacher-forced decode routes otherwise than the prefill at "
+          f"{flip.sum().item()} of {flip.numel()} (layer, token) pairs")
+    check(kept.numel() == 0 or kept.max().item() <= LAYER_TOL,
+          f"a teacher-forced decode layer differs from the prefill's by "
+          f"{kept.max().item()} (normwise, tol {LAYER_TOL})")
 
 
 def time_flash_attention(torch, flash_attention_cuda, flash_attention_ref,
-                         captured):
+                         captured, label):
     """The main path's own inputs: the kernel against its plain version
     (normwise), its device time beside the plain version's, SDPA's on the
     same shapes without softcap and window (a yardstick the port never
-    calls) and its bound.  Returns the global prefill layer's numbers
-    (the JSON's row) and the largest normwise error."""
+    calls) and its bound.  Returns each captured call's numbers and the
+    largest normwise error."""
     from repro_torch.kernels import flash_attention as fa_mod
     F = torch.nn.functional
     rows, worst = {}, 0.0
-    for name in ("prefill0", "prefill1", "decode0", "decode1"):
+    for name in sorted(captured):
         q, k, v, kw = captured[name]
         B, Sq, H, D = q.shape
         Sk, Hkv = k.shape[1], k.shape[2]
@@ -1726,14 +1973,13 @@ def time_flash_attention(torch, flash_attention_cuda, flash_attention_ref,
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
         }
         rows[name] = row
-        layer = "local" if name.endswith("0") else "global"
-        print(f"[time] flash_attention {name} ({layer} layer, {path}) q "
+        print(f"[time] flash_attention {name} ({label(name)}, {path}) q "
               f"{tuple(q.shape)} k/v {tuple(k.shape)} strides {k.stride()}"
               f" causal={kw['causal']} window={kw['window']} "
               f"cap={kw['logit_softcap']}: {pairs} visible pairs per (b, h), "
               f"{flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB; max |out - "
               f"plain| {err:.3e} = {err / scale:.2e} of max|plain|; {row}")
-    return rows["prefill1"], worst
+    return rows, worst
 
 
 def main() -> int:
@@ -1836,18 +2082,31 @@ def main() -> int:
     del table, hot_ids, idx, ssd_args, ssd_kw
     gc.collect()
     torch.cuda.empty_cache()
-    ops.reset_launches()
     t = time.perf_counter()
-    captured, per_call = model_phase(torch, ops)
-    counts = ops.launches()
-    print(f"[model] launches during the phase: {counts} "
-          f"({time.perf_counter() - t:.1f} s)")
-    check(counts.get("flash_attention", 0) > 0,
-          "flash_attention never launched in the model phase")
-    launches["flash_attention"] = counts["flash_attention"]
-    timing["flash_attention"], path_err = time_flash_attention(
-        torch, flash_attention_cuda, flash_attention_ref, captured)
+    captured, served = model_phase(torch, ops, MODEL)
+    print(f"[model] phase {time.perf_counter() - t:.1f} s")
+    check(served > 0, "flash_attention never launched in the model phase")
+    launches["flash_attention"] = served
+    rows, path_err = time_flash_attention(
+        torch, flash_attention_cuda, flash_attention_ref, captured,
+        lambda name: "local layer" if name.endswith("0") else "global layer")
+    timing["flash_attention"] = rows["prefill1"]
     print(f"[time] flash_attention main-path normwise error {path_err:.3e}")
+    del captured
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # phi3.5-MoE, after gemma2's params and inputs are gone
+    t = time.perf_counter()
+    captured, served = model_phase(torch, ops, MOE_MODEL)
+    print(f"[moe-model] phase {time.perf_counter() - t:.1f} s")
+    check(served > 0, "flash_attention never launched in the moe-model phase")
+    launches["flash_attention"] += served
+    _, moe_err = time_flash_attention(
+        torch, flash_attention_cuda, flash_attention_ref, captured,
+        lambda name: "phi3.5-MoE layer 0")
+    print(f"[time] flash_attention phi3.5-MoE path normwise error "
+          f"{moe_err:.3e}")
     kernels = []
     for name, (src, replaces) in KERNELS.items():
         kernels.append(dict(name=name, route="cuda", source=src,

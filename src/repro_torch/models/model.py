@@ -13,8 +13,12 @@ on ``device="cuda"`` unless the caller passes another device; every
 self-attention call of prefill and decode goes through
 ``kernels.ops.flash_attention`` (the CUDA kernel on the card).  Caches
 are written in place (``models/attention.py`` says why), so a consumed
-cache is not a fresh one.  Training (``loss``) and encoder-decoder
-stacks are not ported yet and raise.
+cache is not a fresh one.  ``forward``'s metrics are the reference's
+(``aux_loss``, ``dropped``, and ``expert_counts`` (n_periods, E) for a
+MoE config); ``prefill`` and ``decode_step`` discard them, as the
+reference's do, and so skip the MoE load-balance loss.  A MoE layer
+reads its group sizes on the host once per call.  Training (``loss``)
+and encoder-decoder stacks are not ported yet and raise.
 """
 from __future__ import annotations
 
@@ -32,7 +36,8 @@ def params_from_numpy(tree, device="cuda") -> ParamTree:
     """The reference's Model params as the port's tree: ``tree`` is
     ``jax.tree.map(np.asarray, unzip(model.init(key))[0])``, nested dicts
     of numpy arrays (bf16 leaves as ``ml_dtypes.bfloat16``, carried
-    across exactly through float32)."""
+    across exactly through float32; f32 leaves, such as a bf16 model's
+    MoE router, stay f32)."""
     return ParamTree(tree_from_numpy(tree, resolve_device(device)))
 
 
@@ -69,7 +74,9 @@ class Model:
 
     @torch.no_grad()
     def prefill(self, params, cache, batch):
-        logits, cache, _ = self.forward(params, batch, cache=cache)
+        logits, cache, _ = lm_forward(
+            params, self.cfg, batch["tokens"], 0, cache=cache,
+            media_embeds=batch.get("media"), aux_loss=False)
         return logits, cache
 
     @torch.no_grad()
@@ -78,5 +85,6 @@ class Model:
         Python int (a tensor on the card would cost a host sync).  Raises
         on a ``pos`` past the cache's filled prefix."""
         logits, cache, _ = lm_forward(params, self.cfg, tokens,
-                                      operator.index(pos), cache=cache)
+                                      operator.index(pos), cache=cache,
+                                      aux_loss=False)
         return logits, cache

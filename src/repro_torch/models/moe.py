@@ -5,7 +5,18 @@ sort tokens by expert, run each expert's gated FFN on its contiguous row
 group, unsort, combine.  The reference's ``jax.lax.ragged_dot`` has no
 PyTorch twin; here a group is one ``torch.matmul`` per expert weight on
 a view of that expert's slice (``w1[e]``).  Slicing needs the group
-sizes on the host — one device-to-host read per MoE layer.
+sizes on the host — one device-to-host read per MoE layer, and no other
+(the counts are a ``scatter_add_``: ``torch.bincount`` on the card reads
+its input's min and max on the host first).
+
+:func:`moe_ffn` is the transformer's entry, for one device only: the
+reference's expert-parallel ``moe_ffn_sharded`` (a mesh; ROADMAP Queue 1
+item 12) and its hot-expert branch, reached only through
+``meshctx.use_moe_hot`` in the training step (item 10), are not ported.
+
+Routing ties: ``jax.lax.top_k`` returns the lower expert id first among
+equal logits.  :func:`route` takes the first k of a stable descending
+sort, which keeps that order (``torch.topk`` promises none).
 
 The Morpheus hot-expert fast path
 (``core/passes/branch_inject.py::moe_ffn_hotpath``) goes through the same
@@ -20,8 +31,30 @@ from typing import Optional, Sequence
 import torch
 import torch.nn.functional as F
 
-from .config import MoEConfig
-from .layers import _act
+from .config import MoEConfig, ModelConfig
+from .layers import _act, ffn, init_ffn
+from .params import Initializer
+
+
+def init_moe(ini: Initializer, cfg: ModelConfig):
+    """The reference's tree: an f32 router (also in a bf16 model), expert
+    stacks ``w1`` / ``w3`` (E, D, F) and ``w2`` (E, F, D), and ``shared``
+    (a gated FFN of ``num_shared`` experts' width) when it is set."""
+    moe: MoEConfig = cfg.moe
+    d = cfg.d_model
+    f = moe.expert_d_ff or cfg.d_ff
+    E = moe.num_experts
+    p = {
+        "w_router": ini.normal((d, E), dtype=torch.float32),
+        "b_router": ini.zeros((E,), dtype=torch.float32),
+        "w1": ini.normal((E, d, f)),
+        "w3": ini.normal((E, d, f)),
+        "w2": ini.normal((E, f, d), fan_in=f),
+    }
+    if moe.num_shared:
+        p["shared"] = init_ffn(ini, d, moe.num_shared *
+                               (moe.shared_d_ff or f))
+    return p
 
 
 def route(w_router, x2d: torch.Tensor, top_k: int, bias=None):
@@ -30,7 +63,8 @@ def route(w_router, x2d: torch.Tensor, top_k: int, bias=None):
     logits = x2d.float() @ w_router.float()
     if bias is not None:
         logits = logits + bias.float()
-    gates, ids = torch.topk(logits, top_k, dim=-1)
+    gates, ids = torch.sort(logits, dim=-1, descending=True, stable=True)
+    gates, ids = gates[:, :top_k], ids[:, :top_k]
     gates = torch.softmax(gates, dim=-1)
     return gates, ids.to(torch.int32), logits
 
@@ -84,15 +118,33 @@ def _dispatch(params, x2d: torch.Tensor, gates: torch.Tensor,
 
 
 def moe_ffn_local(params, x2d: torch.Tensor, moe: MoEConfig,
-                  act: str = "silu"):
+                  act: str = "silu", aux_loss: bool = True):
+    """(y, metrics); ``aux_loss=False`` skips the load-balance loss (its
+    metric is then a host 0.0), for callers that discard it."""
     E, K = moe.num_experts, moe.top_k
     gates, ids, logits = route(params["w_router"], x2d, K,
                                params.get("b_router"))
     flat_ids = ids.reshape(-1).long()                        # (T*K,)
-    group_sizes = torch.bincount(flat_ids, minlength=E)
+    group_sizes = torch.zeros(E, dtype=torch.long, device=x2d.device
+                              ).scatter_add_(0, flat_ids,
+                                             torch.ones_like(flat_ids))
     y = _dispatch(params, x2d, gates, flat_ids, group_sizes.tolist(),
                   range(E), K, act)
-    aux = load_balance_loss(logits, ids, E)
-    return y, {"aux_loss": aux,
-               "dropped": torch.zeros((), device=x2d.device),
+    aux = load_balance_loss(logits, ids, E) if aux_loss else 0.0
+    return y, {"aux_loss": aux, "dropped": 0.0,
                "expert_counts": group_sizes.to(torch.int32)}
+
+
+def moe_ffn(params, x: torch.Tensor, cfg: ModelConfig,
+            aux_loss: bool = True):
+    """x: (B,S,D) -> (y, metrics), the reference's ``moe_ffn`` with no
+    mesh and no hot-expert set: ``moe_ffn_local`` over the B*S tokens,
+    plus the shared experts' FFN when ``num_shared`` is set."""
+    moe = cfg.moe
+    B, S, D = x.shape
+    y, metrics = moe_ffn_local(params, x.reshape(B * S, D), moe,
+                               cfg.ffn_act, aux_loss)
+    y = y.reshape(B, S, D)
+    if moe.num_shared:
+        y = y + ffn(params["shared"], x, cfg.ffn_act)
+    return y, metrics

@@ -104,6 +104,32 @@ def stack_pspecs(trees):
     return torch.stack(trees)
 
 
+def stack_draws(draw, n: int):
+    """What ``stack_pspecs([draw() for _ in range(n)])`` gives, drawn in
+    the same order, with one drawn tree alive beside the stack at a time
+    (the list would hold every tree twice at the end)."""
+    first = draw()
+
+    def alloc(t):
+        if isinstance(t, dict):
+            return {k: alloc(v) for k, v in t.items()}
+        return t.new_empty((n,) + tuple(t.shape))
+
+    def put(out, t, i):
+        if isinstance(t, dict):
+            for k, v in t.items():
+                put(out[k], v, i)
+        else:
+            out[i].copy_(t)
+
+    out = alloc(first)
+    put(out, first, 0)
+    del first
+    for i in range(1, n):
+        put(out, draw(), i)
+    return out
+
+
 def index_tree(tree, i: int):
     """Entry ``i`` of every leaf of a stacked tree (views, no copies)."""
     if isinstance(tree, (dict, ParamTree)):

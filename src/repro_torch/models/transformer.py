@@ -8,13 +8,18 @@ periods is a Python loop over period ``i`` that indexes the stacked
 parameters and caches (views, no copies), with the pattern unrolled
 inside.
 
-What the port runs: attention layers (``kind="attn"``) with a dense FFN,
-with or without gemma2's post-norms, tied or untied embeddings and the
-final logit softcap: gemma2-9b, llama3-8b, deepseek-7b and starcoder2-3b
-end to end.  What raises ``NotImplementedError`` (ROADMAP Queue 1 item
-8): MoE FFNs inside the transformer (phi3.5, jamba), mamba layers
-(mamba2, jamba), MLA (deepseek-v2), cross-attention and ``encdec.py``
-(seamless), ``media_embeds`` (pixtral).
+What the port runs: attention layers (``kind="attn"``) with a dense or
+MoE FFN (``models/moe.py::moe_ffn``), with or without gemma2's
+post-norms, tied or untied embeddings and the final logit softcap:
+gemma2-9b, llama3-8b, deepseek-7b, starcoder2-3b and phi3.5-MoE end to
+end.  What raises ``NotImplementedError`` (ROADMAP Queue 1 item 8):
+mamba layers (mamba2, jamba), MLA (deepseek-v2), cross-attention and
+``encdec.py`` (seamless), ``media_embeds`` (pixtral).
+
+Metrics, as the reference's: ``aux_loss`` and ``dropped`` summed over
+the layers, and for a config with ``moe`` set ``expert_counts`` of shape
+(n_periods, E), each period's pattern positions summed.  A dense config
+launches nothing for them (host zeros, made tensors once at the end).
 
 Caches hold one extra entry beside the reference's tree: ``"filled"``,
 a host-side count of the contiguous prefix of slots that prefill and
@@ -31,7 +36,9 @@ from .attention import gqa_forward, init_attention
 from .config import LayerSpec, ModelConfig
 from .layers import embed, ffn, init_embedding, init_ffn, init_rmsnorm, \
     init_unembed, rmsnorm, softcap, unembed
-from .params import Initializer, ParamTree, index_tree, stack_pspecs
+from .moe import init_moe, moe_ffn
+from .params import Initializer, ParamTree, index_tree, stack_draws, \
+    stack_pspecs
 
 CACHE_DTYPE = torch.bfloat16       # the reference's cache dtype
 
@@ -46,10 +53,6 @@ def _unported(cfg: ModelConfig, spec: LayerSpec) -> None:
             f"{cfg.name}: {spec.kind} layers inside the transformer are not "
             f"ported yet (ROADMAP Queue 1 item 8: mamba layers through "
             f"models/ssd.py)")
-    if spec.ffn == "moe":
-        raise NotImplementedError(
-            f"{cfg.name}: MoE FFNs inside the transformer are not ported yet "
-            f"(ROADMAP Queue 1 item 8: models/moe.py moe_ffn)")
     if spec.cross_attn:
         raise NotImplementedError(
             f"{cfg.name}: cross-attention is not ported yet (ROADMAP Queue 1 "
@@ -69,8 +72,12 @@ def init_layer(ini: Initializer, cfg: ModelConfig, spec: LayerSpec,
         p["attn_post_norm"] = init_rmsnorm(ini, cfg.d_model)
     if spec.ffn != "none":
         p["ffn_norm"] = init_rmsnorm(ini, cfg.d_model)
-        p["ffn"] = init_ffn(ini, cfg.d_model, d_ff_override or cfg.d_ff,
-                            gated=cfg.ffn_gated)
+        if spec.ffn == "moe":
+            p["ffn"] = init_moe(ini, cfg)
+        else:
+            p["ffn"] = init_ffn(ini, cfg.d_model,
+                                d_ff_override or cfg.d_ff,
+                                gated=cfg.ffn_gated)
         if cfg.post_norm:
             p["ffn_post_norm"] = init_rmsnorm(ini, cfg.d_model)
     return p
@@ -92,18 +99,14 @@ def init_layer_cache(cfg: ModelConfig, spec: LayerSpec, batch: int, cap: int,
 # Per-layer forward
 # ---------------------------------------------------------------------------
 
-def _zero_metrics(device):
-    return {"aux_loss": torch.zeros((), dtype=torch.float32, device=device),
-            "dropped": torch.zeros((), dtype=torch.float32, device=device)}
-
-
 def layer_forward(p, cfg: ModelConfig, spec: LayerSpec, x: torch.Tensor,
                   start: int = 0, cache=None, enc_out=None,
-                  causal: bool = True):
+                  causal: bool = True, aux_loss: bool = True):
     """Returns (x, new_cache, metrics); ``start`` is the position of x's
     first token.  The cache is written in place.  A dense layer adds no
     aux loss and drops nothing: its metrics are host zeros, so a decode
-    step launches no kernels for them."""
+    step launches no kernels for them.  A MoE layer's metrics are
+    ``moe_ffn``'s (``aux_loss=False`` skips its load-balance loss)."""
     _unported(cfg, spec)
     if enc_out is not None:
         raise NotImplementedError(
@@ -119,13 +122,17 @@ def layer_forward(p, cfg: ModelConfig, spec: LayerSpec, x: torch.Tensor,
     x = x + a
     if new_cache is not None:
         new_cache["kv"] = kvc
+    metrics = {"aux_loss": 0.0, "dropped": 0.0}
     if spec.ffn != "none":
         h = rmsnorm(p["ffn_norm"], x, cfg.rms_eps)
-        f = ffn(p["ffn"], h, cfg.ffn_act)
+        if spec.ffn == "moe":
+            f, metrics = moe_ffn(p["ffn"], h, cfg, aux_loss)
+        else:
+            f = ffn(p["ffn"], h, cfg.ffn_act)
         if cfg.post_norm:
             f = rmsnorm(p["ffn_post_norm"], f, cfg.rms_eps)
         x = x + f
-    return x, new_cache, {"aux_loss": 0.0, "dropped": 0.0}
+    return x, new_cache, metrics
 
 
 # ---------------------------------------------------------------------------
@@ -134,8 +141,10 @@ def layer_forward(p, cfg: ModelConfig, spec: LayerSpec, x: torch.Tensor,
 
 def init_lm(seed: int, cfg: ModelConfig, device="cuda") -> ParamTree:
     """Embeddings, the unrolled prefix layers and per-pattern-position
-    stacks of shape (n_periods, ...), in bf16, drawn from ``seed``.  On
-    the ``meta`` device nothing is allocated (parameter counts)."""
+    stacks of shape (n_periods, ...), in bf16 (MoE routers f32), drawn
+    from ``seed``.  Each stack is filled one drawn layer at a time, so
+    the peak is the params plus one layer.  On the ``meta`` device
+    nothing is allocated (parameter counts)."""
     ini = Initializer(seed, device, dtype=torch.bfloat16)
     params = {
         "embed": init_embedding(ini, cfg.padded_vocab, cfg.d_model),
@@ -148,8 +157,8 @@ def init_lm(seed: int, cfg: ModelConfig, device="cuda") -> ParamTree:
         params[f"prefix{i}"] = init_layer(
             ini, cfg, dense_spec, d_ff_override=cfg.first_dense_d_ff)
     params["blocks"] = {
-        f"pos{pos}": stack_pspecs([init_layer(ini, cfg, spec)
-                                   for _ in range(cfg.n_periods)])
+        f"pos{pos}": stack_draws(lambda: init_layer(ini, cfg, spec),
+                                 cfg.n_periods)
         for pos, spec in enumerate(cfg.pattern)}
     return ParamTree(params)
 
@@ -183,12 +192,13 @@ def _capacity(cache) -> int:
 def lm_forward(params, cfg: ModelConfig, tokens: torch.Tensor,
                start: int = 0, cache=None,
                media_embeds: Optional[torch.Tensor] = None,
-               enc_out=None, remat: bool = False
+               enc_out=None, remat: bool = False, aux_loss: bool = True
                ) -> Tuple[torch.Tensor, Optional[dict], dict]:
     """tokens: (B, S); ``start``: the position of the first token (0 for
     prefill and forward, ``pos`` for a decode step).  ``remat`` changes
-    nothing without a backward pass.  Returns (logits, cache, metrics);
-    the cache is written in place and returned."""
+    nothing without a backward pass; ``aux_loss=False`` skips the MoE
+    layers' load-balance loss (the metric stays 0).  Returns (logits,
+    cache, metrics); the cache is written in place and returned."""
     if media_embeds is not None:
         raise NotImplementedError(
             "media_embeds (pixtral's stub frontend) is not ported yet: "
@@ -208,20 +218,31 @@ def lm_forward(params, cfg: ModelConfig, tokens: torch.Tensor,
             f"the cache's {_capacity(cache)} slots")
     x = embed(params["embed"], tokens)
 
-    # dense layers only (the rest raise): no aux loss, nothing dropped
+    # host zeros until a MoE layer adds a tensor
+    aux, dropped, counts = 0.0, 0.0, []
     dense_spec = LayerSpec(kind="attn", ffn="dense")
     for i in range(cfg.first_k_dense):
         c = cache[f"prefix{i}"] if cache is not None else None
-        x, _, _ = layer_forward(params[f"prefix{i}"], cfg, dense_spec, x,
-                                start, c)
+        x, _, m = layer_forward(params[f"prefix{i}"], cfg, dense_spec, x,
+                                start, c, aux_loss=aux_loss)
+        aux = aux + m["aux_loss"]
     blocks = params["blocks"]
     for i in range(cfg.n_periods):
+        period = None
         for pos, spec in enumerate(cfg.pattern):
             key = f"pos{pos}"
             c = (index_tree(cache["blocks"][key], i) if cache is not None
                  else None)
-            x, _, _ = layer_forward(index_tree(blocks[key], i), cfg, spec, x,
-                                    start, c)
+            x, _, m = layer_forward(index_tree(blocks[key], i), cfg, spec, x,
+                                    start, c, aux_loss=aux_loss)
+            aux = aux + m["aux_loss"]
+            dropped = dropped + m["dropped"]
+            if "expert_counts" in m:
+                period = (m["expert_counts"] if period is None
+                          else period + m["expert_counts"])
+        if cfg.moe is not None:
+            counts.append(period if period is not None else torch.zeros(
+                cfg.moe.num_experts, dtype=torch.int32, device=x.device))
 
     x = rmsnorm(params["final_norm"], x, cfg.rms_eps)
     if cfg.tie_embeddings:
@@ -231,4 +252,9 @@ def lm_forward(params, cfg: ModelConfig, tokens: torch.Tensor,
         logits = unembed(params["unembed"], x, cfg)
     if cache is not None:
         cache["filled"] = max(cache["filled"], start + S)
-    return logits, cache, _zero_metrics(logits.device)
+    metrics = {k: v if isinstance(v, torch.Tensor) else torch.zeros(
+        (), dtype=torch.float32, device=logits.device)
+        for k, v in (("aux_loss", aux), ("dropped", dropped))}
+    if cfg.moe is not None:
+        metrics["expert_counts"] = torch.stack(counts)     # (n_periods, E)
+    return logits, cache, metrics

@@ -58,6 +58,8 @@ class DynamicBatcher:
         self._ladder = cfg.ladder_resolved()
         # (device_out, done_event, chunks, t_dispatch, bucket, mispredicts)
         self._inflight: Deque[tuple] = deque()
+        # rows taken from the queue and not yet in _inflight (or failed)
+        self._holding = False
         self._mis_batches = 0
         self._mis_hits = 0
 
@@ -91,22 +93,26 @@ class DynamicBatcher:
         target = primary * max(k, 1)
         fill_deadline = self.clock() + self.cfg.max_wait_s
         rows: List = []
-        while True:
-            ready, shed = self.queue.take(target - len(rows),
-                                          self.clock())
-            self._finish_shed(shed)
-            rows.extend(ready)
-            if len(rows) >= target:
-                break
-            remaining = fill_deadline - self.clock()
-            if remaining <= 0:
-                break
-            if not self.queue.wait_nonempty(remaining):
-                break
-        if not rows:
-            self._retire(0)
-            return 0
-        self._dispatch(rows, buckets)
+        self._holding = True       # before take() empties the queue
+        try:
+            while True:
+                ready, shed = self.queue.take(target - len(rows),
+                                              self.clock())
+                self._finish_shed(shed)
+                rows.extend(ready)
+                if len(rows) >= target:
+                    break
+                remaining = fill_deadline - self.clock()
+                if remaining <= 0:
+                    break
+                if not self.queue.wait_nonempty(remaining):
+                    break
+            if not rows:
+                self._retire(0)
+                return 0
+            self._dispatch(rows, buckets)
+        finally:
+            self._holding = False
         return len(rows)
 
     def _finish_shed(self, shed: List) -> None:
@@ -206,54 +212,65 @@ class DynamicBatcher:
     def inflight(self) -> int:
         return len(self._inflight)
 
+    @property
+    def busy(self) -> bool:
+        """Whether some taken request is not yet finished: a window
+        being filled or dispatched, or one not yet retired (a window
+        leaves ``_inflight`` only after its requests are finished)."""
+        return self._holding or bool(self._inflight)
+
     def retire_all(self) -> None:
         self._retire(0)
 
     def _retire(self, limit: int) -> None:
         while len(self._inflight) > limit:
             out, done, chunks, t_disp, bucket, mispredicts = \
+                self._inflight[0]
+            try:
+                if done is not None:
+                    done.synchronize()
+                # one device-to-host copy per window; requests slice the
+                # host copy
+                host = out.cpu() if self.keep_outputs else None
+                t_done = self.clock()
+                series = {"request_queue_wait_s": [],
+                          "request_batch_wait_s": [],
+                          "request_execute_s": [],
+                          "request_total_s": []}
+                completed = met = missed = pad = 0
+                for j, chunk in enumerate(chunks):
+                    pad += bucket - len(chunk)
+                    for i, r in enumerate(chunk):
+                        output = host[j, i] if self.keep_outputs else None
+                        taken = r._taken_ts if r._taken_ts is not None \
+                            else t_disp
+                        timing = {
+                            "queue_wait_s": taken - r.arrival_ts,
+                            "batch_wait_s": t_disp - taken,
+                            "execute_s": t_done - t_disp,
+                            "total_s": t_done - r.arrival_ts,
+                        }
+                        slo = None
+                        if r.deadline is not None:
+                            slo = t_done <= r.deadline
+                            met += bool(slo)
+                            missed += not slo
+                        completed += 1
+                        series["request_queue_wait_s"].append(
+                            timing["queue_wait_s"])
+                        series["request_batch_wait_s"].append(
+                            timing["batch_wait_s"])
+                        series["request_execute_s"].append(
+                            timing["execute_s"])
+                        series["request_total_s"].append(timing["total_s"])
+                        r.finish("ok", output=output, timing=timing,
+                                 slo_met=slo)
+                # ONE locked stats call per retired window: all four
+                # histogram series + every counter delta together
+                self.rt.stats.observe_many(
+                    series, requests_completed=completed, slo_met=met,
+                    slo_missed=missed, batches_formed=len(chunks),
+                    pad_rows=pad, shape_mispredicts=mispredicts)
+            finally:
+                # only now: drain waits for the requests to be finished
                 self._inflight.popleft()
-            if done is not None:
-                done.synchronize()
-            # one device-to-host copy per window; requests slice the
-            # host copy
-            host = out.cpu() if self.keep_outputs else None
-            t_done = self.clock()
-            series = {"request_queue_wait_s": [],
-                      "request_batch_wait_s": [],
-                      "request_execute_s": [],
-                      "request_total_s": []}
-            completed = met = missed = pad = 0
-            for j, chunk in enumerate(chunks):
-                pad += bucket - len(chunk)
-                for i, r in enumerate(chunk):
-                    output = host[j, i] if self.keep_outputs else None
-                    taken = r._taken_ts if r._taken_ts is not None \
-                        else t_disp
-                    timing = {
-                        "queue_wait_s": taken - r.arrival_ts,
-                        "batch_wait_s": t_disp - taken,
-                        "execute_s": t_done - t_disp,
-                        "total_s": t_done - r.arrival_ts,
-                    }
-                    slo = None
-                    if r.deadline is not None:
-                        slo = t_done <= r.deadline
-                        met += bool(slo)
-                        missed += not slo
-                    completed += 1
-                    series["request_queue_wait_s"].append(
-                        timing["queue_wait_s"])
-                    series["request_batch_wait_s"].append(
-                        timing["batch_wait_s"])
-                    series["request_execute_s"].append(
-                        timing["execute_s"])
-                    series["request_total_s"].append(timing["total_s"])
-                    r.finish("ok", output=output, timing=timing,
-                             slo_met=slo)
-            # ONE locked stats call per retired window: all four
-            # histogram series + every counter delta together
-            self.rt.stats.observe_many(
-                series, requests_completed=completed, slo_met=met,
-                slo_missed=missed, batches_formed=len(chunks),
-                pad_rows=pad, shape_mispredicts=mispredicts)

@@ -279,14 +279,15 @@ class ServingFrontend:
         return self.batcher.pump(wait_s)
 
     def drain(self, timeout: float = 60.0) -> bool:
-        """Serve until the queue is empty and every dispatched window
-        has been retired.  With a background thread running this only
-        polls; otherwise it pumps inline."""
+        """Serve until the queue is empty and every taken request is
+        finished (no window in formation, dispatch or flight).  With a
+        background thread running this only polls; otherwise it pumps
+        inline."""
         deadline = time.monotonic() + timeout
         while time.monotonic() < deadline:
             if self._thread is None:
                 self.pump(0.0)
-            if len(self.queue) == 0 and not self.batcher.inflight:
+            if len(self.queue) == 0 and not self.batcher.busy:
                 return True
             if self._thread is not None:
                 time.sleep(1e-3)

@@ -547,6 +547,73 @@ def test_model_prefill_and_decode_on_the_card_go_through_the_kernel(cuda):
         assert (a - b).abs().max() <= (b - c).abs().max()
 
 
+@pytest.mark.cuda
+def test_moe_model_prefill_and_decode_on_the_card(cuda):
+    """phi3.5-MoE at smoke scale (every layer attention + a 4-expert MoE
+    FFN), f32 params and an f32 cache on the card and on the host: a
+    prefill and three decode steps launch the kernel once per layer per
+    call, read the host once per MoE layer per decode step (the group
+    sizes; sync debug mode), give equal bits from run to run, and lie
+    within ``test_torch_model.py``'s f32 tolerance (1e-4 normwise) of the
+    host's run, with equal expert counts."""
+    import copy
+    import warnings
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.models.model import Model
+    cfg = get_config("phi3.5-moe-42b-a6.6b").smoke()
+    model = Model(cfg)
+    host = model.init(0, device="cpu").float()
+    card = copy.deepcopy(host).to(cuda)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (2, 40)).astype(np.int32))
+    prefill, decode = make_prefill_step(model), make_decode_step(model)
+
+    def serve(params, device):
+        cache = model.init_cache(2, 48, device=device)
+        for blk in cache["blocks"].values():
+            for n in ("k", "v"):
+                blk["kv"][n] = blk["kv"][n].float()
+        ops.reset_launches()
+        outs = [prefill(params, cache, {"tokens": toks.to(device)})[0]]
+        counts, syncs = [ops.launches().get("flash_attention", 0)], []
+        for step in range(3):
+            ops.reset_launches()
+            nxt = toks[:, step:step + 1].to(device)   # before counting
+            on_card = torch.device(device).type == "cuda"
+            if on_card:
+                torch.cuda.synchronize()
+                torch.cuda.set_sync_debug_mode("warn")
+            try:
+                with warnings.catch_warnings(record=True) as caught:
+                    warnings.simplefilter("always")
+                    out, cache = decode(params, cache, nxt, 40 + step)
+            finally:
+                if on_card:
+                    torch.cuda.set_sync_debug_mode("default")
+            syncs.append(sum("synchroniz" in str(w.message)
+                             for w in caught))
+            counts.append(ops.launches().get("flash_attention", 0))
+            outs.append(out)
+        with torch.no_grad():
+            _, _, met = model.forward(params, {"tokens": toks.to(device)})
+        return ([o.cpu() for o in outs], counts, syncs,
+                met["expert_counts"].cpu())
+
+    a, counts, syncs, expert = serve(card, cuda)
+    assert counts == [cfg.n_layers] * 4
+    assert syncs == [cfg.n_layers] * 3
+    b, _, _, expert_b = serve(card, cuda)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    assert torch.equal(expert, expert_b)
+    h, host_counts, _, host_expert = serve(host, "cpu")
+    assert host_counts == [0] * 4
+    assert torch.equal(expert, host_expert)
+    for x, y in zip(a, h):
+        assert torch.isfinite(x).all()
+        assert (x - y).abs().max() <= 1e-4 * y.abs().max()
+
+
 def _serving_runtime(device, cfg, controller=None):
     from repro_torch.core import EngineConfig, MorpheusRuntime, SketchConfig
     from repro_torch.serving import build_params, build_tables, \

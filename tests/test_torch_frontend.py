@@ -19,6 +19,7 @@ rows and the same weights: equal request statuses and timings, the same
 recompile from that profile, and outputs within ``TOL``.
 """
 import math
+import threading
 
 import jax
 import jax.numpy as jnp
@@ -346,6 +347,55 @@ def test_midserve_control_update_keeps_fifo_and_completes_all():
         assert order == sorted(order)
         assert all(a <= b for a, b in zip(taken, taken[1:]))
     finally:
+        rt.close()
+
+
+def _held(fn, entered, release, when=lambda *a, **kw: True):
+    """``fn`` that, on a call ``when`` picks, sets ``entered`` and waits
+    for ``release`` before it runs."""
+    def held(*a, **kw):
+        if when(*a, **kw):
+            entered.set()
+            assert release.wait(60)
+        return fn(*a, **kw)
+    return held
+
+
+@pytest.mark.parametrize("hold", ["dispatch", "retire"])
+def test_drain_waits_until_every_taken_request_is_finished(hold):
+    """The port's ``drain`` returns only once every taken request is
+    finished and counted: not while the batcher thread holds rows taken
+    from the queue before they are in flight (``place_batch`` held), nor
+    while it retires a window whose counters are not yet written (the
+    window's stats call held).  The reference's ``drain`` reads only the
+    queue and ``inflight``, which are both empty at either point
+    (ROADMAP Queue 3)."""
+    rt = _mk_rt()
+    fe = ServingFrontend(rt, FrontendConfig(
+        capacity=64, max_batch=4, ladder=(4,), window_k_max=1,
+        max_wait_s=0.0))
+    entered, release = threading.Event(), threading.Event()
+    if hold == "dispatch":
+        rt.place_batch = _held(rt.place_batch, entered, release)
+    else:
+        rt.stats.observe_many = _held(
+            rt.stats.observe_many, entered, release,
+            lambda *a, **kw: "requests_completed" in kw)
+    try:
+        reqs = [fe.submit(r) for r in _rows(0, 4)]   # one whole window
+        fe.start()
+        assert entered.wait(60)
+        if hold == "dispatch":
+            assert len(fe.queue) == 0 and fe.batcher.inflight == 0
+        assert fe.batcher.busy
+        assert not fe.drain(timeout=0.2)
+        release.set()
+        assert fe.drain(timeout=120.0)
+        assert [r.status for r in reqs] == ["ok"] * 4
+        assert rt.stats.requests_completed == 4
+    finally:
+        release.set()
+        fe.stop()
         rt.close()
 
 
