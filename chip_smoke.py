@@ -125,9 +125,27 @@
    GEMMs, ``flash_*``, sort and gather/scatter work; then the kernel on
    its layer 0's own q, k, v against its plain version and SDPA.
 
-In both model phases the kernels JSON counts ``flash_attention``'s
-launches over the two served runs alone (counts zeroed just before the
-first, read just after the second), not over the checks after them.
+9. SSM model phase: mamba2-1.3b (``src/repro/configs/mamba2_1p3b.py``)
+   whole, after phi3.5-MoE's params are released, the same way: 4 x 4096
+   random tokens and 32 greedy decode steps, twice, through the Mamba
+   branch of the transformer.  It fails unless ``ssd_scan`` launched 48
+   times in every prefill and never in a decode step, ``flash_attention``
+   never, the logits are finite, the two runs are equal bit for bit and
+   every layer of the decode path, fed the prefill's input (a prefill of
+   the same 4128 tokens) over the state that layer's prefill of the
+   prompt's rows leaves, gives the prefill's output within ``LAYER_TOL``
+   (random-weight mamba2 in bf16 is as sensitive in depth as phi3.5:
+   the comment at ``LAYER_TOL``); the logits' difference is printed.
+   It prints prefill ms, decode ms/token, host syncs per decode step and
+   a profile by kernel class; then the kernel
+   on its layer 0's own bf16 inputs (strided views of the conv output)
+   against its plain version (``SSD_TOL``'s bf16 and state entries),
+   timed, by pass and against its bound.
+
+In every model phase the kernels JSON counts ``flash_attention``'s and
+``ssd_scan``'s launches over the two served runs alone (counts zeroed
+just before the first, read just after the second), not over the checks
+after them.
 
 The last three lines are the kernels JSON, the nvidia-smi line and the
 device JSON.  Any failure raises (exit code != 0) and prints no result;
@@ -238,6 +256,7 @@ def eager_ms(torch, fn, iters: int = 50) -> float:
 # matches); the rest is elementwise and other work
 KERNEL_CLASSES = (("GEMM", r"gemm|Gemm|GEMM|cutlass|xmma|nvjet|cublas"),
                   ("flash", r"flash_"),
+                  ("ssd_scan", r"chunk_state|state_pass|chunk_out"),
                   ("sort", r"[Ss]ort|[Rr]adix"),
                   ("gather/scatter", r"[Ii]ndex|[Ss]catter|[Gg]ather|Cat"))
 
@@ -271,7 +290,8 @@ def profile_steps(torch, label: str, step, batches,
               f"(not measured)")
         return
     print(f"[profile] {label}: {n} steps, wall {wall_us:.0f} us, "
-          f"device busy {busy:.0f} us ({busy / wall_us:.1%})")
+          f"device busy {busy:.0f} us ({busy / wall_us:.1%}), "
+          f"{sum(e.count for e in events) / n:.0f} kernel launches per step")
     for e in sorted(events, key=dev, reverse=True)[:12]:
         print(f"[profile]   {dev(e) / n:9.1f} us/step "
               f"{e.count / n:6.1f} calls/step  {e.key[:90]}")
@@ -1408,9 +1428,10 @@ def conformance_phase() -> None:
 
 
 def kernel_times(torch, fn, calls: int = 20) -> dict:
-    """Device microseconds per ``fn()`` call by kernel function name
-    (torch.profiler over ``calls`` calls after a warm-up); empty when the
-    trace holds no device time."""
+    """Device microseconds per launch by kernel function name
+    (torch.profiler over ``calls`` calls after a warm-up; the mean over
+    the launches the trace holds, which at 5 calls of 2.7 ms held only 2
+    of each kernel); empty when the trace holds no device time."""
     from torch.profiler import ProfilerActivity, profile as prof_
     fn()
     torch.cuda.synchronize()
@@ -1424,21 +1445,26 @@ def kernel_times(torch, fn, calls: int = 20) -> dict:
         name = re.search(r"(\w+)(<[^(]*>)?\(", e.key)
         if us > 0 and name:
             key = name.group(1)
-            out[key] = out.get(key, 0.0) + us / calls
+            out[key] = out.get(key, 0.0) + us / e.count
     return out
 
 
-def time_ssd_scan(torch, ssd_scan_cuda, ssd_scan_ref, args, kw):
+def time_ssd_scan(torch, ssd_scan_cuda, ssd_scan_ref, args, kw,
+                  label="serving path", tol="f32_normwise", calls=20):
+    """The kernel against its plain version on a main path's own inputs
+    (``tol``: the ``SSD_TOL`` entry for y, normwise for
+    ``f32_normwise``), then its device time (``calls`` calls a graph)
+    beside the plain version's, by pass, and its bound."""
     x, dt, A, Bm, Cm = args
-    chunk, init = kw["chunk"], kw["init_state"]
+    chunk, init = kw["chunk"], kw.get("init_state")
     B, S, H, P = x.shape
     G, N = Bm.shape[2:]
     kern = lambda: ssd_scan_cuda(x, dt, A, Bm, Cm, chunk=chunk,
                                  init_state=init)
     plain = lambda: ssd_scan_ref(x, dt, A, Bm, Cm, chunk, init_state=init)
-    dy, ds = ssd_compare(torch, ssd_scan_cuda, ssd_scan_ref, "serving path",
-                         args, chunk, init, SSD_TOL["f32_normwise"],
-                         normwise=True)
+    dy, ds = ssd_compare(torch, ssd_scan_cuda, ssd_scan_ref, label, args,
+                         chunk, init, SSD_TOL[tol],
+                         normwise=tol == "f32_normwise")
     # multiply-adds these inputs need: the lower triangle of C.B per
     # group, of the scores times x per head, C.state and the state update
     tri = sum(L * (L + 1) // 2 for L in
@@ -1455,9 +1481,10 @@ def time_ssd_scan(torch, ssd_scan_cuda, ssd_scan_ref, args, kw):
     t_bytes = nbytes / HBM_BYTES_PER_S
     from repro_torch.kernels import ops
     n0 = ops.launches().get("ssd_scan", 0)
+    replays = 10 if calls >= 20 else 5
     res = {
-        "ms": device_ms(torch, kern),
-        "plain_ms": device_ms(torch, plain),
+        "ms": device_ms(torch, kern, calls, replays),
+        "plain_ms": device_ms(torch, plain, calls, replays),
         "library_ms": None,            # no one PyTorch call computes it
         "bound_ms": max(t_ops, t_bytes) * 1e3,
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
@@ -1465,17 +1492,19 @@ def time_ssd_scan(torch, ssd_scan_cuda, ssd_scan_ref, args, kw):
     check(ops.launches()["ssd_scan"] > n0, "timing did not launch ssd_scan")
     eager = {k: eager_ms(torch, f, iters=10) for k, f in
              (("kernel", kern), ("plain", plain))}
-    print(f"[time] ssd_scan eager calls, host enqueue included (ms): "
-          f"{eager}")
-    passes = kernel_times(torch, kern)
-    print(f"[time] ssd_scan passes, device us per call: "
+    print(f"[time] ssd_scan {label} eager calls, host enqueue included "
+          f"(ms): {eager}")
+    passes = kernel_times(torch, kern, calls)
+    print(f"[time] ssd_scan {label} passes, device us per call: "
           f"{ {k: round(v, 1) for k, v in passes.items()} or 'not measured'}")
-    print(f"[time] ssd_scan bound: {t_ops * 1e3:.4f} ms by 3xTF32 operations "
+    print(f"[time] ssd_scan {label} bound: {t_ops * 1e3:.4f} ms by 3xTF32 "
+          f"operations "
           f"at {TF32_FLOP_PER_S / 1e12:.0f} TFLOP/s, {t_bytes * 1e3:.4f} ms "
           f"by bytes; {t_cuda_cores * 1e3:.4f} ms on the CUDA cores at "
           f"{F32_FLOP_PER_S / 1e12:.0f} TFLOP/s")
-    print(f"[time] ssd_scan B={B} S={S} H={H} P={P} N={N} G={G} "
-          f"chunk={chunk} {x.dtype}: {2 * macs / 1e9:.2f} GFLOP, "
+    print(f"[time] ssd_scan {label} B={B} S={S} H={H} P={P} N={N} G={G} "
+          f"chunk={chunk} {x.dtype} strides x {x.stride()} Bm {Bm.stride()}"
+          f": {2 * macs / 1e9:.2f} GFLOP, "
           f"{nbytes / 1e6:.1f} MB, max |y - plain| {dy:.3e}, max |state - "
           f"plain| {ds:.3e}, {res}")
     return res, max(dy, ds)
@@ -1501,9 +1530,15 @@ MODEL_TOL = 0.1
 # 78.0 GiB in bf16, which leaves no room for a cache and activations on an
 # 80 GB card; cut, 31.47 B and 58.6 GiB, plus a 0.76 GiB cache)
 MODEL = dict(tag="model", arch="gemma2-9b", batch=2, prompt=6144,
-             decode=32, seed=0, layers=None)
+             decode=32, seed=0, layers=None, per_layer=False)
 MOE_MODEL = dict(tag="moe-model", arch="phi3.5-moe-42b-a6.6b", batch=2,
-                 prompt=4096, decode=32, seed=0, layers=24)
+                 prompt=4096, decode=32, seed=0, layers=24, per_layer=True)
+# mamba2-1.3b whole (1.34 B params, 2.5 GiB in bf16; its A_log, D,
+# dt_bias and norm_scale in f32): every prefill reaches ssd_scan.cu in
+# bf16 at 16 chunks of 256, the check's prefill of 4128 tokens at 17
+# with a ragged last; decode steps take the plain single-token update
+SSM_MODEL = dict(tag="ssm-model", arch="mamba2-1.3b", batch=4, prompt=4096,
+                 decode=32, seed=0, layers=None, per_layer=True)
 # phi3.5-MoE from random weights is chaotic in depth: a difference in
 # the last bits grows many times over in every layer, in the reference as
 # in the port (tools/moe_depth_witness.py runs both on the CPU at these
@@ -1516,6 +1551,12 @@ MOE_MODEL = dict(tag="moe-model", arch="phi3.5-moe-42b-a6.6b", batch=2,
 # max|prefill| over the layer's decode rows: bf16 outputs rounded in
 # other orders, a few 2^-8 steps), except where that layer's routing
 # flips, which at most FLIP_MAX of the (layer, token) pairs may.
+# mamba2-1.3b from random weights in bf16 is as sensitive: one bf16 ulp
+# in every input element moves a layer's output by ~7 % of its max, and
+# by ~50 % after 14 layers, in the reference as in the port
+# (tools/ssm_depth_witness.py --dtype bf16), so its decode path is held
+# to the prefill the same way (a Mamba layer over the state its prefill
+# of the prompt's rows leaves, ``teacher_forced``).
 LAYER_TOL, FLIP_MAX = 2e-2, 0.05
 
 
@@ -1624,13 +1665,16 @@ def visible_pairs(Sq: int, Sk: int, causal: bool, window) -> int:
 
 
 def model_phase(torch, ops, spec):
-    """One model (``MODEL`` or ``MOE_MODEL``) at full width through
-    ``make_prefill_step`` / ``make_decode_step``: prefill B x S tokens,
-    then N greedy decode steps, twice (the main path), then checks.
-    Returns the main path's own flash_attention inputs (each pattern
-    position's first layer, at prefill and at the last decode step) and
-    its flash_attention launches, counted from 0 over the two served runs
-    alone."""
+    """One model (``MODEL``, ``MOE_MODEL`` or ``SSM_MODEL``) at full width
+    through ``make_prefill_step`` / ``make_decode_step``: prefill B x S
+    tokens, then N greedy decode steps, twice (the main path), then
+    checks.  Every attention layer launches ``flash_attention`` once per
+    call; every Mamba layer launches ``ssd_scan`` once per prefill and
+    never at a decode step.  Returns the main path's own kernel inputs
+    (``flash_attention``'s for each pattern position's first layer at
+    prefill and at the last decode step, ``ssd_scan``'s for layer 0 at
+    the first prefill) and the kernels' launches, counted from 0 over the
+    two served runs alone."""
     from repro_torch.configs import get_config
     from repro_torch.launch.steps import make_decode_step, make_prefill_step
     from repro_torch.models.model import Model
@@ -1649,6 +1693,12 @@ def model_phase(torch, ops, spec):
            else whole.replace(n_layers=spec["layers"]))
     B, S, N = spec["batch"], spec["prompt"], spec["decode"]
     moe = cfg.moe
+    # launches each call kind must make, by kernel
+    n_attn = cfg.first_k_dense + cfg.n_periods * sum(
+        s.kind == "attn" for s in cfg.pattern)
+    n_mamba = cfg.n_layers - n_attn
+    want = {"flash_attention": (n_attn, n_attn),   # (prefill, decode step)
+            "ssd_scan": (n_mamba, 0)}
     model = Model(cfg)
     # shapes on the meta device first: the params must fit beside the
     # cache and the activations
@@ -1671,10 +1721,18 @@ def model_phase(torch, ops, spec):
     torch.cuda.synchronize()
     ffn = (f"{moe.num_experts} experts top-{moe.top_k} x d_ff "
            f"{moe.expert_d_ff}" if moe else f"d_ff {cfg.d_ff}")
+    attn = (f"{n_attn} attention layers, {cfg.n_heads}/{cfg.n_kv_heads} "
+            f"heads x {cfg.head_dim_}, window {cfg.pattern[0].window}, "
+            f"softcaps {cfg.attn_logit_softcap}/{cfg.final_logit_softcap}"
+            if n_attn else "no attention layer")
+    ssm = cfg.ssm
+    mamba = (f"{n_mamba} Mamba2 layers, "
+             f"{ssm.expand * cfg.d_model // ssm.head_dim} SSD heads x P "
+             f"{ssm.head_dim}, N {ssm.d_state}, G {ssm.n_groups}, conv "
+             f"{ssm.conv_width}, chunk {ssm.chunk}"
+             if n_mamba else "no Mamba layer")
     say(f"{cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
-        f"{cfg.n_heads}/{cfg.n_kv_heads} heads x {cfg.head_dim_}, {ffn}, "
-        f"vocab {cfg.padded_vocab}, window {cfg.pattern[0].window}, "
-        f"softcaps {cfg.attn_logit_softcap}/{cfg.final_logit_softcap}; "
+        f"{attn}; {mamba}; {ffn}, vocab {cfg.padded_vocab}; "
         f"{param_count(params) / 1e9:.3f} B params bf16 "
         f"({torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card) in "
         f"{time.perf_counter() - t0:.1f} s")
@@ -1682,57 +1740,70 @@ def model_phase(torch, ops, spec):
     prompt = torch.randint(0, cfg.vocab, (B, S), generator=gen,
                            device="cuda", dtype=torch.int32)
     prefill, decode = make_prefill_step(model), make_decode_step(model)
-    fa = lambda: ops.launches().get("flash_attention", 0)
+    count = lambda: {k: ops.launches().get(k, 0) for k in want}
     n_pattern = len(cfg.pattern)
     n_moe = cfg.n_periods * sum(s.ffn == "moe" for s in cfg.pattern)
 
     captured = {}
-    real = ops.flash_attention
+    real, real_ssd = ops.flash_attention, ops.ssd_scan
+    # copies in the same (strided) layout
+    keep = lambda t: None if t is None else torch.empty_strided(
+        t.shape, t.stride(), dtype=t.dtype, device=t.device).copy_(t)
 
     def tap(label):
         def f(q, k, v, **kw):
             # layer i of the first period is pattern position i (gemma2:
             # 0 local, 1 global)
             n = len([x for x in captured if x.startswith(label)])
-            if n < n_pattern:      # copies in the same (strided) layout
-                keep = lambda t: torch.empty_strided(
-                    t.shape, t.stride(), dtype=t.dtype,
-                    device=t.device).copy_(t)
+            if n < n_pattern:
                 captured[f"{label}{n}"] = (keep(q), keep(k), keep(v),
                                            dict(kw))
             return real(q, k, v, **kw)
         return f
 
+    def tap_ssd(*args, **kw):
+        if "ssd_scan" not in captured:         # layer 0 (models.ssd)
+            captured["ssd_scan"] = (tuple(keep(t) for t in args),
+                                    {k: keep(v) if k == "init_state" else v
+                                     for k, v in kw.items()})
+        return real_ssd(*args, **kw)
+
+    def taps(on: bool, label: str):
+        ops.flash_attention = tap(label) if on else real
+        ops.ssd_scan = tap_ssd if on and label == "prefill" else real_ssd
+
     # the router's top-k ids of every MoE layer call of run 1
     served = []
+
+    def since(n0):
+        return {k: v - n0[k] for k, v in count().items()}
 
     def serve(capture: bool):
         cache = model.init_cache(B, S + N)
         torch.cuda.synchronize()
-        n0, t = fa(), time.perf_counter()
+        n0, t = count(), time.perf_counter()
         with route_tap(served) if capture else contextlib.nullcontext():
-            if capture:                 # models.attention calls it
-                ops.flash_attention = tap("prefill")
+            # models.attention and models.ssd call them through ops
+            taps(capture, "prefill")
             try:
                 logits, cache = prefill(params, cache, {"tokens": prompt})
             finally:
-                ops.flash_attention = real
+                taps(False, "")
             torch.cuda.synchronize()
             t_pre = time.perf_counter() - t
             paths["prefill"] = fa_mod.last_path
-            per_call = [fa() - n0]
+            per_call = [since(n0)]
             nxt = logits[:, -1:].argmax(-1).to(torch.int32)
             fed, dec = [nxt], []
             t = time.perf_counter()
             for step in range(N):
-                n0 = fa()
-                if capture and step == N - 1:
-                    ops.flash_attention = tap("decode")
+                n0 = count()
+                taps(capture and step == N - 1, "decode")
                 try:
                     lg, cache = decode(params, cache, nxt, S + step)
                 finally:
-                    ops.flash_attention = real
-                per_call.append(fa() - n0)
+                    taps(False, "")
+                per_call.append(since(n0))
                 paths["decode"] = fa_mod.last_path
                 dec.append(lg)
                 nxt = lg[:, -1:].argmax(-1).to(torch.int32)
@@ -1744,15 +1815,23 @@ def model_phase(torch, ops, spec):
         return (logits, torch.cat(dec, 1), torch.cat(fed, 1), per_call,
                 t_pre, t_dec)
 
+    def check_calls(calls):
+        for name, (per_prefill, per_decode) in want.items():
+            got = [c[name] for c in calls]
+            check(got == [per_prefill] + [per_decode] * N,
+                  f"{name} launches per call {got}: expected {per_prefill} "
+                  f"per prefill and {per_decode} per decode step")
+
     paths = {}
+    fa_mod.last_path = None
     ops.reset_launches()        # the main path: the two served runs
     pre1, dec1, fed1, calls1, t_pre, t_dec = serve(capture=True)
-    check(paths == {"prefill": "wgmma_prefill", "decode": "split_k_decode"},
-          f"flash_attention paths {paths}")
-    say(f"flash_attention path per call kind: {paths}")
-    check(all(c == cfg.n_layers for c in calls1),
-          f"flash_attention launches per call {calls1}: expected "
-          f"{cfg.n_layers} per prefill and per decode step")
+    if n_attn:
+        check(paths == {"prefill": "wgmma_prefill",
+                        "decode": "split_k_decode"},
+              f"flash_attention paths {paths}")
+        say(f"flash_attention path per call kind: {paths}")
+    check_calls(calls1)
     check(bool(torch.isfinite(pre1).all())
           and bool(torch.isfinite(dec1).all()), "non-finite logits")
     check(pre1.shape == (B, S, cfg.padded_vocab)
@@ -1760,14 +1839,17 @@ def model_phase(torch, ops, spec):
           f"logits {tuple(pre1.shape)} {tuple(dec1.shape)}")
     say(f"run 1: prefill {B} x {S} tokens {t_pre * 1e3:.1f} ms, "
         f"decode {t_dec * 1e3:.2f} ms/token (batch {B}, {N} steps); "
-        f"flash_attention launches per call {calls1[0]} (prefill), "
-        f"{sorted(set(calls1[1:]))} (decode)")
+        f"launches per call {calls1[0]} (prefill), {calls1[1]} (each "
+        f"decode step)")
     pre2, dec2, fed2, calls2, t_pre2, t_dec2 = serve(capture=False)
-    launches = ops.launches()
-    say(f"launches during the two served runs: {launches}")
-    check(launches.get("flash_attention", 0) == sum(calls1) + sum(calls2),
-          f"flash_attention launches {launches} against {sum(calls1)} + "
-          f"{sum(calls2)} counted per call")
+    check_calls(calls2)
+    launches = count()
+    say(f"launches during the two served runs: {ops.launches()}")
+    for name in want:
+        total = sum(c[name] for c in calls1 + calls2)
+        check(launches[name] == total,
+              f"{name} launches {launches[name]} against {total} counted "
+              f"per call")
     check(torch.equal(fed1, fed2) and torch.equal(pre1, pre2)
           and torch.equal(dec1, dec2),
           "two runs differ: greedy tokens or logits are not bit for bit")
@@ -1782,14 +1864,17 @@ def model_phase(torch, ops, spec):
     full = torch.cat([prompt, fed1[:, :N]], dim=1)
     cache = model.init_cache(B, S + N)
     routes = []
-    layers = []                  # each layer's (input, output) rows S..
+    # each layer's input (a Mamba layer's all rows, an attention layer's
+    # rows S..) and output rows S..
+    layers = []
     real_layer = tf_mod.layer_forward
 
     def tap_layer(p, cfg_, spec_, x, *a, **kw):
         out = real_layer(p, cfg_, spec_, x, *a, **kw)
-        layers.append((x[:, S:].clone(), out[0][:, S:].clone()))
+        layers.append((x.clone() if spec_.kind != "attn" else
+                       x[:, S:].clone(), out[0][:, S:].clone()))
         return out
-    if moe is not None:
+    if spec["per_layer"]:
         tf_mod.layer_forward = tap_layer
     try:
         with route_tap(routes):
@@ -1801,10 +1886,12 @@ def model_phase(torch, ops, spec):
     del dec1
     err, scale = (got - ref).abs().max().item(), ref.abs().max().item()
     agree = (got.argmax(-1) == ref.argmax(-1)).float().mean().item()
-    if moe is None:
+    if not spec["per_layer"]:
         check(err <= MODEL_TOL * scale,
               f"decode logits differ from the prefill's rows by {err} "
               f"(max|prefill| {scale}, tol {MODEL_TOL} normwise)")
+    elif moe is None:
+        teacher_forced(torch, say, cfg, params, cache, layers, routes, S)
     else:
         # the served decode tokens' top-k sets against the check's
         # prefill's, by layer: where decode and prefill part
@@ -1818,7 +1905,8 @@ def model_phase(torch, ops, spec):
             f"{flips.numel()} (layer, token) pairs; by layer "
             f"{flips.sum((1, 2)).tolist()}")
         teacher_forced(torch, say, cfg, params, cache, layers, routes, S)
-    held = "tol" if moe is None else "not held, see LAYER_TOL; tol"
+    held = ("not held, see LAYER_TOL; tol" if spec["per_layer"]
+            else "tol")
     say(f"decode vs prefill of the same {S + N} tokens, all {N} "
         f"positions: max |decode - prefill| {err:.4f} = "
         f"{err / scale:.4f} of max|prefill| {scale:.3f} ({held} "
@@ -1862,52 +1950,64 @@ def model_phase(torch, ops, spec):
               f"{per_layer}")
         say(f"decode step expert_counts rows sum to {per_layer}; experts "
             f"used per layer {(counts > 0).sum(1).tolist()}")
-    expected = (f" (expected one per MoE layer, {n_moe})" if moe is not None
-                else "")
-    say(f"host syncs per decode step: {syncs:g}{expected}; peak device "
-        f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    expected = (f"one per MoE layer, {n_moe}" if moe is not None else "0")
+    say(f"host syncs per decode step: {syncs:g} (expected {expected}); "
+        f"peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     del cache, params
     gc.collect()
     torch.cuda.empty_cache()
-    return captured, launches["flash_attention"]
+    return captured, launches
 
 
 def teacher_forced(torch, say, cfg, params, cache, layers, routes, S):
     """Each layer of the decode path against the prefill path where no
     depth has amplified anything: for every layer l and decode position
     p = S + j, ``layer_forward`` on one token, fed the prefill's input
-    to layer l at row p, at start p, over the prefill's cache of layer l
-    (the step writes its own k, v at p, as a decode does).  Its output
-    must lie within ``LAYER_TOL`` of the prefill's output at row p
-    (normwise over the layer's decode rows) wherever the step routes as
-    the prefill did; at most ``FLIP_MAX`` of the (layer, token) pairs
-    may route otherwise.  ``layers``: each layer call's (input, output)
-    rows S..; ``routes``: each MoE layer call's top-k ids."""
+    to layer l at row p, at start p.  An attention layer steps over the
+    prefill's cache of layer l (the step writes its own k, v at p, as a
+    decode does); a Mamba layer over its own state, made by a prefill of
+    layer l on the prefill's inputs at rows 0..S-1 and advanced by the
+    steps j = 0, 1, ... in turn.  Its output must lie within
+    ``LAYER_TOL`` of the prefill's output at row p (normwise over the
+    layer's decode rows) wherever the step routes as the prefill did; at
+    most ``FLIP_MAX`` of the (MoE layer, token) pairs may route
+    otherwise.  ``layers``: each layer call's (input, output), the input
+    of a Mamba layer all rows, the rest rows S..; ``routes``: each MoE
+    layer call's top-k ids."""
     from repro_torch.models.params import index_tree
-    from repro_torch.models.transformer import layer_forward
-    B, N = layers[0][0].shape[:2]
-    K = cfg.moe.top_k
+    from repro_torch.models.transformer import init_layer_cache, \
+        layer_forward
+    B, N = layers[0][1].shape[:2]
+    K = cfg.moe.top_k if cfg.moe is not None else 0
     srt = lambda t: t.sort(-1).values
-    errs, flips, n, picked = [], [], 0, []
-    with route_tap(picked):
+    errs, flips, n, m, picked = [], [], 0, 0, []
+    with route_tap(picked), torch.no_grad():
         for i in range(cfg.n_periods):
             for pos, spec in enumerate(cfg.pattern):
                 lp = index_tree(params["blocks"][f"pos{pos}"], i)
-                lc = index_tree(cache["blocks"][f"pos{pos}"], i)
                 x_in, x_out = layers[n]
-                ref_ids = (routes[n].view(B, -1, K)[:, S:]
-                           if spec.ffn == "moe" else None)
                 n += 1
+                if spec.kind == "attn":
+                    lc = index_tree(cache["blocks"][f"pos{pos}"], i)
+                else:
+                    lc = init_layer_cache(cfg, spec, B, 0, x_in.device)
+                    layer_forward(lp, cfg, spec, x_in[:, :S], 0, lc,
+                                  aux_loss=False)
+                    x_in = x_in[:, S:]
+                ref_ids = None
+                if spec.ffn == "moe":
+                    ref_ids = routes[m].view(B, -1, K)[:, S:]
+                    m += 1
                 row_err, row_flip = [], []
                 for j in range(N):
                     picked.clear()
-                    with torch.no_grad():
-                        y, _, _ = layer_forward(
-                            lp, cfg, spec, x_in[:, j:j + 1], S + j, lc,
-                            aux_loss=False)
+                    y, _, _ = layer_forward(
+                        lp, cfg, spec, x_in[:, j:j + 1], S + j, lc,
+                        aux_loss=False)
                     row_err.append((y[:, 0] - x_out[:, j]).abs().amax(-1))
                     row_flip.append(
-                        (srt(picked[0]) != srt(ref_ids[:, j])).any(-1)
+                        (srt(picked[-1]) != srt(ref_ids[:, j])).any(-1)
                         if ref_ids is not None else
                         torch.zeros(B, dtype=torch.bool, device=y.device))
                 errs.append(torch.stack(row_err, 1)
@@ -1918,14 +2018,15 @@ def teacher_forced(torch, say, cfg, params, cache, layers, routes, S):
     kept = err[~flip]
     by_layer = err.masked_fill(flip, 0).amax((1, 2))
     say(f"teacher-forced decode, layer by layer ({err.shape[0]} layers x "
-        f"{B * N} tokens, each fed the prefill's input and cache): "
-        f"routing differs from the prefill's at {flip.sum().item()} of "
-        f"{flip.numel()} (layer, token) pairs (tol {FLIP_MAX:.0%}); "
-        f"output vs the prefill's, normwise, by layer "
-        f"{[round(x, 4) for x in by_layer.tolist()]} (tol {LAYER_TOL})")
-    check(flip.float().mean().item() <= FLIP_MAX,
+        f"{B * N} tokens, each fed the prefill's input, over the prefill's "
+        f"cache or the state after the prompt): routing differs from the "
+        f"prefill's at {flip.sum().item()} of {m * B * N} (MoE layer, "
+        f"token) pairs (tol {FLIP_MAX:.0%}); output vs the prefill's, "
+        f"normwise, by layer {[round(x, 4) for x in by_layer.tolist()]} "
+        f"(tol {LAYER_TOL})")
+    check(flip.sum().item() <= FLIP_MAX * m * B * N,
           f"teacher-forced decode routes otherwise than the prefill at "
-          f"{flip.sum().item()} of {flip.numel()} (layer, token) pairs")
+          f"{flip.sum().item()} of {m * B * N} (MoE layer, token) pairs")
     check(kept.numel() == 0 or kept.max().item() <= LAYER_TOL,
           f"a teacher-forced decode layer differs from the prefill's by "
           f"{kept.max().item()} (normwise, tol {LAYER_TOL})")
@@ -2085,8 +2186,9 @@ def main() -> int:
     t = time.perf_counter()
     captured, served = model_phase(torch, ops, MODEL)
     print(f"[model] phase {time.perf_counter() - t:.1f} s")
-    check(served > 0, "flash_attention never launched in the model phase")
-    launches["flash_attention"] = served
+    check(served["flash_attention"] > 0,
+          "flash_attention never launched in the model phase")
+    launches["flash_attention"] = served["flash_attention"]
     rows, path_err = time_flash_attention(
         torch, flash_attention_cuda, flash_attention_ref, captured,
         lambda name: "local layer" if name.endswith("0") else "global layer")
@@ -2100,13 +2202,31 @@ def main() -> int:
     t = time.perf_counter()
     captured, served = model_phase(torch, ops, MOE_MODEL)
     print(f"[moe-model] phase {time.perf_counter() - t:.1f} s")
-    check(served > 0, "flash_attention never launched in the moe-model phase")
-    launches["flash_attention"] += served
+    check(served["flash_attention"] > 0,
+          "flash_attention never launched in the moe-model phase")
+    launches["flash_attention"] += served["flash_attention"]
     _, moe_err = time_flash_attention(
         torch, flash_attention_cuda, flash_attention_ref, captured,
         lambda name: "phi3.5-MoE layer 0")
     print(f"[time] flash_attention phi3.5-MoE path normwise error "
           f"{moe_err:.3e}")
+    del captured
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # mamba2-1.3b, after phi3.5-MoE's params and inputs are gone
+    t = time.perf_counter()
+    captured, served = model_phase(torch, ops, SSM_MODEL)
+    print(f"[ssm-model] phase {time.perf_counter() - t:.1f} s")
+    check(served["ssd_scan"] > 0 and served["flash_attention"] == 0,
+          f"ssm-model launches {served}")
+    launches["ssd_scan"] += served["ssd_scan"]
+    args, kw = captured["ssd_scan"]
+    _, ssm_err = time_ssd_scan(torch, ssd_scan_cuda, ssd_scan_ref, args, kw,
+                               label="mamba2-1.3b layer 0 prefill",
+                               tol="bf16", calls=5)
+    err["ssd_scan"] = max(err["ssd_scan"], ssm_err)
+    del captured, args, kw
     kernels = []
     for name, (src, replaces) in KERNELS.items():
         kernels.append(dict(name=name, route="cuda", source=src,

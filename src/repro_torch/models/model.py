@@ -11,9 +11,13 @@
 ``batch`` is a dict holding ``tokens`` (B, S) int32.  Entry points run
 on ``device="cuda"`` unless the caller passes another device; every
 self-attention call of prefill and decode goes through
-``kernels.ops.flash_attention`` (the CUDA kernel on the card).  Caches
-are written in place (``models/attention.py`` says why), so a consumed
-cache is not a fresh one.  ``forward``'s metrics are the reference's
+``kernels.ops.flash_attention`` and every Mamba layer's prefill through
+``kernels.ops.ssd_scan`` (the CUDA kernels on the card; a Mamba decode
+step is a plain single-token update).  Caches are written in place
+(``models/attention.py`` says why), so a consumed cache is not a fresh
+one; over a stack with Mamba layers a step restarts at position 0 or
+continues at the filled position, and never rolls back
+(``models/transformer.py``).  ``forward``'s metrics are the reference's
 (``aux_loss``, ``dropped``, and ``expert_counts`` (n_periods, E) for a
 MoE config); ``prefill`` and ``decode_step`` discard them, as the
 reference's do, and so skip the MoE load-balance loss.  A MoE layer
@@ -37,7 +41,8 @@ def params_from_numpy(tree, device="cuda") -> ParamTree:
     ``jax.tree.map(np.asarray, unzip(model.init(key))[0])``, nested dicts
     of numpy arrays (bf16 leaves as ``ml_dtypes.bfloat16``, carried
     across exactly through float32; f32 leaves, such as a bf16 model's
-    MoE router, stay f32)."""
+    MoE router or a Mamba layer's ``A_log``, ``D``, ``dt_bias`` and
+    ``norm_scale``, stay f32)."""
     return ParamTree(tree_from_numpy(tree, resolve_device(device)))
 
 

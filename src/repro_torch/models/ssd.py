@@ -126,8 +126,9 @@ def mamba_forward_with_state(params, cfg: ModelConfig, x: torch.Tensor, *,
 
 def mamba_forward(params, cfg: ModelConfig, x: torch.Tensor, *,
                   cache=None) -> Tuple[torch.Tensor, Optional[dict]]:
-    """Full-sequence forward.  ``cache`` (optional) receives the final
-    (conv, ssm) state for subsequent decode."""
+    """Full-sequence forward from the zero state.  With ``cache`` (only
+    its dtypes are read) it also returns the final (conv, ssm) state for
+    subsequent decode, as new tensors."""
     s, d_inner, H, _ = _dims(cfg)
     B, S, _ = x.shape
     z, xBC, dt = _split(params, cfg, x)
@@ -137,8 +138,12 @@ def mamba_forward(params, cfg: ModelConfig, x: torch.Tensor, *,
     out = _gate_out(params, cfg, y, x_in, z, (B, S, d_inner))
     new_cache = None
     if cache is not None:
-        # the last width-1 raw conv inputs
-        conv_state = xBC[:, S - (s.conv_width - 1):, :]
+        # the last width-1 raw conv inputs, left-padded with the zeros the
+        # causal conv saw when the prompt is shorter (the reference keeps
+        # fewer rows then, and its next decode step raises)
+        w1 = s.conv_width - 1
+        conv_state = F.pad(xBC[:, max(0, S - w1):, :],
+                           (0, 0, max(0, w1 - S), 0))
         new_cache = {"conv": conv_state.to(cache["conv"].dtype),
                      "ssm": final_state.to(cache["ssm"].dtype)}
     return out, new_cache

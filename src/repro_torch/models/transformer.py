@@ -1,20 +1,22 @@
-"""Decoder-only transformer assembly, for the dense GQA architectures.
+"""Decoder-only transformer assembly.
 
 Ported from ``repro.models.transformer``.  As there, ``init_lm`` stacks
 each pattern position's layers into ``(n_periods, ...)`` (gemma2's
-local/global alternation is a pattern of two), so the reference's
-weights carry across one to one.  The reference's ``lax.scan`` over
-periods is a Python loop over period ``i`` that indexes the stacked
-parameters and caches (views, no copies), with the pattern unrolled
-inside.
+local/global alternation is a pattern of two, jamba's 1:7 attention /
+mamba interleave one of eight), so the reference's weights carry across
+one to one.  The reference's ``lax.scan`` over periods is a Python loop
+over period ``i`` that indexes the stacked parameters and caches (views,
+no copies), with the pattern unrolled inside.
 
-What the port runs: attention layers (``kind="attn"``) with a dense or
-MoE FFN (``models/moe.py::moe_ffn``), with or without gemma2's
-post-norms, tied or untied embeddings and the final logit softcap:
-gemma2-9b, llama3-8b, deepseek-7b, starcoder2-3b and phi3.5-MoE end to
-end.  What raises ``NotImplementedError`` (ROADMAP Queue 1 item 8):
-mamba layers (mamba2, jamba), MLA (deepseek-v2), cross-attention and
-``encdec.py`` (seamless), ``media_embeds`` (pixtral).
+What the port runs: attention layers (``kind="attn"``) and Mamba2 layers
+(``models/ssd.py``; prefill through ``ops.ssd_scan``, decode through the
+plain ``ops.ssd_decode``), each with no FFN, a dense one or a MoE one
+(``models/moe.py::moe_ffn``), with or without gemma2's post-norms, tied
+or untied embeddings and the final logit softcap: gemma2-9b, llama3-8b,
+deepseek-7b, starcoder2-3b, phi3.5-MoE, mamba2-1.3b and jamba end to
+end.  What raises ``NotImplementedError`` (ROADMAP Queue 1 item 8): MLA
+(deepseek-v2), cross-attention and ``encdec.py`` (seamless),
+``media_embeds`` (pixtral).
 
 Metrics, as the reference's: ``aux_loss`` and ``dropped`` summed over
 the layers, and for a config with ``moe`` set ``expert_counts`` of shape
@@ -22,9 +24,15 @@ the layers, and for a config with ``moe`` set ``expert_counts`` of shape
 launches nothing for them (host zeros, made tensors once at the end).
 
 Caches hold one extra entry beside the reference's tree: ``"filled"``,
-a host-side count of the contiguous prefix of slots that prefill and
-decode have written (slots ``0..filled-1`` hold positions
-``0..filled-1``).  A decode past it raises instead of reading a gap.
+a host-side count of the positions that prefill and decode have taken
+in (an attention layer's slots ``0..filled-1`` hold positions
+``0..filled-1``).  A step past it raises instead of reading a gap, and
+one past an attention layer's slots raises before any write.  A Mamba
+layer's state has no slots, and it has already absorbed every token it
+was given, so a stack with a Mamba layer cannot roll back: a step at
+``0 < start < filled`` raises before any write, and a step at ``start``
+0 restarts the state from zero and ``filled`` from S (the reference's
+one-token step would continue from whatever state the cache holds).
 """
 from __future__ import annotations
 
@@ -39,6 +47,7 @@ from .layers import embed, ffn, init_embedding, init_ffn, init_rmsnorm, \
 from .moe import init_moe, moe_ffn
 from .params import Initializer, ParamTree, index_tree, stack_draws, \
     stack_pspecs
+from .ssd import init_mamba, init_mamba_cache, mamba_decode, mamba_forward
 
 CACHE_DTYPE = torch.bfloat16       # the reference's cache dtype
 
@@ -48,11 +57,6 @@ def _unported(cfg: ModelConfig, spec: LayerSpec) -> None:
         raise NotImplementedError(
             f"{cfg.name}: MLA attention is not ported yet (ROADMAP Queue 1 "
             f"item 8: models/attention.py mla_forward)")
-    if spec.kind != "attn":
-        raise NotImplementedError(
-            f"{cfg.name}: {spec.kind} layers inside the transformer are not "
-            f"ported yet (ROADMAP Queue 1 item 8: mamba layers through "
-            f"models/ssd.py)")
     if spec.cross_attn:
         raise NotImplementedError(
             f"{cfg.name}: cross-attention is not ported yet (ROADMAP Queue 1 "
@@ -66,10 +70,14 @@ def _unported(cfg: ModelConfig, spec: LayerSpec) -> None:
 def init_layer(ini: Initializer, cfg: ModelConfig, spec: LayerSpec,
                d_ff_override: int = 0):
     _unported(cfg, spec)
-    p = {"attn_norm": init_rmsnorm(ini, cfg.d_model),
-         "attn": init_attention(ini, cfg)}
-    if cfg.post_norm:
-        p["attn_post_norm"] = init_rmsnorm(ini, cfg.d_model)
+    if spec.kind == "attn":
+        p = {"attn_norm": init_rmsnorm(ini, cfg.d_model),
+             "attn": init_attention(ini, cfg)}
+        if cfg.post_norm:
+            p["attn_post_norm"] = init_rmsnorm(ini, cfg.d_model)
+    else:
+        p = {"mamba_norm": init_rmsnorm(ini, cfg.d_model),
+             "mamba": init_mamba(ini, cfg)}
     if spec.ffn != "none":
         p["ffn_norm"] = init_rmsnorm(ini, cfg.d_model)
         if spec.ffn == "moe":
@@ -85,8 +93,12 @@ def init_layer(ini: Initializer, cfg: ModelConfig, spec: LayerSpec,
 
 def init_layer_cache(cfg: ModelConfig, spec: LayerSpec, batch: int, cap: int,
                      device="cuda"):
-    """Cache tree for one layer: bf16 k and v, and ``pos`` (-1 = empty)."""
+    """Cache tree for one layer: an attention layer's bf16 k and v and
+    ``pos`` (-1 = empty), or a Mamba layer's bf16 ``conv`` (B, w-1, C)
+    and f32 ``ssm`` (B, H, P, N), as the reference's."""
     _unported(cfg, spec)
+    if spec.kind != "attn":
+        return {"mamba": init_mamba_cache(cfg, batch, CACHE_DTYPE, device)}
     shape = (batch, cap, cfg.n_kv_heads, cfg.head_dim_)
     return {"kv": {
         "k": torch.zeros(shape, dtype=CACHE_DTYPE, device=device),
@@ -103,9 +115,12 @@ def layer_forward(p, cfg: ModelConfig, spec: LayerSpec, x: torch.Tensor,
                   start: int = 0, cache=None, enc_out=None,
                   causal: bool = True, aux_loss: bool = True):
     """Returns (x, new_cache, metrics); ``start`` is the position of x's
-    first token.  The cache is written in place.  A dense layer adds no
-    aux loss and drops nothing: its metrics are host zeros, so a decode
-    step launches no kernels for them.  A MoE layer's metrics are
+    first token.  The cache is written in place (``new_cache`` holds the
+    same tensors): a Mamba layer's one-token step over a cache takes
+    ``mamba_decode``, anything else ``mamba_forward`` from the zero
+    state, as the reference branches.  A dense layer adds no aux loss
+    and drops nothing: its metrics are host zeros, so a decode step
+    launches no kernels for them.  A MoE layer's metrics are
     ``moe_ffn``'s (``aux_loss=False`` skips its load-balance loss)."""
     _unported(cfg, spec)
     if enc_out is not None:
@@ -113,15 +128,29 @@ def layer_forward(p, cfg: ModelConfig, spec: LayerSpec, x: torch.Tensor,
             "enc_out (encoder-decoder stacks) is not ported yet: ROADMAP "
             "Queue 1 item 8")
     new_cache = {} if cache is not None else None
-    h = rmsnorm(p["attn_norm"], x, cfg.rms_eps)
-    a, kvc = gqa_forward(p["attn"], cfg, h, start, window=spec.window,
-                         cache=cache["kv"] if cache is not None else None,
-                         causal=causal)
-    if cfg.post_norm:
-        a = rmsnorm(p["attn_post_norm"], a, cfg.rms_eps)
+    if spec.kind == "attn":
+        h = rmsnorm(p["attn_norm"], x, cfg.rms_eps)
+        a, kvc = gqa_forward(p["attn"], cfg, h, start, window=spec.window,
+                             cache=cache["kv"] if cache is not None
+                             else None, causal=causal)
+        if cfg.post_norm:
+            a = rmsnorm(p["attn_post_norm"], a, cfg.rms_eps)
+        if new_cache is not None:
+            new_cache["kv"] = kvc
+    else:
+        h = rmsnorm(p["mamba_norm"], x, cfg.rms_eps)
+        mc = cache["mamba"] if cache is not None else None
+        if mc is not None and x.shape[1] == 1:
+            a, state = mamba_decode(p["mamba"], cfg, h, mc)
+        else:
+            a, state = mamba_forward(p["mamba"], cfg, h, cache=mc)
+        if mc is not None:
+            # lm_forward passes views of the stacked caches and drops what
+            # a layer returns: the state must land in the cache's tensors
+            for name in ("conv", "ssm"):
+                mc[name].copy_(state[name])
+            new_cache["mamba"] = mc
     x = x + a
-    if new_cache is not None:
-        new_cache["kv"] = kvc
     metrics = {"aux_loss": 0.0, "dropped": 0.0}
     if spec.ffn != "none":
         h = rmsnorm(p["ffn_norm"], x, cfg.rms_eps)
@@ -182,11 +211,46 @@ def init_lm_cache(cfg: ModelConfig, batch: int, cap: int, device="cuda"):
 # Whole-model forward
 # ---------------------------------------------------------------------------
 
-def _capacity(cache) -> int:
-    """Slots of a cache tree from ``init_lm_cache`` (every layer's the same)."""
-    layer = (cache["prefix0"] if "prefix0" in cache
-             else next(iter(cache["blocks"].values())))
-    return layer["kv"]["pos"].shape[-1]
+def _capacity(cache) -> Optional[int]:
+    """Slots of a cache tree from ``init_lm_cache`` (every attention
+    layer's the same), or None when no layer has any (a Mamba layer's
+    state takes any number of tokens)."""
+    layers = [cache[k] for k in cache if k.startswith("prefix")]
+    for layer in layers + list(cache["blocks"].values()):
+        if "kv" in layer:
+            return layer["kv"]["pos"].shape[-1]
+    return None
+
+
+def _mamba_states(cache):
+    """The stacked (n_periods, ...) ``conv`` and ``ssm`` tensors of every
+    Mamba pattern position."""
+    return [t for layer in cache["blocks"].values() if "mamba" in layer
+            for t in layer["mamba"].values()]
+
+
+def _check_step(cache, start: int, S: int, mamba: bool) -> None:
+    """The step rules of the module docstring (``mamba``: the stack has a
+    Mamba layer); raises before any write."""
+    filled = cache["filled"]
+    if start > filled:
+        raise ValueError(
+            f"a step at position {start} would leave a gap: the cache holds "
+            f"the contiguous positions 0..{filled - 1}")
+    cap = _capacity(cache)
+    if cap is not None and start + S > cap:
+        raise ValueError(
+            f"a step writing positions {start}..{start + S - 1} overflows "
+            f"the cache's {cap} slots")
+    if mamba and start > 0:
+        if start < filled:
+            raise ValueError(
+                f"a step at position {start} would roll back a Mamba state "
+                f"that has taken in positions 0..{filled - 1}; restart at 0")
+        if S > 1:
+            raise NotImplementedError(
+                "chunked prefill (start > 0 with S > 1 over a cache) has no "
+                "caller and is not ported: ROADMAP Queue 1 item 8")
 
 
 def lm_forward(params, cfg: ModelConfig, tokens: torch.Tensor,
@@ -208,14 +272,13 @@ def lm_forward(params, cfg: ModelConfig, tokens: torch.Tensor,
             "enc_out (encoder-decoder stacks) is not ported yet: ROADMAP "
             "Queue 1 item 8")
     B, S = tokens.shape
-    if cache is not None and start > cache["filled"]:
-        raise ValueError(
-            f"a step at position {start} would leave a gap: the cache holds "
-            f"the contiguous positions 0..{cache['filled'] - 1}")
-    if cache is not None and start + S > _capacity(cache):
-        raise ValueError(
-            f"a step writing positions {start}..{start + S - 1} overflows "
-            f"the cache's {_capacity(cache)} slots")
+    mamba = []
+    if cache is not None:
+        mamba = _mamba_states(cache)
+        _check_step(cache, start, S, bool(mamba))
+        if start == 0:              # a restart: the state takes in 0..S-1
+            for t in mamba:
+                t.zero_()
     x = embed(params["embed"], tokens)
 
     # host zeros until a MoE layer adds a tensor
@@ -251,7 +314,8 @@ def lm_forward(params, cfg: ModelConfig, tokens: torch.Tensor,
     else:
         logits = unembed(params["unembed"], x, cfg)
     if cache is not None:
-        cache["filled"] = max(cache["filled"], start + S)
+        cache["filled"] = (start + S if mamba
+                           else max(cache["filled"], start + S))
     metrics = {k: v if isinstance(v, torch.Tensor) else torch.zeros(
         (), dtype=torch.float32, device=logits.device)
         for k, v in (("aux_loss", aux), ("dropped", dropped))}

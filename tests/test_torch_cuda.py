@@ -614,6 +614,48 @@ def test_moe_model_prefill_and_decode_on_the_card(cuda):
         assert (x - y).abs().max() <= 1e-4 * y.abs().max()
 
 
+@pytest.mark.cuda
+def test_mamba_model_prefill_and_decode_on_the_card(cuda):
+    """mamba2-1.3b at smoke scale in bf16 (2 Mamba layers, no FFN): a
+    prefill launches ``ssd_scan`` once per layer and a decode step never
+    (the single-token update is plain PyTorch), and the card's logits
+    lie within the scan's bf16 tolerance, normwise (2e-2 of max|host|),
+    of the host's run of the same weights through the plain version."""
+    import copy
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.models.model import Model
+    cfg = get_config("mamba2-1.3b").smoke()
+    model = Model(cfg)
+    host = model.init(0, device="cpu")
+    card = copy.deepcopy(host).to(cuda)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (2, 40)).astype(np.int32))
+    prefill, decode = make_prefill_step(model), make_decode_step(model)
+
+    def serve(params, device):
+        cache = model.init_cache(2, 48, device=device)
+        ops.reset_launches()
+        outs = [prefill(params, cache, {"tokens": toks.to(device)})[0]]
+        counts = [ops.launches().get("ssd_scan", 0)]
+        for step in range(3):
+            ops.reset_launches()
+            out, cache = decode(params, cache,
+                                toks[:, step:step + 1].to(device), 40 + step)
+            counts.append(ops.launches().get("ssd_scan", 0))
+            outs.append(out)
+        assert cache["filled"] == 43
+        return [o.float().cpu() for o in outs], counts
+
+    on_card, counts = serve(card, cuda)
+    assert counts == [cfg.n_layers, 0, 0, 0]
+    on_host, host_counts = serve(host, "cpu")
+    assert host_counts == [0] * 4
+    for a, b in zip(on_card, on_host):
+        assert torch.isfinite(a).all()
+        assert (a - b).abs().max() <= 2e-2 * b.abs().max()
+
+
 def _serving_runtime(device, cfg, controller=None):
     from repro_torch.core import EngineConfig, MorpheusRuntime, SketchConfig
     from repro_torch.serving import build_params, build_tables, \

@@ -4,9 +4,12 @@ at ``smoke()`` scale, with the reference's weights carried across by
 softcap, GQA, one whole layer), ``Model.forward``, and ``prefill``
 followed by three ``decode_step``s, for gemma2-9b (window 32, both
 softcaps, post-norms, GeGLU, tied embeddings), llama3-8b, deepseek-7b,
-starcoder2-3b (ungated GELU MLP, tied embeddings) and phi3.5-MoE (every
+starcoder2-3b (ungated GELU MLP, tied embeddings), phi3.5-MoE (every
 layer a MoE FFN, 4 experts top-2 at smoke scale; ``test_torch_moe.py``
-holds its FFN and metrics).
+holds its FFN and metrics), mamba2-1.3b (Mamba2 layers alone, no FFN)
+and jamba (a period of 8: attention at position 2, Mamba elsewhere, a
+MoE FFN on the odd positions and a dense one on the even); then the
+step rules of a cache with Mamba layers (``models/transformer.py``).
 
 Tolerances:
 
@@ -29,6 +32,24 @@ Tolerances:
   ``max|port - ref_bf16| <= BF16_REL * max|ref_bf16 - ref_f32|`` with
   ``BF16_REL`` = 1 (measured 0.04-0.85 over logits and caches on the
   CPU).
+- Mamba stacks.  In f32, jamba's 16 layers re-read 14 bf16 conv states
+  and 2 bf16 kv caches at every decode step, and a last-bit difference
+  that lands a stored value on the other side of a bf16 rounding
+  boundary moves it by one bf16 step, up to 2^-7 of the tensor's max
+  (measured 2.1e-3 on a k cache and 4.7e-3 on a conv state, past
+  ``F32_CACHE_TOL``); so jamba's f32 case stores its caches in f32, in
+  both frameworks (``F32_CACHED``), and is held at ``F32_TOL``.  In
+  bf16 the two frameworks round in other places (one bf16 step apart on
+  a layer's output, which at a decode step of two rows is more than the
+  reference's own bf16-vs-f32 distance), and jamba is chaotic besides:
+  the reference's own bf16 routing parts from its f32 routing at 6-8 %
+  of (token, layer) pairs, the port's at 8-9 %.  So a Mamba stack's bf16
+  result is held against the f32 truth instead:
+  ``max|port - ref_f32| <= BF16_F32_REL * max|ref_bf16 - ref_f32|``, 2
+  for mamba2 (two bf16 roundings of one function; measured 0.65-1.5)
+  and 3 for jamba (measured 0.70-2.42, the largest on the last Mamba
+  layer's state), and jamba's routing parts from the f32 routing at no
+  more than twice the reference's own share.
 
 MoE routing (phi3.5-MoE).  A token whose k-th and (k+1)-th router
 logits nearly tie routes by a coin flip of bf16 rounding: one bf16 step
@@ -42,8 +63,9 @@ is *flipped* when the port's bf16, the reference's bf16 and the
 reference's f32 runs do not all pick the same expert set, at most
 ``FLIP_MAX`` of them may flip (a wrong router would flip most), and the
 bf16 rule is held on the rows no flip reaches: a flip at (b, p, layer l)
-reaches row (b, p) and, through attention, every later row of sequence
-b when l is not the last layer.
+reaches row (b, p) and, through attention or a Mamba state, every later
+row of sequence b when l is not the last layer (jamba's MoE calls sit on
+its odd layers: ``_moe_layers`` maps a call to its layer).
 """
 import jax
 import jax.numpy as jnp
@@ -68,9 +90,14 @@ from repro_torch.models.model import Model, params_from_numpy
 from repro_torch.models.params import index_tree, param_count
 
 ARCHS = ["gemma2-9b", "llama3-8b", "deepseek-7b", "starcoder2-3b",
-         "phi3.5-moe-42b-a6.6b"]
+         "phi3.5-moe-42b-a6.6b", "mamba2-1.3b", "jamba-v0.1-52b"]
+MAMBA_ARCHS = ["mamba2-1.3b", "jamba-v0.1-52b"]
 F32_TOL, F32_CACHE_TOL, BF16_REL = 1e-4, 2e-3, 1.0
 FLIP_MAX = 0.05        # share of (token, layer) pairs whose routing flips
+# Mamba stacks in bf16: held against the reference's f32 result (module
+# docstring), at this factor of the reference's own bf16 distance from it
+BF16_F32_REL = {"mamba2-1.3b": 2.0, "jamba-v0.1-52b": 3.0}
+F32_CACHED = {"jamba-v0.1-52b"}         # f32 case run with an f32 cache
 S_PROMPT, N_DECODE, CAP = 40, 3, 48     # prompt longer than gemma2's window
 
 
@@ -99,6 +126,30 @@ def _close_bf16(out, ref, ref_f32, what="", rows=None):
     assert err <= BF16_REL * noise, (
         f"{what}: max err {err} > {BF16_REL} x the reference's own bf16 "
         f"noise {noise}")
+
+
+def _close_to_f32(arch, out, ref, ref_f32, what=""):
+    """The bf16 rule of a Mamba stack (module docstring): the port's bf16
+    result lies no farther from the reference's f32 one than
+    ``BF16_F32_REL[arch]`` times the reference's own bf16 result."""
+    out, ref, ref_f32 = _np(out), _np(ref), _np(ref_f32)
+    assert out.shape == ref.shape and np.isfinite(out).all(), what
+    err, noise = np.abs(out - ref_f32).max(), np.abs(ref - ref_f32).max()
+    rel = BF16_F32_REL[arch]
+    assert err <= rel * noise, (
+        f"{what}: max |port - reference f32| {err} > {rel} x the "
+        f"reference's own bf16 distance {noise}")
+
+
+def _hold_flips_to_f32(ref32, ref, port, what=""):
+    """The port's bf16 routing parts from the reference's f32 routing at
+    no more than twice the share of (token, layer) pairs at which the
+    reference's own bf16 routing does."""
+    own = np.concatenate(_Routes.flips(ref32, ref)).mean()
+    got = np.concatenate(_Routes.flips(ref32, port)).mean()
+    assert got <= 2 * own, (
+        f"{what}: the port's bf16 routing parts from the f32 one at {got} "
+        f"of (token, layer) pairs, the reference's own bf16 at {own}")
 
 
 class _Routes:
@@ -136,6 +187,18 @@ class _Routes:
             for f, a, b in zip(out, sets(run), sets(base), strict=True):
                 f |= (a != b).any(-1)
         return out
+
+
+def _layer(cfg, period: int, pos: int) -> int:
+    """The transformer layer of pattern position ``pos`` in ``period``."""
+    return cfg.first_k_dense + period * len(cfg.pattern) + pos
+
+
+def _moe_layers(cfg):
+    """The transformer layer of each MoE layer call of one step, in call
+    order."""
+    return [_layer(cfg, i, pos) for i in range(cfg.n_periods)
+            for pos, spec in enumerate(cfg.pattern) if spec.ffn == "moe"]
 
 
 def _reached(flips, n_layers, B, P):
@@ -287,20 +350,42 @@ def test_forward_matches_reference(arch, f32, monkeypatch):
     ref32 = fwd(_f32(jp), toks)[0]
     routes.done()
     rows = None
+    if arch in BF16_F32_REL:
+        if tm.cfg.moe is not None:
+            L = len(routes.port)
+            _hold_flips_to_f32(routes.ref[L:], routes.ref[:L], routes.port,
+                               arch)
+        _close_to_f32(arch, out, ref, ref32, f"{arch} forward")
+        return
     if tm.cfg.moe is not None:
         L = len(routes.port)
         flips = _Routes.flips(routes.ref[L:], routes.ref[:L], routes.port)
         assert np.mean(flips) <= FLIP_MAX, f"{arch}: routing flips {flips}"
-        rows = ~_reached([(l, f.reshape(2, S_PROMPT))
-                          for l, f in enumerate(flips)], L, 2, S_PROMPT)
+        rows = ~_reached([(l, f.reshape(2, S_PROMPT)) for l, f in
+                          zip(_moe_layers(tm.cfg), flips, strict=True)],
+                         tm.cfg.n_layers, 2, S_PROMPT)
     _close_bf16(out, ref, ref32, f"{arch} forward", rows)
 
 
-def _ref_serve(jm, jp, toks, greedy=None):
+def _f32_cache(cache):
+    """A cache tree with its bf16 leaves in f32 (the reference's or the
+    port's)."""
+    if isinstance(cache, dict):
+        return {k: _f32_cache(v) for k, v in cache.items()}
+    if isinstance(cache, torch.Tensor):
+        return cache.float() if cache.dtype == torch.bfloat16 else cache
+    if hasattr(cache, "dtype") and cache.dtype == jnp.bfloat16:
+        return cache.astype(jnp.float32)
+    return cache
+
+
+def _ref_serve(jm, jp, toks, greedy=None, f32_cache=False):
     """The reference's prefill and N_DECODE decode steps: the logits of
     each and the final cache, as numpy.  The decode tokens are ``greedy``
     (B, N_DECODE) or the run's own argmax."""
     cache = unzip(jm.init_cache(2, CAP))[0]
+    if f32_cache:
+        cache = _f32_cache(cache)
     logits, cache = jax.jit(jm.prefill)(jp, cache,
                                         {"tokens": jnp.asarray(toks)})
     outs, fed = [_np(logits)], []
@@ -324,10 +409,13 @@ def test_prefill_then_decode_matches_reference(arch, f32, monkeypatch):
     jm, jp, tm, tp = _reference(arch, f32)
     routes = _Routes(monkeypatch)
     toks = _tokens(jm.cfg, 2, S_PROMPT)
-    ref, jc, fed = _ref_serve(jm, jp, toks)
+    f32_cache = f32 and arch in F32_CACHED
+    ref, jc, fed = _ref_serve(jm, jp, toks, f32_cache=f32_cache)
     if not f32:
         ref32, jc32, _ = _ref_serve(jm, _f32(jp), toks, greedy=fed)
     tc = tm.init_cache(2, CAP, device="cpu")
+    if f32_cache:
+        tc = _f32_cache(tc)
     prefill, decode = make_prefill_step(tm), make_decode_step(tm)
     outs = [prefill(tp, tc, {"tokens": torch.from_numpy(toks)})[0]]
     for step in range(N_DECODE):
@@ -339,17 +427,25 @@ def test_prefill_then_decode_matches_reference(arch, f32, monkeypatch):
     pairs = [(f"logits of step {i}", outs[i], ref[i], i)
              for i in range(N_DECODE + 1)]
     for key, jblk in jc["blocks"].items():
-        tblk = tc["blocks"][key]["kv"]
-        assert np.array_equal(tblk["pos"].numpy(), jblk["kv"]["pos"])
-        pairs += [(f"cache {key} {n}", tblk[n], jblk["kv"][n], (key, n))
-                  for n in ("k", "v")]
+        kind = "kv" if "kv" in jblk else "mamba"
+        tblk = tc["blocks"][key][kind]
+        if kind == "kv":
+            assert np.array_equal(tblk["pos"].numpy(), jblk["kv"]["pos"])
+        pairs += [(f"cache {key} {n}", tblk[n], jblk[kind][n], (key, kind, n))
+                  for n in (("k", "v") if kind == "kv" else ("conv", "ssm"))]
     reached = None
     routes.done()
     if tm.cfg.moe is not None:
-        L = len(routes.port) // (N_DECODE + 1)
+        moe_layers = _moe_layers(tm.cfg)
+        L = len(moe_layers)
+        assert len(routes.port) == L * (N_DECODE + 1)
         if f32:
             for r, t in zip(routes.ref, routes.port, strict=True):
                 assert np.array_equal(t, np.asarray(r)), f"{arch} routing"
+        elif arch in BF16_F32_REL:
+            n = len(routes.port)
+            _hold_flips_to_f32(routes.ref[n:], routes.ref[:n], routes.port,
+                               arch)
         else:
             n = len(routes.port)
             flips = _Routes.flips(routes.ref[n:], routes.ref[:n],
@@ -359,36 +455,45 @@ def test_prefill_then_decode_matches_reference(arch, f32, monkeypatch):
             P = S_PROMPT + N_DECODE
             per_layer = []
             for c, f in enumerate(flips):
-                step, layer = divmod(c, L)
+                step, call = divmod(c, L)
                 m = np.zeros((2, P), bool)
                 if step == 0:
                     m[:, :S_PROMPT] = f.reshape(2, S_PROMPT)
                 else:
                     m[:, S_PROMPT + step - 1] = f
-                per_layer.append((layer, m))
-            reached = _reached(per_layer, L, 2, P)
+                per_layer.append((moe_layers[call], m))
+            reached = _reached(per_layer, tm.cfg.n_layers, 2, P)
     for what, out, r, tag in pairs:
         if f32:
-            _close(out, r, F32_CACHE_TOL, f"{arch} {what}")
+            _close(out, r, F32_TOL if f32_cache else F32_CACHE_TOL,
+                   f"{arch} {what}")
         else:
             r32 = (ref32[tag] if isinstance(tag, int)
-                   else jc32["blocks"][tag[0]]["kv"][tag[1]])
+                   else jc32["blocks"][tag[0]][tag[1]][tag[2]])
+            if arch in BF16_F32_REL:
+                _close_to_f32(arch, out, r, r32, f"{arch} {what}")
+                continue
             rows = None
             if reached is not None and isinstance(tag, int):
                 # step 0 is the prompt's rows, step i the token at 39 + i
                 rows = ~(reached[:, :S_PROMPT] if tag == 0 else
                          reached[:, S_PROMPT + tag - 1:S_PROMPT + tag])
             elif reached is not None:
-                # a stacked cache (n_periods, B, CAP, ...): layer l's slot
-                # p is reached by a flip at an earlier layer at p' <= p
-                period = len(tm.cfg.pattern)
+                # a stacked cache (n_periods, B, ...) of layers l: the
+                # flips at earlier layers, (B, P)
                 pos = int(tag[0][3:])
-                rows = np.stack([~np.pad(np.cumsum(sum(
-                    (m for layer, m in per_layer
-                     if layer < i * period + pos), np.zeros((2, P))),
-                    axis=1) > 0,
-                    ((0, 0), (0, CAP - P)))
-                    for i in range(tm.cfg.n_periods)])
+                before = [sum((m for layer, m in per_layer
+                               if layer < _layer(tm.cfg, i, pos)),
+                              np.zeros((2, P))) > 0
+                          for i in range(tm.cfg.n_periods)]
+                if tag[1] == "kv":
+                    # slot p is reached by a flip at p' <= p
+                    rows = np.stack([~np.pad(
+                        np.cumsum(b, axis=1) > 0, ((0, 0), (0, CAP - P)))
+                        for b in before])
+                else:
+                    # a Mamba state has taken in every position
+                    rows = np.stack([~b.any(1) for b in before])
             _close_bf16(out, r, r32, f"{arch} {what}", rows)
 
 
@@ -424,10 +529,154 @@ def test_decode_step_raises_on_a_full_cache_and_writes_nothing():
             assert torch.equal(blk["kv"][n], before[key][n]), (key, n)
 
 
+# ---------------------------------------------------------------------------
+# the step rules of a cache with Mamba layers
+# ---------------------------------------------------------------------------
+
+def _port_model(arch):
+    """The port's smoke model with its own f32 params from seed 0."""
+    tm = Model(get_config(arch).smoke())
+    return tm, tm.init(0, device="cpu").float()
+
+
+def _cache_tensors(cache):
+    return {(key, kind, n): t.clone()
+            for key, blk in cache["blocks"].items()
+            for kind, leaves in blk.items() for n, t in leaves.items()}
+
+
+def test_a_mamba_stack_has_no_capacity_and_raises_on_a_gap():
+    tm, tp = _port_model("mamba2-1.3b")
+    toks = torch.from_numpy(_tokens(tm.cfg, 1, 12))
+    cache = tm.init_cache(1, 4, device="cpu")       # cap is never read
+    _, cache = tm.prefill(tp, cache, {"tokens": toks[:, :8]})
+    for p in range(8, 11):
+        tm.decode_step(tp, cache, toks[:, p:p + 1], p)
+    assert cache["filled"] == 11
+    with pytest.raises(ValueError, match="gap"):
+        tm.decode_step(tp, cache, toks[:, 11:12], 12)
+
+
+@pytest.mark.parametrize("arch", MAMBA_ARCHS)
+def test_a_mamba_stack_refuses_to_roll_back_and_writes_nothing(arch):
+    """Its state has absorbed every token: a step at 0 < start < filled
+    raises before any write, as does a chunked prefill (start > 0,
+    S > 1), which the reference would restart silently from zero."""
+    tm, tp = _port_model(arch)
+    toks = torch.from_numpy(_tokens(tm.cfg, 1, 16))
+    cache = tm.init_cache(1, 24, device="cpu")
+    _, cache = tm.prefill(tp, cache, {"tokens": toks[:, :10]})
+    tm.decode_step(tp, cache, toks[:, 10:11], 10)
+    before = _cache_tensors(cache)
+    with pytest.raises(ValueError, match="roll back"):
+        tm.decode_step(tp, cache, toks[:, 5:6], 5)
+    with pytest.raises(ValueError, match="roll back"):
+        TT.lm_forward(tp, tm.cfg, toks[:, 3:6], 3, cache=cache)
+    with pytest.raises(NotImplementedError, match="chunked prefill"):
+        TT.lm_forward(tp, tm.cfg, toks[:, 11:14], 11, cache=cache)
+    assert cache["filled"] == 11
+    after = _cache_tensors(cache)
+    assert all(torch.equal(before[k], after[k]) for k in before), arch
+
+
+@pytest.mark.parametrize("S", [1, 6])
+@pytest.mark.parametrize("arch", MAMBA_ARCHS)
+def test_a_step_at_zero_restarts_a_used_cache(arch, S):
+    """A step at start 0 on a used cache equals the same step on a fresh
+    one: the logits, ``filled`` and every Mamba state bit for bit (S 1 is
+    a one-token decode step over a zeroed state)."""
+    tm, tp = _port_model(arch)
+    toks = torch.from_numpy(_tokens(tm.cfg, 1, 12))
+    new = torch.from_numpy(_tokens(tm.cfg, 1, S, seed=1))
+    used = tm.init_cache(1, 24, device="cpu")
+    _, used = tm.prefill(tp, used, {"tokens": toks[:, :10]})
+    tm.decode_step(tp, used, toks[:, 10:11], 10)
+    fresh = tm.init_cache(1, 24, device="cpu")
+    a, used = TT.lm_forward(tp, tm.cfg, new, 0, cache=used)[:2]
+    b, fresh = TT.lm_forward(tp, tm.cfg, new, 0, cache=fresh)[:2]
+    assert torch.equal(a, b)
+    assert used["filled"] == fresh["filled"] == S
+    ua, fa = _cache_tensors(used), _cache_tensors(fresh)
+    for (key, kind, n), t in fa.items():
+        u = ua[key, kind, n]
+        if kind == "kv":             # the slots past S hold the old run's
+            cut = (slice(None),) * (1 if n == "pos" else 2) + (slice(S),)
+            t, u = t[cut], u[cut]
+        assert torch.equal(t, u), (key, kind, n)
+
+
+def test_the_reference_one_token_step_at_zero_continues_a_used_state():
+    """The divergence pinned in ROADMAP Queue 3: the reference's one-token
+    step at position 0 over a used cache reads the state left there (its
+    logits differ from a fresh cache's), while the port's restarts (equal
+    to a fresh cache's, and to the reference's fresh one within
+    ``F32_CACHE_TOL``)."""
+    jm, jp, tm, tp = _reference("mamba2-1.3b", f32=True)
+    toks = _tokens(jm.cfg, 1, 11)
+    dec = jax.jit(jm.decode_step)
+    used = unzip(jm.init_cache(1, 24))[0]
+    _, used = jax.jit(jm.prefill)(jp, used, {"tokens": jnp.asarray(toks)})
+    ref_used, _ = dec(jp, used, jnp.asarray(toks[:, :1]), jnp.int32(0))
+    ref_fresh, _ = dec(jp, unzip(jm.init_cache(1, 24))[0],
+                       jnp.asarray(toks[:, :1]), jnp.int32(0))
+    assert np.abs(_np(ref_used) - _np(ref_fresh)).max() > 1e-2
+    cache = tm.init_cache(1, 24, device="cpu")
+    _, cache = tm.prefill(tp, cache, {"tokens": torch.from_numpy(toks)})
+    out, _ = tm.decode_step(tp, cache, torch.from_numpy(toks[:, :1]), 0)
+    fresh, _ = tm.decode_step(tp, tm.init_cache(1, 24, device="cpu"),
+                              torch.from_numpy(toks[:, :1]), 0)
+    assert torch.equal(out, fresh)
+    _close(out, ref_fresh, F32_CACHE_TOL, "one-token step at 0")
+
+
+def test_a_short_prompt_leaves_a_full_conv_state():
+    """A 2-token prefill (fewer than conv_width - 1 = 3) leaves the conv
+    state left-padded with the zeros the causal conv saw, so a decode
+    step after it equals three one-token steps from an empty cache (f32
+    params and caches, ``F32_TOL``).  The
+    reference keeps one row there, and its next decode step raises
+    (ROADMAP Queue 3)."""
+    jm, jp, tm, tp = _reference("mamba2-1.3b", f32=True)
+    toks = _tokens(tm.cfg, 2, 3)
+    t = torch.from_numpy(toks)
+    # f32 caches: the two paths round nothing to bf16 in between
+    a = _f32_cache(tm.init_cache(2, 8, device="cpu"))
+    _, a = tm.prefill(tp, a, {"tokens": t[:, :2]})
+    conv = a["blocks"]["pos0"]["mamba"]["conv"]
+    assert conv.shape[2] == tm.cfg.ssm.conv_width - 1
+    assert not conv[:, :, 0].any() and conv[:, :, 1:].any()
+    out_a, a = tm.decode_step(tp, a, t[:, 2:3], 2)
+    b = _f32_cache(tm.init_cache(2, 8, device="cpu"))
+    for p in range(3):
+        out_b, b = tm.decode_step(tp, b, t[:, p:p + 1], p)
+    _close(out_a, out_b, F32_TOL, "decode after a 2-token prefill")
+    for k, u in _cache_tensors(a).items():
+        _close(u, _cache_tensors(b)[k], F32_TOL, f"cache {k}")
+    jc = unzip(jm.init_cache(2, 8))[0]
+    _, jc = jax.jit(jm.prefill)(jp, jc, {"tokens": jnp.asarray(toks[:, :2])})
+    assert jc["blocks"]["pos0"]["mamba"]["conv"].shape[2] == 1
+    with pytest.raises(ValueError):
+        jm.decode_step(jp, jc, jnp.asarray(toks[:, 2:3]), jnp.int32(2))
+
+
+def test_params_from_numpy_carries_f32_mamba_leaves_of_a_bf16_tree():
+    """The reference's bf16 tree keeps ``A_log``, ``D``, ``dt_bias`` and
+    ``norm_scale`` in f32: they cross in f32 and exactly, the bf16 leaves
+    in bf16."""
+    _, jp, _, tp = _reference("jamba-v0.1-52b", f32=False)
+    for key, jblk in jp["blocks"].items():
+        for name, j in jblk.get("mamba", {}).items():
+            t, j = tp["blocks"][key]["mamba"][name], np.asarray(j)
+            f32_leaf = name in ("A_log", "D", "dt_bias", "norm_scale")
+            assert (j.dtype == np.float32) == f32_leaf, (key, name)
+            assert t.dtype == (torch.float32 if f32_leaf
+                               else torch.bfloat16), (key, name)
+            assert np.array_equal(t.float().numpy(), j.astype(np.float32))
+
+
 def test_unported_branches_raise():
-    for arch in ("mamba2-1.3b", "jamba-v0.1-52b", "deepseek-v2-236b"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            Model(get_config(arch).smoke()).init(0, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        Model(get_config("deepseek-v2-236b").smoke()).init(0, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Model(get_config("seamless-m4t-medium").smoke())
     pix = Model(get_config("pixtral-12b").smoke())
@@ -447,7 +696,9 @@ def test_unported_branches_raise():
 # tests/test_arch_smoke.py:84-95
 EXPECTED_PARAMS = {"gemma2-9b": (9e9, 0.25), "deepseek-7b": (7e9, 0.25),
                    "llama3-8b": (8e9, 0.25), "starcoder2-3b": (3e9, 0.35),
-                   "phi3.5-moe-42b-a6.6b": (42e9, 0.25)}
+                   "phi3.5-moe-42b-a6.6b": (42e9, 0.25),
+                   "mamba2-1.3b": (1.3e9, 0.25),
+                   "jamba-v0.1-52b": (52e9, 0.25)}
 
 
 @pytest.mark.parametrize("arch", ARCHS)
