@@ -141,6 +141,21 @@
    on its layer 0's own bf16 inputs (strided views of the conv output)
    against its plain version (``SSD_TOL``'s bf16 and state entries),
    timed, by pass and against its bound.
+10. MLA model phase: deepseek-v2-236b
+   (``src/repro/configs/deepseek_v2_236b.py``) at every published
+   width, cut to 8 of its 60 layers (the dense prefix layer and 7 MoE
+   layers of 160 experts top-6 and 2 shared; 55.6 GiB of bf16 params),
+   after mamba2's are released, the same way: 2 x 4096 random tokens and
+   32 greedy decode steps, twice.  MLA attends in plain PyTorch, the
+   naive form at prefill and the absorbed form at decode, so it fails
+   unless ``flash_attention`` and ``ssd_scan`` never launched; and, as
+   phase 8, unless the logits are finite, the two runs are equal bit for
+   bit, the expert counts sum right and every layer of the decode path,
+   the prefix layer included, gives the prefill's output within
+   ``LAYER_TOL`` where it routes as the prefill did.  It prints the
+   cache's size, prefill ms, decode ms/token, host syncs per decode step
+   (one per MoE layer), a profile by kernel class with ``mla_forward``'s
+   share of the device time, and the peak memory.
 
 In every model phase the kernels JSON counts ``flash_attention``'s and
 ``ssd_scan``'s launches over the two served runs alone (counts zeroed
@@ -281,9 +296,10 @@ def profile_steps(torch, label: str, step, batches,
         wall_us = (time.perf_counter() - t) * 1e6
     dev = lambda e: getattr(e, "self_device_time_total", 0)
     # the kernels themselves (the ops that launched them carry the same
-    # device time again)
+    # device time again, as does a span's range on the device timeline)
+    on_device = lambda e: str(e.device_type).endswith("CUDA")
     events = [e for e in prof.key_averages()
-              if str(e.device_type).endswith("CUDA") and dev(e) > 0]
+              if on_device(e) and dev(e) > 0 and e.key not in SPANS]
     busy = sum(dev(e) for e in events)
     if not events:
         print(f"[profile] {label}: no device time in the trace "
@@ -302,6 +318,13 @@ def profile_steps(torch, label: str, step, batches,
         by_class[cls] = by_class.get(cls, 0) + dev(e)
     print(f"[profile]   by class, us/step: " + ", ".join(
         f"{c} {v / n:.1f} ({v / busy:.1%})" for c, v in by_class.items()))
+    # a span's host-side range: the device time of the kernels it launched
+    spans = [e for e in prof.key_averages()
+             if e.key in SPANS and not on_device(e)]
+    for e in spans:
+        t = getattr(e, "device_time_total", 0)
+        print(f"[profile]   span {e.key}: {t / n:.1f} us/step of device "
+              f"time ({t / busy:.1%}), {e.count / n:.0f} calls/step")
     if gemm_dim is not None:
         mm = [e for e in prof.key_averages(group_by_input_shape=True)
               if e.key in ("aten::mm", "aten::addmm", "aten::bmm")]
@@ -311,6 +334,36 @@ def profile_steps(torch, label: str, step, batches,
         print(f"[profile]   GEMMs by operand: expert (a dimension "
               f"{gemm_dim}) {expert / n:.1f} us/step, attention "
               f"projections, router and unembedding {rest / n:.1f} us/step")
+
+
+# the functions ``span`` wraps in a profiler range; profile_steps
+# reports the device time of the kernels each range launched
+SPANS = ("mla_forward",)
+
+
+@contextlib.contextmanager
+def span(torch, module, name: str):
+    """While open, ``module.<name>`` runs inside a profiler range of its
+    name."""
+    real = getattr(module, name)
+
+    def wrapped(*a, **kw):
+        with torch.profiler.record_function(name):
+            return real(*a, **kw)
+    setattr(module, name, wrapped)
+    try:
+        yield
+    finally:
+        setattr(module, name, real)
+
+
+def tree_bytes(torch, tree) -> int:
+    """Bytes of every tensor in a nested dict."""
+    if isinstance(tree, dict):
+        return sum(tree_bytes(torch, v) for v in tree.values())
+    if isinstance(tree, torch.Tensor):
+        return tree.numel() * tree.element_size()
+    return 0
 
 
 def host_syncs(torch, step, batches) -> float:
@@ -1539,6 +1592,16 @@ MOE_MODEL = dict(tag="moe-model", arch="phi3.5-moe-42b-a6.6b", batch=2,
 # with a ragged last; decode steps take the plain single-token update
 SSM_MODEL = dict(tag="ssm-model", arch="mamba2-1.3b", batch=4, prompt=4096,
                  decode=32, seed=0, layers=None, per_layer=True)
+# deepseek-v2-236b at every published width (d_model 5120, 128 heads, MLA
+# kv_lora 512, q.k 128 + 64, v 128; 160 experts top-6 x 1536 + 2 shared;
+# vocab 102400), cut to 8 of its 60 layers: the dense prefix layer (d_ff
+# 12288) and 7 MoE layers, 29.83 B params, 55.6 GiB in bf16 (whole,
+# ~240 B params are ~448 GiB).  MLA attends in plain PyTorch (the
+# reference's blocked jnp loop: the naive form at prefill, the absorbed
+# form at decode), so no kernel launches on this path.  Random weights,
+# so it is held per layer as phi3.5-MoE is.
+MLA_MODEL = dict(tag="mla-model", arch="deepseek-v2-236b", batch=2,
+                 prompt=4096, decode=32, seed=0, layers=8, per_layer=True)
 # phi3.5-MoE from random weights is chaotic in depth: a difference in
 # the last bits grows many times over in every layer, in the reference as
 # in the port (tools/moe_depth_witness.py runs both on the CPU at these
@@ -1665,22 +1728,23 @@ def visible_pairs(Sq: int, Sk: int, causal: bool, window) -> int:
 
 
 def model_phase(torch, ops, spec):
-    """One model (``MODEL``, ``MOE_MODEL`` or ``SSM_MODEL``) at full width
-    through ``make_prefill_step`` / ``make_decode_step``: prefill B x S
-    tokens, then N greedy decode steps, twice (the main path), then
-    checks.  Every attention layer launches ``flash_attention`` once per
-    call; every Mamba layer launches ``ssd_scan`` once per prefill and
-    never at a decode step.  Returns the main path's own kernel inputs
-    (``flash_attention``'s for each pattern position's first layer at
-    prefill and at the last decode step, ``ssd_scan``'s for layer 0 at
-    the first prefill) and the kernels' launches, counted from 0 over the
-    two served runs alone."""
+    """One model (``MODEL``, ``MOE_MODEL``, ``SSM_MODEL`` or ``MLA_MODEL``)
+    at full width through ``make_prefill_step`` / ``make_decode_step``:
+    prefill B x S tokens, then N greedy decode steps, twice (the main
+    path), then checks.  Every GQA attention layer launches
+    ``flash_attention`` once per call, an MLA layer never (it attends in
+    plain PyTorch); every Mamba layer launches ``ssd_scan`` once per
+    prefill and never at a decode step.  Returns the main path's own
+    kernel inputs (``flash_attention``'s for each pattern position's
+    first layer at prefill and at the last decode step, ``ssd_scan``'s
+    for layer 0 at the first prefill) and the kernels' launches, counted
+    from 0 over the two served runs alone."""
     from repro_torch.configs import get_config
     from repro_torch.launch.steps import make_decode_step, make_prefill_step
     from repro_torch.models.model import Model
     from repro_torch.models import transformer as tf_mod
     from repro_torch.models.params import param_count
-    from repro_torch.models.transformer import lm_forward
+    from repro_torch.models.transformer import init_lm_cache, lm_forward
     from repro_torch.kernels import flash_attention as fa_mod
 
     tag = spec["tag"]
@@ -1696,8 +1760,9 @@ def model_phase(torch, ops, spec):
     # launches each call kind must make, by kernel
     n_attn = cfg.first_k_dense + cfg.n_periods * sum(
         s.kind == "attn" for s in cfg.pattern)
+    n_gqa = 0 if cfg.mla else n_attn
     n_mamba = cfg.n_layers - n_attn
-    want = {"flash_attention": (n_attn, n_attn),   # (prefill, decode step)
+    want = {"flash_attention": (n_gqa, n_gqa),     # (prefill, decode step)
             "ssd_scan": (n_mamba, 0)}
     model = Model(cfg)
     # shapes on the meta device first: the params must fit beside the
@@ -1721,10 +1786,18 @@ def model_phase(torch, ops, spec):
     torch.cuda.synchronize()
     ffn = (f"{moe.num_experts} experts top-{moe.top_k} x d_ff "
            f"{moe.expert_d_ff}" if moe else f"d_ff {cfg.d_ff}")
+    if moe is not None and moe.num_shared:
+        ffn += f" + {moe.num_shared} shared x {moe.shared_d_ff}"
     attn = (f"{n_attn} attention layers, {cfg.n_heads}/{cfg.n_kv_heads} "
             f"heads x {cfg.head_dim_}, window {cfg.pattern[0].window}, "
             f"softcaps {cfg.attn_logit_softcap}/{cfg.final_logit_softcap}"
-            if n_attn else "no attention layer")
+            if n_gqa else "no attention layer")
+    if cfg.mla:
+        m = cfg.mla
+        attn = (f"{n_attn} MLA attention layers, {cfg.n_heads} heads, "
+                f"kv_lora {m.kv_lora_rank}, q.k {m.qk_nope_dim} + "
+                f"{m.qk_rope_dim}, v {m.v_head_dim}, {cfg.first_k_dense} "
+                f"dense prefix layer(s) of d_ff {cfg.first_dense_d_ff}")
     ssm = cfg.ssm
     mamba = (f"{n_mamba} Mamba2 layers, "
              f"{ssm.expand * cfg.d_model // ssm.head_dim} SSD heads x P "
@@ -1736,6 +1809,8 @@ def model_phase(torch, ops, spec):
         f"{param_count(params) / 1e9:.3f} B params bf16 "
         f"({torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card) in "
         f"{time.perf_counter() - t0:.1f} s")
+    cache_bytes = tree_bytes(torch, init_lm_cache(cfg, B, S + N, "meta"))
+    say(f"cache of {S + N} slots: {cache_bytes / 2**20:.1f} MiB")
     gen = torch.Generator(device="cuda").manual_seed(spec["seed"])
     prompt = torch.randint(0, cfg.vocab, (B, S), generator=gen,
                            device="cuda", dtype=torch.int32)
@@ -1826,7 +1901,7 @@ def model_phase(torch, ops, spec):
     fa_mod.last_path = None
     ops.reset_launches()        # the main path: the two served runs
     pre1, dec1, fed1, calls1, t_pre, t_dec = serve(capture=True)
-    if n_attn:
+    if n_gqa:
         check(paths == {"prefill": "wgmma_prefill",
                         "decode": "split_k_decode"},
               f"flash_attention paths {paths}")
@@ -1936,10 +2011,13 @@ def model_phase(torch, ops, spec):
     dstep = lambda _: decode(params, cache, nxt, S + next(steps))
     syncs = host_syncs(torch, dstep, [None] * 4)
     gemm_dim = moe.expert_d_ff if moe is not None else None
-    profile_steps(torch, f"{cfg.name} decode", dstep, [None] * 4, gemm_dim)
-    profile_steps(torch, f"{cfg.name} prefill",
-                  lambda _: prefill(params, cache, {"tokens": prompt}),
-                  [None], gemm_dim)
+    with span(torch, tf_mod, "mla_forward") if cfg.mla else \
+            contextlib.nullcontext():
+        profile_steps(torch, f"{cfg.name} decode", dstep, [None] * 4,
+                      gemm_dim)
+        profile_steps(torch, f"{cfg.name} prefill",
+                      lambda _: prefill(params, cache, {"tokens": prompt}),
+                      [None], gemm_dim)
     if moe is not None:
         with torch.no_grad():
             _, cache, met = lm_forward(params, cfg, nxt, S + 8, cache=cache)
@@ -1964,55 +2042,63 @@ def teacher_forced(torch, say, cfg, params, cache, layers, routes, S):
     """Each layer of the decode path against the prefill path where no
     depth has amplified anything: for every layer l and decode position
     p = S + j, ``layer_forward`` on one token, fed the prefill's input
-    to layer l at row p, at start p.  An attention layer steps over the
-    prefill's cache of layer l (the step writes its own k, v at p, as a
-    decode does); a Mamba layer over its own state, made by a prefill of
-    layer l on the prefill's inputs at rows 0..S-1 and advanced by the
-    steps j = 0, 1, ... in turn.  Its output must lie within
+    to layer l at row p, at start p, the layers walked in
+    ``lm_forward``'s order (the dense prefix layers first, with their own
+    params and caches).  An attention layer steps over the prefill's
+    cache of layer l (the step writes its own k, v, or an MLA layer's
+    ``ckv`` and ``k_rope``, at p, as a decode does); a Mamba layer over
+    its own state, made by a prefill of layer l on the prefill's inputs
+    at rows 0..S-1 and advanced by the steps j = 0, 1, ... in turn.  Its output must lie within
     ``LAYER_TOL`` of the prefill's output at row p (normwise over the
     layer's decode rows) wherever the step routes as the prefill did; at
     most ``FLIP_MAX`` of the (MoE layer, token) pairs may route
     otherwise.  ``layers``: each layer call's (input, output), the input
     of a Mamba layer all rows, the rest rows S..; ``routes``: each MoE
     layer call's top-k ids."""
+    from repro_torch.models.config import LayerSpec
     from repro_torch.models.params import index_tree
     from repro_torch.models.transformer import init_layer_cache, \
         layer_forward
     B, N = layers[0][1].shape[:2]
     K = cfg.moe.top_k if cfg.moe is not None else 0
     srt = lambda t: t.sort(-1).values
-    errs, flips, n, m, picked = [], [], 0, 0, []
+    # the layers in lm_forward's order: the dense prefix, then the stacks
+    dense = LayerSpec(kind="attn", ffn="dense")
+    walk = [(params[f"prefix{i}"], cache[f"prefix{i}"], dense)
+            for i in range(cfg.first_k_dense)]
+    walk += [(index_tree(params["blocks"][f"pos{pos}"], i),
+              index_tree(cache["blocks"][f"pos{pos}"], i), spec)
+             for i in range(cfg.n_periods)
+             for pos, spec in enumerate(cfg.pattern)]
+    check(len(layers) == len(walk) == cfg.n_layers,
+          f"teacher-forced: {len(layers)} layer calls captured, "
+          f"{len(walk)} layers walked, {cfg.n_layers} in the config")
+    errs, flips, m, picked = [], [], 0, []
     with route_tap(picked), torch.no_grad():
-        for i in range(cfg.n_periods):
-            for pos, spec in enumerate(cfg.pattern):
-                lp = index_tree(params["blocks"][f"pos{pos}"], i)
-                x_in, x_out = layers[n]
-                n += 1
-                if spec.kind == "attn":
-                    lc = index_tree(cache["blocks"][f"pos{pos}"], i)
-                else:
-                    lc = init_layer_cache(cfg, spec, B, 0, x_in.device)
-                    layer_forward(lp, cfg, spec, x_in[:, :S], 0, lc,
-                                  aux_loss=False)
-                    x_in = x_in[:, S:]
-                ref_ids = None
-                if spec.ffn == "moe":
-                    ref_ids = routes[m].view(B, -1, K)[:, S:]
-                    m += 1
-                row_err, row_flip = [], []
-                for j in range(N):
-                    picked.clear()
-                    y, _, _ = layer_forward(
-                        lp, cfg, spec, x_in[:, j:j + 1], S + j, lc,
-                        aux_loss=False)
-                    row_err.append((y[:, 0] - x_out[:, j]).abs().amax(-1))
-                    row_flip.append(
-                        (srt(picked[-1]) != srt(ref_ids[:, j])).any(-1)
-                        if ref_ids is not None else
-                        torch.zeros(B, dtype=torch.bool, device=y.device))
-                errs.append(torch.stack(row_err, 1)
-                            / x_out.float().abs().max())    # (B, N)
-                flips.append(torch.stack(row_flip, 1))
+        for (lp, lc, spec), (x_in, x_out) in zip(walk, layers):
+            if spec.kind != "attn":
+                lc = init_layer_cache(cfg, spec, B, 0, x_in.device)
+                layer_forward(lp, cfg, spec, x_in[:, :S], 0, lc,
+                              aux_loss=False)
+                x_in = x_in[:, S:]
+            ref_ids = None
+            if spec.ffn == "moe":
+                ref_ids = routes[m].view(B, -1, K)[:, S:]
+                m += 1
+            row_err, row_flip = [], []
+            for j in range(N):
+                picked.clear()
+                y, _, _ = layer_forward(
+                    lp, cfg, spec, x_in[:, j:j + 1], S + j, lc,
+                    aux_loss=False)
+                row_err.append((y[:, 0] - x_out[:, j]).abs().amax(-1))
+                row_flip.append(
+                    (srt(picked[-1]) != srt(ref_ids[:, j])).any(-1)
+                    if ref_ids is not None else
+                    torch.zeros(B, dtype=torch.bool, device=y.device))
+            errs.append(torch.stack(row_err, 1)
+                        / x_out.float().abs().max())    # (B, N)
+            flips.append(torch.stack(row_flip, 1))
     err = torch.stack(errs).float()                 # (layers, B, N)
     flip = torch.stack(flips)
     kept = err[~flip]
@@ -2227,6 +2313,18 @@ def main() -> int:
                                tol="bf16", calls=5)
     err["ssd_scan"] = max(err["ssd_scan"], ssm_err)
     del captured, args, kw
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # deepseek-v2, after mamba2's params and inputs are gone: MLA attends
+    # in plain PyTorch, so the phase launches no kernel
+    t = time.perf_counter()
+    captured, served = model_phase(torch, ops, MLA_MODEL)
+    print(f"[mla-model] phase {time.perf_counter() - t:.1f} s")
+    check(not captured and served == {"flash_attention": 0, "ssd_scan": 0},
+          f"mla-model launches {served}")
+    launches["flash_attention"] += served["flash_attention"]
+    launches["ssd_scan"] += served["ssd_scan"]
     kernels = []
     for name, (src, replaces) in KERNELS.items():
         kernels.append(dict(name=name, route="cuda", source=src,

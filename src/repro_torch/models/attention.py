@@ -1,4 +1,4 @@
-"""Attention: GQA with sliding window and logit softcap.
+"""Attention: GQA (with sliding window and logit softcap) and MLA.
 
 Ported from ``repro.models.attention`` for one device (``mesh=None``).
 :func:`attend_blocked` is the plain blocked online-softmax attention with
@@ -30,8 +30,13 @@ The cache is written **in place** (the reference returns an updated
 copy; at gemma2-9b's size a copy is 1.4 GB a decode step), and the
 returned cache holds the same tensors.
 
-MLA (deepseek-v2), cross-attention (``kv_const``) and the
-sequence-parallel decode of a mesh are not ported yet: they raise.
+MLA (deepseek-v2, :func:`mla_forward`) is the reference's blocked
+online-softmax loop in plain PyTorch, as the reference computes it in
+jnp (no Pallas kernel, and ``flash_attention`` takes one head dim where
+MLA's q.k is 192 wide and v 128): the naive form at S > 1, the absorbed
+form at S == 1, over the compressed cache written in place.
+Cross-attention (``kv_const``) and the sequence-parallel decode of a
+mesh are not ported yet: they raise or have no branch.
 """
 from __future__ import annotations
 
@@ -42,7 +47,7 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels import ops
-from .config import ModelConfig
+from .config import MLAConfig, ModelConfig
 from .layers import apply_rope, dot_f32
 from .params import Initializer
 
@@ -60,6 +65,25 @@ def init_attention(ini: Initializer, cfg: ModelConfig):
         "wk": ini.normal((d, hkv, hd)),
         "wv": ini.normal((d, hkv, hd)),
         "wo": ini.normal((h, hd, d), fan_in=h * hd),
+    }
+
+
+def init_mla_attention(ini: Initializer, cfg: ModelConfig):
+    """The reference's MLA leaves: ``wq`` (d, H, nope + rope), the
+    down-projections ``w_dkv`` (d, r) and ``w_krope`` (d, rope), the
+    up-projections ``w_uk`` / ``w_uv`` (r, H, nope / v) and ``wo``."""
+    m: MLAConfig = cfg.mla
+    d, h = cfg.d_model, cfg.n_heads
+    qk = m.qk_nope_dim + m.qk_rope_dim
+    return {
+        "wq": ini.normal((d, h, qk)),
+        "w_dkv": ini.normal((d, m.kv_lora_rank)),
+        "w_krope": ini.normal((d, m.qk_rope_dim)),
+        "w_uk": ini.normal((m.kv_lora_rank, h, m.qk_nope_dim),
+                           fan_in=m.kv_lora_rank),
+        "w_uv": ini.normal((m.kv_lora_rank, h, m.v_head_dim),
+                           fan_in=m.kv_lora_rank),
+        "wo": ini.normal((h, m.v_head_dim, d), fan_in=h * m.v_head_dim),
     }
 
 
@@ -182,4 +206,116 @@ def gqa_forward(params, cfg: ModelConfig, x: torch.Tensor, start: int = 0,
         cache = {"k": ck, "v": cv, "pos": cpos}
     wo = params["wo"]
     out = out.reshape(B, S, H * hd) @ wo.reshape(H * hd, -1)
+    return out, cache
+
+
+# ---------------------------------------------------------------------------
+# MLA forward (naive at prefill, absorbed at decode)
+# ---------------------------------------------------------------------------
+
+def mla_forward(params, cfg: ModelConfig, x: torch.Tensor, start: int = 0,
+                *, cache=None, block: int = 512):
+    """x: (B,S,D); ``start``: the position of x's first token (an int).
+
+    cache: {"ckv": (B,cap,r), "k_rope": (B,cap,rope), "pos": (cap,)},
+    written in place at ``start .. start+S-1``.  Returns (out (B,S,D),
+    cache).  At S == 1 the *absorbed* form: q projected into the rank-r
+    latent space (``q_lat``) attends against the compressed cache, and
+    the context goes up through ``w_uv`` after.  At S > 1 the *naive*
+    form: k and v are up-projected from the compressed cache one block of
+    ``block`` keys at a time inside the loop.  The loop, its f32
+    contractions (``dot_f32``), the -1 padding of ``pos`` to whole blocks
+    and the mask ``0 <= pos <= position`` are the reference's.
+
+    Over a cache it reads slots ``[:start+S]`` only: slot i is written at
+    position i alone, so a slot past them holds -1 or a position past
+    every query, which the mask drops (a block of it adds p = 0 and keeps
+    the running max).  The logits block is (B, H, S, block) in f32, 2.15
+    GB at deepseek-v2's prefill of 2 x 4096: it is updated in place, in
+    the reference's order of operations."""
+    m: MLAConfig = cfg.mla
+    B, S, d = x.shape
+    wq = params["wq"]
+    H = wq.shape[1]
+    q = (x @ wq.reshape(d, -1)).reshape(B, S, H, wq.shape[2])
+    q_nope, q_rope = q.split([m.qk_nope_dim, m.qk_rope_dim], dim=-1)
+    positions = torch.arange(start, start + S, dtype=torch.int32,
+                             device=x.device)
+    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+    ckv = x @ params["w_dkv"]                                  # (B,S,r)
+    k_rope = apply_rope((x @ params["w_krope"])[:, :, None, :], positions,
+                        cfg.rope_theta)[:, :, 0, :]            # (B,S,rope)
+
+    if cache is not None:
+        if start > 0 and S > 1:
+            raise NotImplementedError(
+                "chunked prefill (start > 0 with S > 1 over a cache) has no "
+                "caller and is not ported: ROADMAP Queue 1 item 8")
+        cc, cr, cpos = cache["ckv"], cache["k_rope"], cache["pos"]
+        if start + S > cpos.shape[0]:
+            raise ValueError(
+                f"a step writing positions {start}..{start + S - 1} "
+                f"overflows the cache's {cpos.shape[0]} slots")
+        cc[:, start:start + S] = ckv.to(cc.dtype)
+        cr[:, start:start + S] = k_rope.to(cr.dtype)
+        cpos[start:start + S] = positions
+        cache = {"ckv": cc, "k_rope": cr, "pos": cpos}
+        n = start + S
+        ckv, k_rope, kv_pos = cc[:, :n], cr[:, :n], cpos[:n]
+    else:
+        kv_pos = positions
+
+    scale = 1.0 / math.sqrt(m.qk_nope_dim + m.qk_rope_dim)
+    absorb = S == 1
+    Sk = ckv.shape[1]
+    nb = -(-Sk // block)
+    pad = nb * block - Sk
+    if pad:
+        ckv = F.pad(ckv, (0, 0, 0, pad))
+        k_rope = F.pad(k_rope, (0, 0, 0, pad))
+        kv_pos = F.pad(kv_pos, (0, pad), value=-1)
+
+    w_uk, w_uv = params["w_uk"], params["w_uv"]
+    if absorb:
+        # q into the latent space, in x's dtype as the reference leaves it
+        q_lat = torch.einsum("bshn,rhn->bshr", q_nope, w_uk)
+    else:
+        q_nope = q_nope.float()          # the reference's astype, hoisted
+    q_rope = q_rope.float()              # dot_f32's upcast, hoisted
+    f32 = torch.float32
+    acc_dim = m.kv_lora_rank if absorb else m.v_head_dim
+    m_run = torch.full((B, H, S), NEG_INF, dtype=f32, device=x.device)
+    l_run = torch.zeros((B, H, S), dtype=f32, device=x.device)
+    acc = torch.zeros((B, S, H, acc_dim), dtype=f32, device=x.device)
+    for i in range(nb):
+        sl = slice(i * block, (i + 1) * block)
+        cblk, rblk, posblk = ckv[:, sl], k_rope[:, sl], kv_pos[sl]
+        if absorb:
+            logits = dot_f32("bshr,btr->bhst", q_lat, cblk)
+        else:
+            k_nope = dot_f32("btr,rhn->bthn", cblk, w_uk)
+            v_blk = dot_f32("btr,rhv->bthv", cblk, w_uv)
+            logits = dot_f32("bshn,bthn->bhst", q_nope, k_nope)
+        logits += dot_f32("bshr,btr->bhst", q_rope, rblk)
+        logits *= scale
+        masked = ~((posblk >= 0)[None, :]
+                   & (posblk[None, :] <= positions[:, None]))   # (S,block)
+        logits.masked_fill_(masked, NEG_INF)
+        m_new = torch.maximum(m_run, logits.amax(dim=-1))
+        alpha = torch.exp(m_run - m_new)
+        p = logits.sub_(m_new[..., None]).exp_().masked_fill_(masked, 0.0)
+        l_run = l_run * alpha + p.sum(dim=-1)
+        if absorb:
+            pv = dot_f32("bhst,btr->bshr", p.to(cblk.dtype), cblk)
+        else:
+            pv = dot_f32("bhst,bthv->bshv", p, v_blk)
+        acc = acc * alpha.permute(0, 2, 1)[..., None] + pv
+        m_run = m_new
+        del logits, p           # freed before the next block's is made
+    ctx = acc / l_run.clamp_min(1e-30).permute(0, 2, 1)[..., None]
+    ctx = ctx.to(x.dtype)
+    if absorb:
+        ctx = torch.einsum("bshr,rhv->bshv", ctx, w_uv)
+    wo = params["wo"]
+    out = ctx.reshape(B, S, -1) @ wo.reshape(-1, wo.shape[-1])
     return out, cache

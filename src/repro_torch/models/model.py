@@ -10,14 +10,16 @@
 
 ``batch`` is a dict holding ``tokens`` (B, S) int32.  Entry points run
 on ``device="cuda"`` unless the caller passes another device; every
-self-attention call of prefill and decode goes through
+GQA self-attention call of prefill and decode goes through
 ``kernels.ops.flash_attention`` and every Mamba layer's prefill through
 ``kernels.ops.ssd_scan`` (the CUDA kernels on the card; a Mamba decode
-step is a plain single-token update).  Caches are written in place
-(``models/attention.py`` says why), so a consumed cache is not a fresh
-one; over a stack with Mamba layers a step restarts at position 0 or
-continues at the filled position, and never rolls back
-(``models/transformer.py``).  ``forward``'s metrics are the reference's
+step is a plain single-token update).  An MLA layer (deepseek-v2)
+attends in plain PyTorch, the reference's blocked loop
+(``models/attention.py::mla_forward``), and launches no kernel.
+Caches are written in place (``models/attention.py`` says why), so a
+consumed cache is not a fresh one; over a stack with Mamba layers a step
+restarts at position 0 or continues at the filled position, and never
+rolls back (``models/transformer.py``).  ``forward``'s metrics are the reference's
 (``aux_loss``, ``dropped``, and ``expert_counts`` (n_periods, E) for a
 MoE config); ``prefill`` and ``decode_step`` discard them, as the
 reference's do, and so skip the MoE load-balance loss.  A MoE layer
@@ -42,7 +44,10 @@ def params_from_numpy(tree, device="cuda") -> ParamTree:
     of numpy arrays (bf16 leaves as ``ml_dtypes.bfloat16``, carried
     across exactly through float32; f32 leaves, such as a bf16 model's
     MoE router or a Mamba layer's ``A_log``, ``D``, ``dt_bias`` and
-    ``norm_scale``, stay f32)."""
+    ``norm_scale``, stay f32).  Every subtree crosses as it stands: an
+    MLA layer's ``wq``, ``w_dkv``, ``w_krope``, ``w_uk``, ``w_uv`` and
+    ``wo``, the unrolled dense prefix layers ``prefix{i}`` and a MoE
+    layer's ``shared`` FFN."""
     return ParamTree(tree_from_numpy(tree, resolve_device(device)))
 
 

@@ -8,15 +8,17 @@ one to one.  The reference's ``lax.scan`` over periods is a Python loop
 over period ``i`` that indexes the stacked parameters and caches (views,
 no copies), with the pattern unrolled inside.
 
-What the port runs: attention layers (``kind="attn"``) and Mamba2 layers
-(``models/ssd.py``; prefill through ``ops.ssd_scan``, decode through the
-plain ``ops.ssd_decode``), each with no FFN, a dense one or a MoE one
-(``models/moe.py::moe_ffn``), with or without gemma2's post-norms, tied
-or untied embeddings and the final logit softcap: gemma2-9b, llama3-8b,
-deepseek-7b, starcoder2-3b, phi3.5-MoE, mamba2-1.3b and jamba end to
-end.  What raises ``NotImplementedError`` (ROADMAP Queue 1 item 8): MLA
-(deepseek-v2), cross-attention and ``encdec.py`` (seamless),
-``media_embeds`` (pixtral).
+What the port runs: attention layers (``kind="attn"``: GQA through
+``ops.flash_attention``, or MLA's plain blocked loop when ``cfg.mla`` is
+set) and Mamba2 layers (``models/ssd.py``; prefill through
+``ops.ssd_scan``, decode through the plain ``ops.ssd_decode``), each
+with no FFN, a dense one or a MoE one (``models/moe.py::moe_ffn``), the
+dense prefix layers (``first_k_dense``), with or without gemma2's
+post-norms, tied or untied embeddings and the final logit softcap:
+gemma2-9b, llama3-8b, deepseek-7b, starcoder2-3b, phi3.5-MoE,
+deepseek-v2, mamba2-1.3b and jamba end to end.  What raises
+``NotImplementedError`` (ROADMAP Queue 1 item 8): cross-attention and
+``encdec.py`` (seamless), ``media_embeds`` (pixtral).
 
 Metrics, as the reference's: ``aux_loss`` and ``dropped`` summed over
 the layers, and for a config with ``moe`` set ``expert_counts`` of shape
@@ -25,14 +27,17 @@ launches nothing for them (host zeros, made tensors once at the end).
 
 Caches hold one extra entry beside the reference's tree: ``"filled"``,
 a host-side count of the positions that prefill and decode have taken
-in (an attention layer's slots ``0..filled-1`` hold positions
-``0..filled-1``).  A step past it raises instead of reading a gap, and
-one past an attention layer's slots raises before any write.  A Mamba
-layer's state has no slots, and it has already absorbed every token it
-was given, so a stack with a Mamba layer cannot roll back: a step at
-``0 < start < filled`` raises before any write, and a step at ``start``
-0 restarts the state from zero and ``filled`` from S (the reference's
-one-token step would continue from whatever state the cache holds).
+in (an attention layer's slots, GQA's k / v or MLA's ``ckv`` /
+``k_rope``, ``0..filled-1`` hold positions ``0..filled-1``).  A step
+past it raises instead of reading a gap, and one past an attention
+layer's slots raises before any write.  A Mamba layer's state has no
+slots, and it has already absorbed every token it was given, so a stack
+with a Mamba layer cannot roll back: a step at ``0 < start < filled``
+raises before any write, and a step at ``start`` 0 restarts the state
+from zero and ``filled`` from S (the reference's one-token step would
+continue from whatever state the cache holds).  An attention stack, MLA
+included, rolls back: a step at any ``start <= filled`` overwrites the
+slots from ``start`` on.
 """
 from __future__ import annotations
 
@@ -40,7 +45,8 @@ from typing import Optional, Tuple
 
 import torch
 
-from .attention import gqa_forward, init_attention
+from .attention import gqa_forward, init_attention, init_mla_attention, \
+    mla_forward
 from .config import LayerSpec, ModelConfig
 from .layers import embed, ffn, init_embedding, init_ffn, init_rmsnorm, \
     init_unembed, rmsnorm, softcap, unembed
@@ -53,10 +59,6 @@ CACHE_DTYPE = torch.bfloat16       # the reference's cache dtype
 
 
 def _unported(cfg: ModelConfig, spec: LayerSpec) -> None:
-    if cfg.mla is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: MLA attention is not ported yet (ROADMAP Queue 1 "
-            f"item 8: models/attention.py mla_forward)")
     if spec.cross_attn:
         raise NotImplementedError(
             f"{cfg.name}: cross-attention is not ported yet (ROADMAP Queue 1 "
@@ -72,7 +74,8 @@ def init_layer(ini: Initializer, cfg: ModelConfig, spec: LayerSpec,
     _unported(cfg, spec)
     if spec.kind == "attn":
         p = {"attn_norm": init_rmsnorm(ini, cfg.d_model),
-             "attn": init_attention(ini, cfg)}
+             "attn": (init_mla_attention(ini, cfg) if cfg.mla
+                      else init_attention(ini, cfg))}
         if cfg.post_norm:
             p["attn_post_norm"] = init_rmsnorm(ini, cfg.d_model)
     else:
@@ -93,17 +96,28 @@ def init_layer(ini: Initializer, cfg: ModelConfig, spec: LayerSpec,
 
 def init_layer_cache(cfg: ModelConfig, spec: LayerSpec, batch: int, cap: int,
                      device="cuda"):
-    """Cache tree for one layer: an attention layer's bf16 k and v and
-    ``pos`` (-1 = empty), or a Mamba layer's bf16 ``conv`` (B, w-1, C)
+    """Cache tree for one layer: an attention layer's bf16 k and v (an
+    MLA layer's bf16 ``ckv`` (B, cap, r) and ``k_rope`` (B, cap, rope))
+    and ``pos`` (-1 = empty), or a Mamba layer's bf16 ``conv`` (B, w-1, C)
     and f32 ``ssm`` (B, H, P, N), as the reference's."""
     _unported(cfg, spec)
     if spec.kind != "attn":
         return {"mamba": init_mamba_cache(cfg, batch, CACHE_DTYPE, device)}
+    pos = torch.full((cap,), -1, dtype=torch.int32, device=device)
+    if cfg.mla:
+        m = cfg.mla
+        return {"kv": {
+            "ckv": torch.zeros((batch, cap, m.kv_lora_rank),
+                               dtype=CACHE_DTYPE, device=device),
+            "k_rope": torch.zeros((batch, cap, m.qk_rope_dim),
+                                  dtype=CACHE_DTYPE, device=device),
+            "pos": pos,
+        }}
     shape = (batch, cap, cfg.n_kv_heads, cfg.head_dim_)
     return {"kv": {
         "k": torch.zeros(shape, dtype=CACHE_DTYPE, device=device),
         "v": torch.zeros(shape, dtype=CACHE_DTYPE, device=device),
-        "pos": torch.full((cap,), -1, dtype=torch.int32, device=device),
+        "pos": pos,
     }}
 
 
@@ -130,9 +144,12 @@ def layer_forward(p, cfg: ModelConfig, spec: LayerSpec, x: torch.Tensor,
     new_cache = {} if cache is not None else None
     if spec.kind == "attn":
         h = rmsnorm(p["attn_norm"], x, cfg.rms_eps)
-        a, kvc = gqa_forward(p["attn"], cfg, h, start, window=spec.window,
-                             cache=cache["kv"] if cache is not None
-                             else None, causal=causal)
+        kv = cache["kv"] if cache is not None else None
+        if cfg.mla:
+            a, kvc = mla_forward(p["attn"], cfg, h, start, cache=kv)
+        else:
+            a, kvc = gqa_forward(p["attn"], cfg, h, start,
+                                 window=spec.window, cache=kv, causal=causal)
         if cfg.post_norm:
             a = rmsnorm(p["attn_post_norm"], a, cfg.rms_eps)
         if new_cache is not None:

@@ -656,6 +656,93 @@ def test_mamba_model_prefill_and_decode_on_the_card(cuda):
         assert (a - b).abs().max() <= 2e-2 * b.abs().max()
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bf16", "f32"])
+def test_mla_model_prefill_and_decode_on_the_card(cuda, dtype, monkeypatch):
+    """deepseek-v2 at smoke scale (MLA in every layer, a dense prefix
+    layer, two MoE layers with a shared expert): a 600-token prefill (the
+    naive form over two 512-key blocks) and three decode steps (the
+    absorbed form) launch no kernel (MLA attends in plain PyTorch).  In
+    bf16 the card's logits lie within 2e-2 of max|host|, normwise, of
+    the host's run of the same weights, on the rows no routing flip
+    between the two runs reaches (a token whose top-2 router logits
+    nearly tie may route otherwise after a last-bit difference; it and,
+    through attention, the later rows of its sequence are left out, and
+    at most 5 % of the (token, MoE layer) pairs may flip).  In f32
+    (params and cache) the routing is the same everywhere and the logits
+    lie within 1e-4."""
+    import copy
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models.model import Model
+    cfg = get_config("deepseek-v2-236b").smoke()
+    model = Model(cfg)
+    host = model.init(0, device="cpu")
+    f32 = dtype == "f32"
+    if f32:
+        host = host.float()
+    card = copy.deepcopy(host).to(cuda)
+    B, S, N = 2, 600, 3
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (B, S + N)).astype(np.int32))
+    prefill, decode = make_prefill_step(model), make_decode_step(model)
+    routes, real_route = [], moe_mod.route
+
+    def tap(*a, **kw):
+        out = real_route(*a, **kw)
+        routes.append(out[1].sort(-1).values.cpu())
+        return out
+    monkeypatch.setattr(moe_mod, "route", tap)
+
+    def serve(params, device):
+        routes.clear()
+        cache = model.init_cache(B, S + N, device=device)
+        if f32:
+            for layer in [cache["prefix0"]] + list(cache["blocks"].values()):
+                for n in ("ckv", "k_rope"):
+                    layer["kv"][n] = layer["kv"][n].float()
+        ops.reset_launches()
+        outs = [prefill(params, cache, {"tokens": toks[:, :S].to(device)})[0]]
+        for j in range(N):
+            out, cache = decode(params, cache,
+                                toks[:, S + j:S + j + 1].to(device), S + j)
+            outs.append(out)
+        assert cache["filled"] == S + N
+        return [o.float().cpu() for o in outs], dict(ops.launches()), \
+            list(routes)
+
+    on_card, launches, card_routes = serve(card, cuda)
+    assert launches.get("flash_attention", 0) == 0
+    assert launches.get("ssd_scan", 0) == 0
+    on_host, _, host_routes = serve(host, "cpu")
+    n_moe = cfg.n_layers - cfg.first_k_dense         # the last is the last
+    assert len(card_routes) == len(host_routes) == n_moe * (N + 1)
+    hit, flips = torch.zeros((B, S + N), dtype=torch.bool), []
+    for c, (a, b) in enumerate(zip(card_routes, host_routes)):
+        step, layer = divmod(c, n_moe)
+        f = (a != b).any(-1)
+        flips.append(f)
+        m = torch.zeros((B, S + N), dtype=torch.bool)
+        if step == 0:
+            m[:, :S] = f.view(B, S)
+        else:
+            m[:, S + step - 1] = f
+        hit |= m
+        if layer < n_moe - 1:                 # reaches the later rows
+            hit |= m.cumsum(1) > 0
+    share = torch.cat(flips).float().mean().item()
+    assert share == 0 if f32 else share <= 0.05, share
+    tol = 1e-4 if f32 else 2e-2
+    rows = [~hit[:, :S]] + [~hit[:, S + j] for j in range(N)]
+    for a, b, keep in zip(on_card, on_host, rows):
+        assert torch.isfinite(a).all()
+        a, b = a.view(B, -1, a.shape[-1]), b.view(B, -1, b.shape[-1])
+        keep = keep.view(B, -1)
+        assert keep.any()
+        assert (a[keep] - b[keep]).abs().max() <= tol * b.abs().max()
+
+
 def _serving_runtime(device, cfg, controller=None):
     from repro_torch.core import EngineConfig, MorpheusRuntime, SketchConfig
     from repro_torch.serving import build_params, build_tables, \

@@ -6,7 +6,10 @@ followed by three ``decode_step``s, for gemma2-9b (window 32, both
 softcaps, post-norms, GeGLU, tied embeddings), llama3-8b, deepseek-7b,
 starcoder2-3b (ungated GELU MLP, tied embeddings), phi3.5-MoE (every
 layer a MoE FFN, 4 experts top-2 at smoke scale; ``test_torch_moe.py``
-holds its FFN and metrics), mamba2-1.3b (Mamba2 layers alone, no FFN)
+holds its FFN and metrics), deepseek-v2 (MLA attention in every layer,
+a dense prefix layer, then MoE layers with a shared expert;
+``test_torch_mla.py`` holds its attention and its step rules),
+mamba2-1.3b (Mamba2 layers alone, no FFN)
 and jamba (a period of 8: attention at position 2, Mamba elsewhere, a
 MoE FFN on the odd positions and a dense one on the even); then the
 step rules of a cache with Mamba layers (``models/transformer.py``).
@@ -90,7 +93,8 @@ from repro_torch.models.model import Model, params_from_numpy
 from repro_torch.models.params import index_tree, param_count
 
 ARCHS = ["gemma2-9b", "llama3-8b", "deepseek-7b", "starcoder2-3b",
-         "phi3.5-moe-42b-a6.6b", "mamba2-1.3b", "jamba-v0.1-52b"]
+         "phi3.5-moe-42b-a6.6b", "deepseek-v2-236b", "mamba2-1.3b",
+         "jamba-v0.1-52b"]
 MAMBA_ARCHS = ["mamba2-1.3b", "jamba-v0.1-52b"]
 F32_TOL, F32_CACHE_TOL, BF16_REL = 1e-4, 2e-3, 1.0
 FLIP_MAX = 0.05        # share of (token, layer) pairs whose routing flips
@@ -199,6 +203,29 @@ def _moe_layers(cfg):
     order."""
     return [_layer(cfg, i, pos) for i in range(cfg.n_periods)
             for pos, spec in enumerate(cfg.pattern) if spec.ffn == "moe"]
+
+
+@pytest.mark.parametrize("arch", ["deepseek-v2-236b", "jamba-v0.1-52b",
+                                  "phi3.5-moe-42b-a6.6b"])
+def test_moe_layers_names_the_layer_of_each_moe_call(arch, monkeypatch):
+    """``_moe_layers`` against the port's own walk of the stack: the
+    transformer layer of each MoE call, past deepseek-v2's dense prefix
+    layer and between jamba's dense ones."""
+    tm = Model(get_config(arch).smoke())
+    tp = tm.init(0, device="cpu")
+    kinds, real = [], TT.layer_forward
+
+    def tap(p, cfg, spec, *a, **kw):
+        kinds.append("w_router" in p.get("ffn", {}))
+        return real(p, cfg, spec, *a, **kw)
+    monkeypatch.setattr(TT, "layer_forward", tap)
+    with torch.no_grad():
+        tm.forward(tp, {"tokens": torch.zeros((1, 4), dtype=torch.int32)})
+    assert len(kinds) == tm.cfg.n_layers
+    assert _moe_layers(tm.cfg) == [i for i, moe in enumerate(kinds) if moe]
+    assert all(_layer(tm.cfg, i, pos) < tm.cfg.n_layers
+               for i in range(tm.cfg.n_periods)
+               for pos in range(len(tm.cfg.pattern)))
 
 
 def _reached(flips, n_layers, B, P):
@@ -426,13 +453,18 @@ def test_prefill_then_decode_matches_reference(arch, f32, monkeypatch):
     assert tc["filled"] == S_PROMPT + N_DECODE
     pairs = [(f"logits of step {i}", outs[i], ref[i], i)
              for i in range(N_DECODE + 1)]
-    for key, jblk in jc["blocks"].items():
+    # the dense prefix layers' caches (deepseek-v2), then the stacks'
+    layers = [(k, jc[k], tc[k]) for k in jc if k.startswith("prefix")]
+    layers += [(k, jblk, tc["blocks"][k]) for k, jblk in jc["blocks"].items()]
+    assert layers
+    for key, jblk, tblk in layers:
         kind = "kv" if "kv" in jblk else "mamba"
-        tblk = tc["blocks"][key][kind]
+        jblk, tblk = jblk[kind], tblk[kind]
+        assert sorted(tblk) == sorted(jblk), key
         if kind == "kv":
-            assert np.array_equal(tblk["pos"].numpy(), jblk["kv"]["pos"])
-        pairs += [(f"cache {key} {n}", tblk[n], jblk[kind][n], (key, kind, n))
-                  for n in (("k", "v") if kind == "kv" else ("conv", "ssm"))]
+            assert np.array_equal(tblk["pos"].numpy(), jblk["pos"])
+        pairs += [(f"cache {key} {n}", tblk[n], jblk[n], (key, kind, n))
+                  for n in sorted(tblk) if n != "pos"]
     reached = None
     routes.done()
     if tm.cfg.moe is not None:
@@ -469,7 +501,8 @@ def test_prefill_then_decode_matches_reference(arch, f32, monkeypatch):
                    f"{arch} {what}")
         else:
             r32 = (ref32[tag] if isinstance(tag, int)
-                   else jc32["blocks"][tag[0]][tag[1]][tag[2]])
+                   else (jc32[tag[0]] if tag[0].startswith("prefix")
+                         else jc32["blocks"][tag[0]])[tag[1]][tag[2]])
             if arch in BF16_F32_REL:
                 _close_to_f32(arch, out, r, r32, f"{arch} {what}")
                 continue
@@ -478,6 +511,8 @@ def test_prefill_then_decode_matches_reference(arch, f32, monkeypatch):
                 # step 0 is the prompt's rows, step i the token at 39 + i
                 rows = ~(reached[:, :S_PROMPT] if tag == 0 else
                          reached[:, S_PROMPT + tag - 1:S_PROMPT + tag])
+            elif reached is not None and tag[0].startswith("prefix"):
+                rows = None          # a prefix layer precedes every flip
             elif reached is not None:
                 # a stacked cache (n_periods, B, ...) of layers l: the
                 # flips at earlier layers, (B, P)
@@ -674,9 +709,32 @@ def test_params_from_numpy_carries_f32_mamba_leaves_of_a_bf16_tree():
             assert np.array_equal(t.float().numpy(), j.astype(np.float32))
 
 
+def test_params_from_numpy_carries_mla_prefix_and_shared_leaves():
+    """deepseek-v2's bf16 tree crosses exactly: every MLA leaf, the dense
+    prefix layer ``prefix0`` and each MoE layer's ``shared`` FFN in bf16,
+    the routers in f32, each leaf equal to the reference's."""
+    _, jp, _, tp = _reference("deepseek-v2-236b", f32=False)
+    mla = {"wq", "w_dkv", "w_krope", "w_uk", "w_uv", "wo"}
+    assert set(jp["prefix0"]["attn"]) == mla
+    assert set(jp["blocks"]["pos0"]["ffn"]["shared"]) == {
+        "w_up", "w_gate", "w_down"}
+    leaves = 0
+    for path, j in jax.tree_util.tree_leaves_with_path(jp):
+        keys = [k.key for k in path]
+        t = tp
+        for k in keys:
+            t = t[k]
+        j = np.asarray(j)
+        f32_leaf = keys[-1] in ("w_router", "b_router") or keys[-1] == "scale"
+        assert (j.dtype == np.float32) == f32_leaf, keys
+        assert t.dtype == (torch.float32 if f32_leaf else torch.bfloat16), keys
+        assert tuple(t.shape) == j.shape, keys
+        assert np.array_equal(t.float().numpy(), j.astype(np.float32)), keys
+        leaves += 1
+    assert leaves == len(list(tp.parameters()))
+
+
 def test_unported_branches_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Model(get_config("deepseek-v2-236b").smoke()).init(0, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Model(get_config("seamless-m4t-medium").smoke())
     pix = Model(get_config("pixtral-12b").smoke())
@@ -697,6 +755,7 @@ def test_unported_branches_raise():
 EXPECTED_PARAMS = {"gemma2-9b": (9e9, 0.25), "deepseek-7b": (7e9, 0.25),
                    "llama3-8b": (8e9, 0.25), "starcoder2-3b": (3e9, 0.35),
                    "phi3.5-moe-42b-a6.6b": (42e9, 0.25),
+                   "deepseek-v2-236b": (236e9, 0.25),
                    "mamba2-1.3b": (1.3e9, 0.25),
                    "jamba-v0.1-52b": (52e9, 0.25)}
 
