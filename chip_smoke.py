@@ -156,6 +156,28 @@
    cache's size, prefill ms, decode ms/token, host syncs per decode step
    (one per MoE layer), a profile by kernel class with ``mla_forward``'s
    share of the device time, and the peak memory.
+11. Encoder-decoder model phase: seamless-m4t-medium
+   (``src/repro/configs/seamless_m4t_medium.py``) whole (12 encoder and
+   12 decoder layers, d_model 1024, 16 / 16 heads x 64, vocab 256206),
+   after deepseek-v2's params are released, the same way: 4 x 4096
+   random tokens with 4 x 1024 frames from the seed (the stub frontend's
+   embeddings, S / 4, and ``enc_cap`` 1024) and 32 greedy decode steps,
+   twice, every prefill (the check's of 4128 tokens too) fed the same
+   frames.  It fails unless ``flash_attention`` launched 36 times in
+   every prefill (12 encoder, 12 causal self- and 12 cross-attention
+   calls) and 24 in every decode step, never ``ssd_scan``, the logits
+   are finite, the two runs are equal bit for bit and every decoder
+   layer of the decode path, fed the prefill's input and cache (its
+   cross-attention slots included), lies no farther from the prefill's
+   output than bf16 rounding moves that layer (the same layer in f32 on
+   the same input; random-weight seamless is chaotic in depth: the
+   comment at ``LAYER_TOL``); the logits' difference is printed.  It
+   prints prefill ms, decode ms/token, host syncs per decode step (0), a
+   profile with ``encoder_forward``'s share of the prefill's device time
+   and the peak memory; then the kernel on the path's own q, k, v (the
+   encoder's layer 0, the decoder's layer 0 self- and cross-attention at
+   prefill and at the last decode step) against its plain version and
+   SDPA.
 
 In every model phase the kernels JSON counts ``flash_attention``'s and
 ``ssd_scan``'s launches over the two served runs alone (counts zeroed
@@ -171,6 +193,7 @@ from __future__ import annotations
 
 import contextlib
 import gc
+import itertools
 import json
 import re
 import statistics
@@ -338,7 +361,7 @@ def profile_steps(torch, label: str, step, batches,
 
 # the functions ``span`` wraps in a profiler range; profile_steps
 # reports the device time of the kernels each range launched
-SPANS = ("mla_forward",)
+SPANS = ("mla_forward", "encoder_forward")
 
 
 @contextlib.contextmanager
@@ -1602,6 +1625,15 @@ SSM_MODEL = dict(tag="ssm-model", arch="mamba2-1.3b", batch=4, prompt=4096,
 # so it is held per layer as phi3.5-MoE is.
 MLA_MODEL = dict(tag="mla-model", arch="deepseek-v2-236b", batch=2,
                  prompt=4096, decode=32, seed=0, layers=8, per_layer=True)
+# seamless-m4t-medium whole (977.86 M params, 1.82 GiB in bf16): 12
+# encoder layers over 1024 frames from the seed (S / enc_seq_divisor, as
+# configs/shapes.py sizes them), 12 decoder layers of causal self- and
+# cross-attention, all through flash_attention at D 64 and G 1.  Random
+# weights make it chaotic in depth (the comment at LAYER_TOL), so it is
+# held per layer.
+ENCDEC_MODEL = dict(tag="encdec-model", arch="seamless-m4t-medium", batch=4,
+                    prompt=4096, decode=32, seed=0, layers=None,
+                    per_layer=True)
 # phi3.5-MoE from random weights is chaotic in depth: a difference in
 # the last bits grows many times over in every layer, in the reference as
 # in the port (tools/moe_depth_witness.py runs both on the CPU at these
@@ -1619,8 +1651,21 @@ MLA_MODEL = dict(tag="mla-model", arch="deepseek-v2-236b", batch=2,
 # by ~50 % after 14 layers, in the reference as in the port
 # (tools/ssm_depth_witness.py --dtype bf16), so its decode path is held
 # to the prefill the same way (a Mamba layer over the state its prefill
-# of the prompt's rows leaves, ``teacher_forced``).
-LAYER_TOL, FLIP_MAX = 2e-2, 0.05
+# of the prompt's rows leaves, ``teacher_forced``).  So is seamless-m4t-
+# medium, a dense model: its random wq and wk are drawn with the
+# reference's fan_in of shape[-2] (the head count), so its attention
+# logits have a std of ~64 with no softcap and its attention is close to
+# an argmax, and one ulp in every input element moves a bf16 layer's
+# output by 13-52 % of its max after one layer and by > 100 % after a
+# few, in the reference as in the port (tools/encdec_depth_witness.py).
+# Even one layer's bf16 rounding moves its output by several % of its
+# max, most in the first layer (the same layer in f32 on the same input;
+# the phase prints it by layer), so a fixed LAYER_TOL is no yardstick
+# there: each decoder layer's decode is held, as the CPU tests
+# hold bf16 results, within BF16_REL times that layer's own bf16-vs-f32
+# distance over the decode rows (``layer_noise``); a decode step reads
+# the prefill's cross-attention slots.
+LAYER_TOL, FLIP_MAX, BF16_REL = 2e-2, 0.05, 1.0
 
 
 @contextlib.contextmanager
@@ -1728,26 +1773,31 @@ def visible_pairs(Sq: int, Sk: int, causal: bool, window) -> int:
 
 
 def model_phase(torch, ops, spec):
-    """One model (``MODEL``, ``MOE_MODEL``, ``SSM_MODEL`` or ``MLA_MODEL``)
-    at full width through ``make_prefill_step`` / ``make_decode_step``:
-    prefill B x S tokens, then N greedy decode steps, twice (the main
-    path), then checks.  Every GQA attention layer launches
-    ``flash_attention`` once per call, an MLA layer never (it attends in
-    plain PyTorch); every Mamba layer launches ``ssd_scan`` once per
-    prefill and never at a decode step.  Returns the main path's own
-    kernel inputs (``flash_attention``'s for each pattern position's
-    first layer at prefill and at the last decode step, ``ssd_scan``'s
-    for layer 0 at the first prefill) and the kernels' launches, counted
-    from 0 over the two served runs alone."""
+    """One model (``MODEL``, ``MOE_MODEL``, ``SSM_MODEL``, ``MLA_MODEL``
+    or ``ENCDEC_MODEL``) at full width through ``make_prefill_step`` /
+    ``make_decode_step``: prefill B x S tokens (and an encoder-decoder
+    model's frames), then N greedy decode steps, twice (the main path),
+    then checks.  Every GQA attention layer launches ``flash_attention``
+    once per call, a cross-attention layer once more, an encoder layer
+    once per prefill, an MLA layer never (it attends in plain PyTorch);
+    every Mamba layer launches ``ssd_scan`` once per prefill and never at
+    a decode step.  Returns the main path's own kernel inputs
+    (``flash_attention``'s for each pattern position's first layer at
+    prefill and at the last decode step, and an encoder-decoder model's
+    encoder layer 0 and decoder layer 0's cross-attention beside them;
+    ``ssd_scan``'s for layer 0 at the first prefill) and the kernels'
+    launches, counted from 0 over the two served runs alone."""
     from repro_torch.configs import get_config
     from repro_torch.launch.steps import make_decode_step, make_prefill_step
     from repro_torch.models.model import Model
+    from repro_torch.models import encdec as encdec_mod
     from repro_torch.models import transformer as tf_mod
     from repro_torch.models.params import param_count
-    from repro_torch.models.transformer import init_lm_cache, lm_forward
+    from repro_torch.models.transformer import lm_forward
     from repro_torch.kernels import flash_attention as fa_mod
 
     tag = spec["tag"]
+    card = nvidia_smi()            # the label of every time and size
 
     def say(msg):
         print(f"[{tag}] {msg}")
@@ -1762,8 +1812,10 @@ def model_phase(torch, ops, spec):
         s.kind == "attn" for s in cfg.pattern)
     n_gqa = 0 if cfg.mla else n_attn
     n_mamba = cfg.n_layers - n_attn
-    want = {"flash_attention": (n_gqa, n_gqa),     # (prefill, decode step)
-            "ssd_scan": (n_mamba, 0)}
+    n_cross = cfg.n_periods * sum(s.cross_attn for s in cfg.pattern)
+    n_enc = cfg.n_enc_layers if cfg.encdec else 0
+    want = {"flash_attention": (n_enc + n_gqa + n_cross, n_gqa + n_cross),
+            "ssd_scan": (n_mamba, 0)}              # (prefill, decode step)
     model = Model(cfg)
     # shapes on the meta device first: the params must fit beside the
     # cache and the activations
@@ -1798,6 +1850,9 @@ def model_phase(torch, ops, spec):
                 f"kv_lora {m.kv_lora_rank}, q.k {m.qk_nope_dim} + "
                 f"{m.qk_rope_dim}, v {m.v_head_dim}, {cfg.first_k_dense} "
                 f"dense prefix layer(s) of d_ff {cfg.first_dense_d_ff}")
+    if cfg.encdec:
+        attn += (f"; {n_enc} bidirectional encoder layers, cross-attention "
+                 f"in {n_cross} decoder layers")
     ssm = cfg.ssm
     mamba = (f"{n_mamba} Mamba2 layers, "
              f"{ssm.expand * cfg.d_model // ssm.head_dim} SSD heads x P "
@@ -1809,11 +1864,24 @@ def model_phase(torch, ops, spec):
         f"{param_count(params) / 1e9:.3f} B params bf16 "
         f"({torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card) in "
         f"{time.perf_counter() - t0:.1f} s")
-    cache_bytes = tree_bytes(torch, init_lm_cache(cfg, B, S + N, "meta"))
-    say(f"cache of {S + N} slots: {cache_bytes / 2**20:.1f} MiB")
+    # an encoder-decoder model's frames: S / enc_seq_divisor of them, as
+    # configs/shapes.py sizes its inputs and cross-attention slots
+    enc_cap = S // cfg.enc_seq_divisor if cfg.encdec else 0
+    cache_bytes = tree_bytes(torch, model.init_cache(B, S + N, "meta",
+                                                     enc_cap=enc_cap))
+    slots = f"{S + N} slots" + (f" and {enc_cap} cross-attention slots"
+                                if enc_cap else "")
+    say(f"cache of {slots}: {cache_bytes / 2**20:.1f} MiB")
     gen = torch.Generator(device="cuda").manual_seed(spec["seed"])
     prompt = torch.randint(0, cfg.vocab, (B, S), generator=gen,
                            device="cuda", dtype=torch.int32)
+    batch = {"tokens": prompt}
+    if cfg.encdec:
+        batch["frames"] = torch.randn((B, enc_cap, cfg.d_model),
+                                      generator=gen, device="cuda",
+                                      dtype=torch.bfloat16)
+        say(f"frames {tuple(batch['frames'].shape)} bf16 from seed "
+            f"{spec['seed']} (the stub frontend's embeddings)")
     prefill, decode = make_prefill_step(model), make_decode_step(model)
     count = lambda: {k: ops.launches().get(k, 0) for k in want}
     n_pattern = len(cfg.pattern)
@@ -1825,14 +1893,25 @@ def model_phase(torch, ops, spec):
     keep = lambda t: None if t is None else torch.empty_strided(
         t.shape, t.stride(), dtype=t.dtype, device=t.device).copy_(t)
 
+    # the calls to keep, by their index within a call: layer i of the
+    # first period is pattern position i (gemma2: 0 local, 1 global); an
+    # encoder-decoder model runs its encoder layers first, then each
+    # decoder layer's self- and cross-attention
+    keep_calls = {kind: {i: f"{kind}{i}" for i in range(n_pattern)}
+                  for kind in ("prefill", "decode")}
+    if cfg.encdec:
+        keep_calls = {"prefill": {0: "prefill-encoder0",
+                                  n_enc: "prefill-self0",
+                                  n_enc + 1: "prefill-cross0"},
+                      "decode": {0: "decode-self0", 1: "decode-cross0"}}
+
     def tap(label):
+        n = itertools.count()
+
         def f(q, k, v, **kw):
-            # layer i of the first period is pattern position i (gemma2:
-            # 0 local, 1 global)
-            n = len([x for x in captured if x.startswith(label)])
-            if n < n_pattern:
-                captured[f"{label}{n}"] = (keep(q), keep(k), keep(v),
-                                           dict(kw))
+            name = keep_calls[label].get(next(n))
+            if name is not None:
+                captured[name] = (keep(q), keep(k), keep(v), dict(kw))
             return real(q, k, v, **kw)
         return f
 
@@ -1854,14 +1933,14 @@ def model_phase(torch, ops, spec):
         return {k: v - n0[k] for k, v in count().items()}
 
     def serve(capture: bool):
-        cache = model.init_cache(B, S + N)
+        cache = model.init_cache(B, S + N, enc_cap=enc_cap)
         torch.cuda.synchronize()
         n0, t = count(), time.perf_counter()
         with route_tap(served) if capture else contextlib.nullcontext():
             # models.attention and models.ssd call them through ops
             taps(capture, "prefill")
             try:
-                logits, cache = prefill(params, cache, {"tokens": prompt})
+                logits, cache = prefill(params, cache, batch)
             finally:
                 taps(False, "")
             torch.cuda.synchronize()
@@ -1912,14 +1991,15 @@ def model_phase(torch, ops, spec):
     check(pre1.shape == (B, S, cfg.padded_vocab)
           and dec1.shape == (B, N, cfg.padded_vocab),
           f"logits {tuple(pre1.shape)} {tuple(dec1.shape)}")
-    say(f"run 1: prefill {B} x {S} tokens {t_pre * 1e3:.1f} ms, "
+    say(f"run 1 on {card}: prefill {B} x {S} tokens {t_pre * 1e3:.1f} ms, "
         f"decode {t_dec * 1e3:.2f} ms/token (batch {B}, {N} steps); "
         f"launches per call {calls1[0]} (prefill), {calls1[1]} (each "
         f"decode step)")
     pre2, dec2, fed2, calls2, t_pre2, t_dec2 = serve(capture=False)
     check_calls(calls2)
     launches = count()
-    say(f"launches during the two served runs: {ops.launches()}")
+    say(f"launches during the two served runs on {card}: "
+        f"{ops.launches()}")
     for name in want:
         total = sum(c[name] for c in calls1 + calls2)
         check(launches[name] == total,
@@ -1928,7 +2008,7 @@ def model_phase(torch, ops, spec):
     check(torch.equal(fed1, fed2) and torch.equal(pre1, pre2)
           and torch.equal(dec1, dec2),
           "two runs differ: greedy tokens or logits are not bit for bit")
-    say(f"run 2: prefill {t_pre2 * 1e3:.1f} ms, decode "
+    say(f"run 2 on {card}: prefill {t_pre2 * 1e3:.1f} ms, decode "
         f"{t_dec2 * 1e3:.2f} ms/token; greedy tokens and all logits equal "
         f"to run 1's bit for bit")
     del pre1, pre2, dec2
@@ -1936,24 +2016,30 @@ def model_phase(torch, ops, spec):
 
     # decode logits at position S + j against row S + j of one prefill
     # of the same S + N tokens (causal: row p reads tokens 0..p only)
-    full = torch.cat([prompt, fed1[:, :N]], dim=1)
-    cache = model.init_cache(B, S + N)
+    tokens = torch.cat([prompt, fed1[:, :N]], dim=1)
+    cache = model.init_cache(B, S + N, enc_cap=enc_cap)
     routes = []
     # each layer's input (a Mamba layer's all rows, an attention layer's
     # rows S..) and output rows S..
     layers = []
     real_layer = tf_mod.layer_forward
 
+    # an encoder-decoder model's decoder layers: each one's whole input and
+    # the encoder output, for the bf16 yardstick (``layer_noise``)
+    full = []
+
     def tap_layer(p, cfg_, spec_, x, *a, **kw):
         out = real_layer(p, cfg_, spec_, x, *a, **kw)
         layers.append((x.clone() if spec_.kind != "attn" else
                        x[:, S:].clone(), out[0][:, S:].clone()))
+        if cfg.encdec:
+            full.append((x, a[2]))
         return out
     if spec["per_layer"]:
         tf_mod.layer_forward = tap_layer
     try:
         with route_tap(routes):
-            ref, cache = prefill(params, cache, {"tokens": full})
+            ref, cache = prefill(params, cache, {**batch, "tokens": tokens})
     finally:
         tf_mod.layer_forward = real_layer
     ref = ref[:, S:].float()
@@ -1965,6 +2051,12 @@ def model_phase(torch, ops, spec):
         check(err <= MODEL_TOL * scale,
               f"decode logits differ from the prefill's rows by {err} "
               f"(max|prefill| {scale}, tol {MODEL_TOL} normwise)")
+    elif cfg.encdec:
+        # the decoder; its encoder ran once for both paths
+        noise = layer_noise(torch, cfg, params["decoder"], full, layers, S)
+        del full
+        teacher_forced(torch, say, cfg, params["decoder"], cache, layers,
+                       routes, S, noise)
     elif moe is None:
         teacher_forced(torch, say, cfg, params, cache, layers, routes, S)
     else:
@@ -1986,14 +2078,14 @@ def model_phase(torch, ops, spec):
         f"positions: max |decode - prefill| {err:.4f} = "
         f"{err / scale:.4f} of max|prefill| {scale:.3f} ({held} "
         f"{MODEL_TOL}); greedy tokens agree at {agree:.1%} of positions")
-    del ref, got, full, cache, served, routes, layers
+    del ref, got, tokens, cache, served, routes, layers
     torch.cuda.empty_cache()
 
     # the metrics of a prefill through forward, host syncs per decode
     # step, the device's busy share, the metrics of one decode step
-    cache = model.init_cache(B, S + N)
+    cache = model.init_cache(B, S + N, enc_cap=enc_cap)
     with torch.no_grad():
-        _, cache, met = model.forward(params, {"tokens": prompt}, cache)
+        _, cache, met = model.forward(params, batch, cache)
     if moe is not None:
         counts = met["expert_counts"]
         per_layer = B * S * moe.top_k * n_moe // cfg.n_periods
@@ -2011,13 +2103,17 @@ def model_phase(torch, ops, spec):
     dstep = lambda _: decode(params, cache, nxt, S + next(steps))
     syncs = host_syncs(torch, dstep, [None] * 4)
     gemm_dim = moe.expert_d_ff if moe is not None else None
-    with span(torch, tf_mod, "mla_forward") if cfg.mla else \
-            contextlib.nullcontext():
-        profile_steps(torch, f"{cfg.name} decode", dstep, [None] * 4,
+    spans = contextlib.ExitStack()
+    if cfg.mla:
+        spans.enter_context(span(torch, tf_mod, "mla_forward"))
+    if cfg.encdec:
+        spans.enter_context(span(torch, encdec_mod, "encoder_forward"))
+    with spans:
+        profile_steps(torch, f"{cfg.name} decode on {card}", dstep,
+                      [None] * 4, gemm_dim)
+        profile_steps(torch, f"{cfg.name} prefill on {card}",
+                      lambda _: prefill(params, cache, batch), [None],
                       gemm_dim)
-        profile_steps(torch, f"{cfg.name} prefill",
-                      lambda _: prefill(params, cache, {"tokens": prompt}),
-                      [None], gemm_dim)
     if moe is not None:
         with torch.no_grad():
             _, cache, met = lm_forward(params, cfg, nxt, S + 8, cache=cache)
@@ -2029,16 +2125,42 @@ def model_phase(torch, ops, spec):
         say(f"decode step expert_counts rows sum to {per_layer}; experts "
             f"used per layer {(counts > 0).sum(1).tolist()}")
     expected = (f"one per MoE layer, {n_moe}" if moe is not None else "0")
-    say(f"host syncs per decode step: {syncs:g} (expected {expected}); "
+    say(f"on {card}: host syncs per decode step: {syncs:g} (expected "
+        f"{expected}); "
         f"peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    del cache, params
+    del cache, params, batch
     gc.collect()
     torch.cuda.empty_cache()
     return captured, launches
 
 
-def teacher_forced(torch, say, cfg, params, cache, layers, routes, S):
+def layer_noise(torch, cfg, params, full, layers, S):
+    """Each decoder layer's own bf16 noise over the decode rows: the
+    layer in f32 (its weights cast up) on the bf16 prefill's whole input
+    and encoder output, against that prefill's bf16 output, max
+    |difference| over max |bf16 output|.  ``full``: each layer call's
+    (input, encoder output); ``layers``: its (rows S.. of the input,
+    rows S.. of the output)."""
+    from repro_torch.models.params import index_tree
+    from repro_torch.models.transformer import layer_forward
+    spec = cfg.pattern[0]
+    up = lambda t: ({k: up(v) for k, v in t.items()} if isinstance(t, dict)
+                    else t.float())
+    noise = []
+    with torch.no_grad():
+        for i, ((x, enc), (_, out)) in enumerate(zip(full, layers)):
+            lp = up(index_tree(params["blocks"]["pos0"], i))
+            y32 = layer_forward(lp, cfg, spec, x.float(), 0, None,
+                                enc.float())[0][:, S:]
+            noise.append(((out.float() - y32).abs().max()
+                          / out.float().abs().max()).item())
+            del lp, y32
+    return noise
+
+
+def teacher_forced(torch, say, cfg, params, cache, layers, routes, S,
+                   noise=None):
     """Each layer of the decode path against the prefill path where no
     depth has amplified anything: for every layer l and decode position
     p = S + j, ``layer_forward`` on one token, fed the prefill's input
@@ -2046,7 +2168,9 @@ def teacher_forced(torch, say, cfg, params, cache, layers, routes, S):
     ``lm_forward``'s order (the dense prefix layers first, with their own
     params and caches).  An attention layer steps over the prefill's
     cache of layer l (the step writes its own k, v, or an MLA layer's
-    ``ckv`` and ``k_rope``, at p, as a decode does); a Mamba layer over
+    ``ckv`` and ``k_rope``, at p, as a decode does; a cross-attention
+    layer reads the ``enc_len`` slots of ``xkv`` the prefill wrote, as a
+    decode does); a Mamba layer over
     its own state, made by a prefill of layer l on the prefill's inputs
     at rows 0..S-1 and advanced by the steps j = 0, 1, ... in turn.  Its output must lie within
     ``LAYER_TOL`` of the prefill's output at row p (normwise over the
@@ -2054,7 +2178,9 @@ def teacher_forced(torch, say, cfg, params, cache, layers, routes, S):
     most ``FLIP_MAX`` of the (MoE layer, token) pairs may route
     otherwise.  ``layers``: each layer call's (input, output), the input
     of a Mamba layer all rows, the rest rows S..; ``routes``: each MoE
-    layer call's top-k ids."""
+    layer call's top-k ids.  With ``noise`` (an encoder-decoder model's
+    ``layer_noise``) each layer's output is held within ``BF16_REL``
+    times its own bf16 noise instead of ``LAYER_TOL``."""
     from repro_torch.models.config import LayerSpec
     from repro_torch.models.params import index_tree
     from repro_torch.models.transformer import init_layer_cache, \
@@ -2090,7 +2216,7 @@ def teacher_forced(torch, say, cfg, params, cache, layers, routes, S):
                 picked.clear()
                 y, _, _ = layer_forward(
                     lp, cfg, spec, x_in[:, j:j + 1], S + j, lc,
-                    aux_loss=False)
+                    aux_loss=False, enc_len=cache.get("enc_len"))
                 row_err.append((y[:, 0] - x_out[:, j]).abs().amax(-1))
                 row_flip.append(
                     (srt(picked[-1]) != srt(ref_ids[:, j])).any(-1)
@@ -2109,10 +2235,20 @@ def teacher_forced(torch, say, cfg, params, cache, layers, routes, S):
         f"prefill's at {flip.sum().item()} of {m * B * N} (MoE layer, "
         f"token) pairs (tol {FLIP_MAX:.0%}); output vs the prefill's, "
         f"normwise, by layer {[round(x, 4) for x in by_layer.tolist()]} "
-        f"(tol {LAYER_TOL})")
+        f"({'held below' if noise is not None else f'tol {LAYER_TOL}'})")
     check(flip.sum().item() <= FLIP_MAX * m * B * N,
           f"teacher-forced decode routes otherwise than the prefill at "
           f"{flip.sum().item()} of {m * B * N} (MoE layer, token) pairs")
+    if noise is not None:
+        ratio = [e / n for e, n in zip(by_layer.tolist(), noise)]
+        say(f"each layer's own bf16 noise (the layer in f32 on the same "
+            f"input), normwise, by layer {[round(x, 4) for x in noise]}; "
+            f"decode error / noise {[round(x, 3) for x in ratio]} (tol "
+            f"{BF16_REL}; {LAYER_TOL} is no yardstick here)")
+        check(max(ratio) <= BF16_REL,
+              f"a teacher-forced decode layer differs from the prefill's "
+              f"by {max(ratio)} x its own bf16 noise (tol {BF16_REL})")
+        return
     check(kept.numel() == 0 or kept.max().item() <= LAYER_TOL,
           f"a teacher-forced decode layer differs from the prefill's by "
           f"{kept.max().item()} (normwise, tol {LAYER_TOL})")
@@ -2325,6 +2461,23 @@ def main() -> int:
           f"mla-model launches {served}")
     launches["flash_attention"] += served["flash_attention"]
     launches["ssd_scan"] += served["ssd_scan"]
+
+    # seamless-m4t-medium whole, after deepseek-v2's params are gone
+    t = time.perf_counter()
+    captured, served = model_phase(torch, ops, ENCDEC_MODEL)
+    print(f"[encdec-model] phase {time.perf_counter() - t:.1f} s")
+    check(served["flash_attention"] > 0 and served["ssd_scan"] == 0,
+          f"encdec-model launches {served}")
+    launches["flash_attention"] += served["flash_attention"]
+    _, encdec_err = time_flash_attention(
+        torch, flash_attention_cuda, flash_attention_ref, captured,
+        lambda name: f"seamless-m4t-medium {name.split('-')[1][:-1]} "
+                     f"layer 0 on {smi}")
+    print(f"[time] flash_attention seamless-m4t-medium path normwise error "
+          f"{encdec_err:.3e}")
+    del captured
+    gc.collect()
+    torch.cuda.empty_cache()
     kernels = []
     for name, (src, replaces) in KERNELS.items():
         kernels.append(dict(name=name, route="cuda", source=src,

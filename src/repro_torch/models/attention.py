@@ -35,8 +35,14 @@ online-softmax loop in plain PyTorch, as the reference computes it in
 jnp (no Pallas kernel, and ``flash_attention`` takes one head dim where
 MLA's q.k is 192 wide and v 128): the naive form at S > 1, the absorbed
 form at S == 1, over the compressed cache written in place.
-Cross-attention (``kv_const``) and the sequence-parallel decode of a
-mesh are not ported yet: they raise or have no branch.
+
+Cross-attention (``kv_const=(k, v)``, an encoder-decoder stack's
+decoder layers): q is projected and RoPE'd at ``start .. start+S-1``
+and attends without a mask over the given k and v, which are taken as
+they stand (no RoPE, no cache write), through ``ops.flash_attention``.
+The reference passes ``kv_pos = arange(S_enc)`` and ``causal=False``
+there, so its mask drops nothing.  The sequence-parallel decode of a
+mesh is not ported yet: it has no branch.
 """
 from __future__ import annotations
 
@@ -163,11 +169,10 @@ def gqa_forward(params, cfg: ModelConfig, x: torch.Tensor, start: int = 0,
     """x: (B,S,D); ``start``: the position of x's first token (an int).
 
     cache: {"k": (B,cap,Hkv,hd), "v": ..., "pos": (cap,)}, written in
-    place at ``start .. start+S-1``.  Returns (out (B,S,D), cache)."""
-    if kv_const is not None:
-        raise NotImplementedError(
-            "cross-attention (kv_const) is not ported yet: ROADMAP Queue 1 "
-            "item 8 (encdec.py, seamless)")
+    place at ``start .. start+S-1``.  ``kv_const``: (k, v) of shape
+    (B, S_enc, Hkv, hd) to attend over without a mask (cross-attention;
+    only q takes RoPE, and the cache is not read).  Returns (out (B,S,D),
+    cache), the cache None with ``kv_const``."""
     B, S, d = x.shape
     wq = params["wq"]
     H, hd = wq.shape[1], wq.shape[2]
@@ -176,11 +181,17 @@ def gqa_forward(params, cfg: ModelConfig, x: torch.Tensor, start: int = 0,
                              device=x.device)
     if rope:
         q = apply_rope(q, positions, cfg.rope_theta)
+    softcap = cfg.attn_logit_softcap
+    wo = params["wo"]
+    if kv_const is not None:
+        k, v = kv_const
+        out = ops.flash_attention(q, k, v, causal=False, window=None,
+                                  logit_softcap=softcap)
+        return out.reshape(B, S, H * hd) @ wo.reshape(H * hd, -1), None
     k, v = project_kv(params, x)
     if rope:
         k = apply_rope(k, positions, cfg.rope_theta)
 
-    softcap = cfg.attn_logit_softcap
     if cache is None:
         # positions shift q and k alike: the mask depends on q_pos - k_pos
         out = ops.flash_attention(q, k, v, causal=causal, window=window,
@@ -204,7 +215,6 @@ def gqa_forward(params, cfg: ModelConfig, x: torch.Tensor, start: int = 0,
                                       causal=causal, window=window,
                                       logit_softcap=softcap)
         cache = {"k": ck, "v": cv, "pos": cpos}
-    wo = params["wo"]
     out = out.reshape(B, S, H * hd) @ wo.reshape(H * hd, -1)
     return out, cache
 

@@ -16,16 +16,19 @@ with no FFN, a dense one or a MoE one (``models/moe.py::moe_ffn``), the
 dense prefix layers (``first_k_dense``), with or without gemma2's
 post-norms, tied or untied embeddings and the final logit softcap:
 gemma2-9b, llama3-8b, deepseek-7b, starcoder2-3b, phi3.5-MoE,
-deepseek-v2, mamba2-1.3b and jamba end to end.  What raises
-``NotImplementedError`` (ROADMAP Queue 1 item 8): cross-attention and
-``encdec.py`` (seamless), ``media_embeds`` (pixtral).
+deepseek-v2, mamba2-1.3b and jamba end to end, and the decoder of
+``encdec.py`` (seamless), whose cross-attention layers
+(``LayerSpec(cross_attn=True)``) attend over the encoder output after
+self-attention and before the FFN, as the reference's
+``layer_forward``.  What raises ``NotImplementedError`` (ROADMAP Queue 1
+item 8): ``media_embeds`` (pixtral).
 
 Metrics, as the reference's: ``aux_loss`` and ``dropped`` summed over
 the layers, and for a config with ``moe`` set ``expert_counts`` of shape
 (n_periods, E), each period's pattern positions summed.  A dense config
 launches nothing for them (host zeros, made tensors once at the end).
 
-Caches hold one extra entry beside the reference's tree: ``"filled"``,
+Caches hold an extra entry beside the reference's tree: ``"filled"``,
 a host-side count of the positions that prefill and decode have taken
 in (an attention layer's slots, GQA's k / v or MLA's ``ckv`` /
 ``k_rope``, ``0..filled-1`` hold positions ``0..filled-1``).  A step
@@ -38,6 +41,19 @@ from zero and ``filled`` from S (the reference's one-token step would
 continue from whatever state the cache holds).  An attention stack, MLA
 included, rolls back: a step at any ``start <= filled`` overwrites the
 slots from ``start`` on.
+
+A stack with cross-attention layers keeps each layer's projected
+encoder output in its cache as ``xkv`` {k, v} of (B, enc_cap, Hkv, hd)
+in bf16, and a second host-side entry, ``"enc_len"``: how many of those
+slots the last step with an encoder output wrote.  A step with
+``enc_out`` (B, S_enc, D) writes slots ``[:S_enc]`` in place, sets
+``enc_len`` to S_enc and attends over the fresh projections (the
+reference attends over them too, and returns them as its new ``xkv``,
+whose length is then S_enc); a step without one attends over slots
+``[:enc_len]``, which is what the reference's decode reads.  A step
+without ``enc_out`` over a cache whose ``enc_len`` is 0 (the reference
+would attend over zeros), or without either, and a step with S_enc past
+``enc_cap``, raise ``ValueError`` before any write.
 """
 from __future__ import annotations
 
@@ -46,7 +62,7 @@ from typing import Optional, Tuple
 import torch
 
 from .attention import gqa_forward, init_attention, init_mla_attention, \
-    mla_forward
+    mla_forward, project_kv
 from .config import LayerSpec, ModelConfig
 from .layers import embed, ffn, init_embedding, init_ffn, init_rmsnorm, \
     init_unembed, rmsnorm, softcap, unembed
@@ -58,20 +74,12 @@ from .ssd import init_mamba, init_mamba_cache, mamba_decode, mamba_forward
 CACHE_DTYPE = torch.bfloat16       # the reference's cache dtype
 
 
-def _unported(cfg: ModelConfig, spec: LayerSpec) -> None:
-    if spec.cross_attn:
-        raise NotImplementedError(
-            f"{cfg.name}: cross-attention is not ported yet (ROADMAP Queue 1 "
-            f"item 8: encdec.py)")
-
-
 # ---------------------------------------------------------------------------
 # Per-layer init
 # ---------------------------------------------------------------------------
 
 def init_layer(ini: Initializer, cfg: ModelConfig, spec: LayerSpec,
                d_ff_override: int = 0):
-    _unported(cfg, spec)
     if spec.kind == "attn":
         p = {"attn_norm": init_rmsnorm(ini, cfg.d_model),
              "attn": (init_mla_attention(ini, cfg) if cfg.mla
@@ -81,6 +89,9 @@ def init_layer(ini: Initializer, cfg: ModelConfig, spec: LayerSpec,
     else:
         p = {"mamba_norm": init_rmsnorm(ini, cfg.d_model),
              "mamba": init_mamba(ini, cfg)}
+    if spec.cross_attn:
+        p["cross_norm"] = init_rmsnorm(ini, cfg.d_model)
+        p["cross"] = init_attention(ini, cfg)
     if spec.ffn != "none":
         p["ffn_norm"] = init_rmsnorm(ini, cfg.d_model)
         if spec.ffn == "moe":
@@ -95,52 +106,76 @@ def init_layer(ini: Initializer, cfg: ModelConfig, spec: LayerSpec,
 
 
 def init_layer_cache(cfg: ModelConfig, spec: LayerSpec, batch: int, cap: int,
-                     device="cuda"):
+                     device="cuda", enc_cap: int = 0):
     """Cache tree for one layer: an attention layer's bf16 k and v (an
     MLA layer's bf16 ``ckv`` (B, cap, r) and ``k_rope`` (B, cap, rope))
     and ``pos`` (-1 = empty), or a Mamba layer's bf16 ``conv`` (B, w-1, C)
-    and f32 ``ssm`` (B, H, P, N), as the reference's."""
-    _unported(cfg, spec)
+    and f32 ``ssm`` (B, H, P, N), as the reference's; a cross-attention
+    layer's bf16 ``xkv`` {k, v} (B, enc_cap, Hkv, hd) beside it."""
+    zeros = lambda *shape: torch.zeros(shape, dtype=CACHE_DTYPE,
+                                       device=device)
+    hkv, hd = cfg.n_kv_heads, cfg.head_dim_
     if spec.kind != "attn":
-        return {"mamba": init_mamba_cache(cfg, batch, CACHE_DTYPE, device)}
-    pos = torch.full((cap,), -1, dtype=torch.int32, device=device)
-    if cfg.mla:
-        m = cfg.mla
-        return {"kv": {
-            "ckv": torch.zeros((batch, cap, m.kv_lora_rank),
-                               dtype=CACHE_DTYPE, device=device),
-            "k_rope": torch.zeros((batch, cap, m.qk_rope_dim),
-                                  dtype=CACHE_DTYPE, device=device),
-            "pos": pos,
-        }}
-    shape = (batch, cap, cfg.n_kv_heads, cfg.head_dim_)
-    return {"kv": {
-        "k": torch.zeros(shape, dtype=CACHE_DTYPE, device=device),
-        "v": torch.zeros(shape, dtype=CACHE_DTYPE, device=device),
-        "pos": pos,
-    }}
+        c = {"mamba": init_mamba_cache(cfg, batch, CACHE_DTYPE, device)}
+    else:
+        pos = torch.full((cap,), -1, dtype=torch.int32, device=device)
+        if cfg.mla:
+            m = cfg.mla
+            c = {"kv": {"ckv": zeros(batch, cap, m.kv_lora_rank),
+                        "k_rope": zeros(batch, cap, m.qk_rope_dim),
+                        "pos": pos}}
+        else:
+            c = {"kv": {"k": zeros(batch, cap, hkv, hd),
+                        "v": zeros(batch, cap, hkv, hd), "pos": pos}}
+    if spec.cross_attn:
+        c["xkv"] = {"k": zeros(batch, enc_cap, hkv, hd),
+                    "v": zeros(batch, enc_cap, hkv, hd)}
+    return c
 
 
 # ---------------------------------------------------------------------------
 # Per-layer forward
 # ---------------------------------------------------------------------------
 
+def _check_cross(xkv, enc_out, enc_len: Optional[int]) -> None:
+    """The cross-attention rules of the module docstring, before any
+    write.  ``xkv``: a cross layer's cache entry (or its stack), None
+    without a cache; ``enc_len``: the slots a step without ``enc_out``
+    reads."""
+    if enc_out is None:
+        if xkv is None:
+            raise ValueError(
+                "a cross-attention layer needs the encoder output or a "
+                "cache that holds its projection")
+        if enc_len == 0:
+            raise ValueError(
+                "the cache holds no encoder output: run a step with the "
+                "frames (a prefill) first")
+    elif xkv is not None and enc_out.shape[1] > xkv["k"].shape[-3]:
+        raise ValueError(
+            f"an encoder output of {enc_out.shape[1]} frames overflows the "
+            f"cache's {xkv['k'].shape[-3]} cross-attention slots")
+
+
 def layer_forward(p, cfg: ModelConfig, spec: LayerSpec, x: torch.Tensor,
                   start: int = 0, cache=None, enc_out=None,
-                  causal: bool = True, aux_loss: bool = True):
+                  causal: bool = True, aux_loss: bool = True,
+                  enc_len: Optional[int] = None):
     """Returns (x, new_cache, metrics); ``start`` is the position of x's
     first token.  The cache is written in place (``new_cache`` holds the
     same tensors): a Mamba layer's one-token step over a cache takes
     ``mamba_decode``, anything else ``mamba_forward`` from the zero
-    state, as the reference branches.  A dense layer adds no aux loss
-    and drops nothing: its metrics are host zeros, so a decode step
-    launches no kernels for them.  A MoE layer's metrics are
-    ``moe_ffn``'s (``aux_loss=False`` skips its load-balance loss)."""
-    _unported(cfg, spec)
-    if enc_out is not None:
-        raise NotImplementedError(
-            "enc_out (encoder-decoder stacks) is not ported yet: ROADMAP "
-            "Queue 1 item 8")
+    state, as the reference branches.  A cross-attention layer projects
+    ``enc_out`` (B, S_enc, D), writes it to ``xkv[:, :S_enc]`` and
+    attends over the fresh projection; without ``enc_out`` it attends
+    over ``xkv[:, :enc_len]`` (every slot when ``enc_len`` is None).  A
+    dense layer adds no aux loss and drops nothing: its metrics are host
+    zeros, so a decode step launches no kernels for them.  A MoE layer's
+    metrics are ``moe_ffn``'s (``aux_loss=False`` skips its load-balance
+    loss)."""
+    if spec.cross_attn:
+        _check_cross(cache["xkv"] if cache is not None else None, enc_out,
+                     enc_len)
     new_cache = {} if cache is not None else None
     if spec.kind == "attn":
         h = rmsnorm(p["attn_norm"], x, cfg.rms_eps)
@@ -168,6 +203,22 @@ def layer_forward(p, cfg: ModelConfig, spec: LayerSpec, x: torch.Tensor,
                 mc[name].copy_(state[name])
             new_cache["mamba"] = mc
     x = x + a
+    if spec.cross_attn:
+        xc = cache["xkv"] if cache is not None else None
+        if enc_out is not None:
+            xk, xv = project_kv(p["cross"], enc_out)
+            if xc is not None:
+                n = xk.shape[1]
+                xc["k"][:, :n] = xk.to(xc["k"].dtype)
+                xc["v"][:, :n] = xv.to(xc["v"].dtype)
+        else:
+            n = xc["k"].shape[1] if enc_len is None else enc_len
+            xk, xv = xc["k"][:, :n], xc["v"][:, :n]
+        h = rmsnorm(p["cross_norm"], x, cfg.rms_eps)
+        a, _ = gqa_forward(p["cross"], cfg, h, start, kv_const=(xk, xv))
+        x = x + a
+        if new_cache is not None:
+            new_cache["xkv"] = xc
     metrics = {"aux_loss": 0.0, "dropped": 0.0}
     if spec.ffn != "none":
         h = rmsnorm(p["ffn_norm"], x, cfg.rms_eps)
@@ -191,7 +242,12 @@ def init_lm(seed: int, cfg: ModelConfig, device="cuda") -> ParamTree:
     from ``seed``.  Each stack is filled one drawn layer at a time, so
     the peak is the params plus one layer.  On the ``meta`` device
     nothing is allocated (parameter counts)."""
-    ini = Initializer(seed, device, dtype=torch.bfloat16)
+    return ParamTree(lm_tree(Initializer(seed, device, dtype=torch.bfloat16),
+                             cfg))
+
+
+def lm_tree(ini: Initializer, cfg: ModelConfig) -> dict:
+    """:func:`init_lm`'s tree as nested dicts, drawn from ``ini``."""
     params = {
         "embed": init_embedding(ini, cfg.padded_vocab, cfg.d_model),
         "final_norm": init_rmsnorm(ini, cfg.d_model),
@@ -206,10 +262,14 @@ def init_lm(seed: int, cfg: ModelConfig, device="cuda") -> ParamTree:
         f"pos{pos}": stack_draws(lambda: init_layer(ini, cfg, spec),
                                  cfg.n_periods)
         for pos, spec in enumerate(cfg.pattern)}
-    return ParamTree(params)
+    return params
 
 
-def init_lm_cache(cfg: ModelConfig, batch: int, cap: int, device="cuda"):
+def init_lm_cache(cfg: ModelConfig, batch: int, cap: int, device="cuda",
+                  enc_cap: int = 0):
+    """The reference's cache tree (``enc_cap`` slots of ``xkv`` in each
+    cross-attention layer), the host-side ``"filled"``, and ``"enc_len"``
+    when the stack has a cross-attention layer."""
     cache = {}
     dense_spec = LayerSpec(kind="attn", ffn="dense")
     for i in range(cfg.first_k_dense):
@@ -217,16 +277,24 @@ def init_lm_cache(cfg: ModelConfig, batch: int, cap: int, device="cuda"):
                                                device)
     cache["blocks"] = {
         f"pos{pos}": stack_pspecs([
-            init_layer_cache(cfg, spec, batch, cap, device)
+            init_layer_cache(cfg, spec, batch, cap, device, enc_cap)
             for _ in range(cfg.n_periods)])
         for pos, spec in enumerate(cfg.pattern)}
     cache["filled"] = 0
+    if _cross_position(cfg) is not None:
+        cache["enc_len"] = 0
     return cache
 
 
 # ---------------------------------------------------------------------------
 # Whole-model forward
 # ---------------------------------------------------------------------------
+
+def _cross_position(cfg: ModelConfig) -> Optional[str]:
+    """The key of the first cross-attention pattern position, or None."""
+    return next((f"pos{pos}" for pos, spec in enumerate(cfg.pattern)
+                 if spec.cross_attn), None)
+
 
 def _capacity(cache) -> Optional[int]:
     """Slots of a cache tree from ``init_lm_cache`` (every attention
@@ -276,7 +344,9 @@ def lm_forward(params, cfg: ModelConfig, tokens: torch.Tensor,
                enc_out=None, remat: bool = False, aux_loss: bool = True
                ) -> Tuple[torch.Tensor, Optional[dict], dict]:
     """tokens: (B, S); ``start``: the position of the first token (0 for
-    prefill and forward, ``pos`` for a decode step).  ``remat`` changes
+    prefill and forward, ``pos`` for a decode step).  ``enc_out``: the
+    encoder output (B, S_enc, D) of a stack with cross-attention layers,
+    or None to read the cache's (module docstring).  ``remat`` changes
     nothing without a backward pass; ``aux_loss=False`` skips the MoE
     layers' load-balance loss (the metric stays 0).  Returns (logits,
     cache, metrics); the cache is written in place and returned."""
@@ -284,12 +354,13 @@ def lm_forward(params, cfg: ModelConfig, tokens: torch.Tensor,
         raise NotImplementedError(
             "media_embeds (pixtral's stub frontend) is not ported yet: "
             "ROADMAP Queue 1 item 8")
-    if enc_out is not None:
-        raise NotImplementedError(
-            "enc_out (encoder-decoder stacks) is not ported yet: ROADMAP "
-            "Queue 1 item 8")
     B, S = tokens.shape
-    mamba = []
+    mamba, enc_len, cross = [], None, _cross_position(cfg)
+    if cross is not None:
+        if cache is not None and enc_out is None:
+            enc_len = cache["enc_len"]
+        _check_cross(cache["blocks"][cross]["xkv"] if cache is not None
+                     else None, enc_out, enc_len)
     if cache is not None:
         mamba = _mamba_states(cache)
         _check_step(cache, start, S, bool(mamba))
@@ -314,7 +385,8 @@ def lm_forward(params, cfg: ModelConfig, tokens: torch.Tensor,
             c = (index_tree(cache["blocks"][key], i) if cache is not None
                  else None)
             x, _, m = layer_forward(index_tree(blocks[key], i), cfg, spec, x,
-                                    start, c, aux_loss=aux_loss)
+                                    start, c, enc_out, aux_loss=aux_loss,
+                                    enc_len=enc_len)
             aux = aux + m["aux_loss"]
             dropped = dropped + m["dropped"]
             if "expert_counts" in m:
@@ -333,6 +405,8 @@ def lm_forward(params, cfg: ModelConfig, tokens: torch.Tensor,
     if cache is not None:
         cache["filled"] = (start + S if mamba
                            else max(cache["filled"], start + S))
+        if cross is not None and enc_out is not None:
+            cache["enc_len"] = enc_out.shape[1]
     metrics = {k: v if isinstance(v, torch.Tensor) else torch.zeros(
         (), dtype=torch.float32, device=logits.device)
         for k, v in (("aux_loss", aux), ("dropped", dropped))}

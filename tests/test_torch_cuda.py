@@ -743,6 +743,135 @@ def test_mla_model_prefill_and_decode_on_the_card(cuda, dtype, monkeypatch):
         assert (a[keep] - b[keep]).abs().max() <= tol * b.abs().max()
 
 
+# seamless-m4t-medium's attention (D 64, H = Hkv = 16, no mask): the
+# encoder's Sq = Sk, the cross-attention prefill's Sq > Sk, the decode's
+# Sq = 1 (G * Sq = 1) over a slice of the cross cache
+XATTN_CASES = [(300, 100, "wgmma_prefill"), (1000, 256, "wgmma_prefill"),
+               (1024, 1024, "wgmma_prefill"), (1, 1000, "split_k_decode")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Sq,Sk,path", XATTN_CASES)
+def test_flash_attention_cross_attention_shapes_equal_plain(cuda, Sq, Sk,
+                                                            path):
+    """Non-causal, no window or softcap, k and v the first Sk of 1100
+    slots of a cache (read in place: equal to contiguous copies bit for
+    bit)."""
+    q = _fa_inputs(2, Sq, 1, 16, 16, 64, torch.bfloat16, cuda, seed=Sq)[0]
+    _, ck, cv = _fa_inputs(2, 1, 1100, 16, 16, 64, torch.bfloat16, cuda,
+                           seed=Sk)
+    k, v = ck[:, :Sk], cv[:, :Sk]
+    kw = dict(causal=False, window=None, logit_softcap=0.0)
+    out = ops.flash_attention(q, k, v, **kw)
+    assert fa_mod.last_path == path
+    assert torch.equal(out, ops.flash_attention(q, k.contiguous(),
+                                                v.contiguous(), **kw))
+    ref = TR.flash_attention_ref(q, k, v, **kw)
+    torch.testing.assert_close(out.float(), ref.float(),
+                               **_fa_tol(torch.bfloat16))
+
+
+@pytest.mark.cuda
+def test_encdec_model_prefill_and_decode_on_the_card(cuda, monkeypatch):
+    """seamless-m4t-medium at smoke scale with heads of 64 (2 encoder and
+    2 decoder layers, 4 / 4 heads), bf16: a prefill of 300 tokens and 75
+    frames (the wgmma prefill in the encoder and in both attentions of
+    each decoder layer) and three decode steps over a cache of 80
+    cross-attention slots (the split-K decode over ``enc_len`` = 75 of
+    them).  Each prefill launches ``flash_attention`` 2 + 2 x 2 times and
+    each decode step 2 x 2, and two runs are equal bit for bit.
+
+    Random-weight seamless is chaotic in depth (its attention is close to
+    an argmax: ``tools/encdec_depth_witness.py``), so the card's logits
+    are not held to the host's after four layers.  Every layer call is
+    held instead, against the same layer run by the plain path on the
+    host from a host copy of the card's input, cache and encoder output:
+    its output no farther from the host's bf16 output than that lies from
+    the host's f32 run of the layer (weights, input, cache and encoder
+    output cast up), ``test_torch_model.py``'s bf16 rule with
+    ``BF16_REL`` 1 (bf16 rounding alone moves a layer by several % here),
+    and every cache leaf it writes within 2e-2 of max|host|, normwise."""
+    import copy
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.models import encdec as encdec_mod
+    from repro_torch.models import transformer as tf_mod
+    from repro_torch.models.model import Model
+    cfg = get_config("seamless-m4t-medium").smoke().replace(head_dim=64)
+    model = Model(cfg)
+    params = model.init(0, device="cpu")
+    card = copy.deepcopy(params).to(cuda)
+    rng = np.random.default_rng(0)
+    B, S, N, S_ENC = 2, 300, 3, 75
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (B, S + N)).astype(
+        np.int32)).to(cuda)
+    frames = torch.from_numpy(rng.standard_normal(
+        (B, S_ENC, cfg.d_model)).astype(np.float32)).to(cuda, torch.bfloat16)
+    prefill, decode = make_prefill_step(model), make_decode_step(model)
+    real = tf_mod.layer_forward
+    errs = []
+
+    def host(tree, f32=False):
+        if isinstance(tree, dict):
+            return {k: host(v, f32) for k, v in tree.items()}
+        if not isinstance(tree, torch.Tensor):
+            return tree
+        t = tree.cpu().clone()
+        return t.float() if f32 and t.is_floating_point() else t
+
+    def twin(p, cfg_, spec, x, start=0, cache=None, enc_out=None, **kw):
+        h_cache, h32_cache = host(cache), host(cache, f32=True)
+        args = (start, h_cache, host(enc_out))
+        h16 = real(host(p), cfg_, spec, host(x), *args, **kw)[0].float()
+        h32 = real(host(p, True), cfg_, spec, host(x, True), start,
+                   h32_cache, host(enc_out, True), **kw)[0]
+        out = real(p, cfg_, spec, x, start, cache, enc_out, **kw)
+        errs.append(("layer", ((out[0].float().cpu() - h16).abs().max()
+                               / (h16 - h32).abs().max()).item()))
+        if cache is not None:
+            for kind, leaves in cache.items():
+                for n, t in leaves.items():
+                    if n != "pos":
+                        b = h_cache[kind][n].float()
+                        errs.append((f"{kind} {n}", (
+                            (t.float().cpu() - b).abs().max()
+                            / b.abs().max() / 2e-2).item()))
+        return out
+
+    def serve(tap):
+        if tap:
+            monkeypatch.setattr(tf_mod, "layer_forward", twin)
+            monkeypatch.setattr(encdec_mod, "layer_forward", twin)
+        cache = model.init_cache(B, S + N, device=cuda, enc_cap=80)
+        ops.reset_launches()
+        outs = [prefill(card, cache, {"tokens": toks[:, :S],
+                                      "frames": frames})[0]]
+        counts = [ops.launches().get("flash_attention", 0)]
+        paths = [fa_mod.last_path]
+        for j in range(N):
+            ops.reset_launches()
+            out, cache = decode(card, cache, toks[:, S + j:S + j + 1], S + j)
+            counts.append(ops.launches().get("flash_attention", 0))
+            paths.append(fa_mod.last_path)
+            outs.append(out)
+        monkeypatch.undo()
+        assert cache["filled"] == S + N and cache["enc_len"] == S_ENC
+        return outs, counts, paths
+
+    outs, counts, paths = serve(tap=False)
+    assert counts == [cfg.n_enc_layers + 2 * cfg.n_layers] + \
+        [2 * cfg.n_layers] * N
+    assert paths == ["wgmma_prefill"] + ["split_k_decode"] * N
+    assert all(torch.isfinite(o).all() for o in outs)
+    again, _, _ = serve(tap=True)
+    assert all(torch.equal(a, b) for a, b in zip(outs, again))
+    n_calls = sum(what == "layer" for what, _ in errs)
+    assert n_calls == cfg.n_enc_layers + cfg.n_layers * (N + 1)
+    # each entry is an error over its bound
+    worst = max(errs, key=lambda e: e[1])
+    assert worst[1] <= 1.0, worst
+
+
 def _serving_runtime(device, cfg, controller=None):
     from repro_torch.core import EngineConfig, MorpheusRuntime, SketchConfig
     from repro_torch.serving import build_params, build_tables, \
