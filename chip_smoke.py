@@ -179,6 +179,37 @@
    prefill and at the last decode step) against its plain version and
    SDPA.
 
+12. VLM model phase: pixtral-12b (``src/repro/configs/pixtral_12b.py``)
+   whole (40 layers, d_model 5120, 32 / 8 heads x 128, d_ff 14336, vocab
+   131072), after seamless's params are released, the same way: each of
+   2 sequences is 1024 media embeddings from the seed (the stub
+   frontend's, bf16) followed by 3072 random text tokens, then 32 greedy
+   decode steps from position 4096, twice.  It fails unless
+   ``flash_attention`` launched 40 times in every prefill and every
+   decode step, never ``ssd_scan``, the logits cover all 4096 positions
+   and are finite, the two runs are equal bit for bit and every layer of
+   the decode path, fed the prefill's input and cache (the media's slots
+   included), lies no farther from the prefill's output than bf16
+   rounding moves that layer, as phase 11 holds seamless.  Then the
+   kernel on its layer 0's own q, k, v against its plain version and
+   SDPA.
+13. Hybrid model phase: jamba-v0.1-52b
+   (``src/repro/configs/jamba_v0p1_52b.py``) at every published width,
+   cut to 16 of its 32 layers (two periods of 8: an attention layer at
+   position 2, Mamba layers elsewhere, MoE FFNs of 16 experts top-2 on
+   the odd positions), after pixtral's params are released, the same
+   way: 2 x 4096 random tokens and 32 greedy decode steps, twice.  It
+   fails unless ``flash_attention`` launched twice in every call,
+   ``ssd_scan`` 14 times in every prefill and never in a decode step,
+   the logits are finite, the two runs are equal bit for bit, the expert
+   counts sum right and every layer of the decode path (a Mamba layer
+   over the state its prefill of the prompt's rows leaves) gives the
+   prefill's output within ``LAYER_TOL`` where it routes as the prefill
+   did.  It prints the routing flips, host syncs per decode step (one
+   per MoE layer), the profile and the peak memory; then ``ssd_scan`` on
+   its layer 0's own bf16 inputs (H 128 at B 2) against its plain
+   version, timed and against its bound.
+
 In every model phase the kernels JSON counts ``flash_attention``'s and
 ``ssd_scan``'s launches over the two served runs alone (counts zeroed
 just before the first, read just after the second), not over the checks
@@ -1633,6 +1664,28 @@ MLA_MODEL = dict(tag="mla-model", arch="deepseek-v2-236b", batch=2,
 # held per layer.
 ENCDEC_MODEL = dict(tag="encdec-model", arch="seamless-m4t-medium", batch=4,
                     prompt=4096, decode=32, seed=0, layers=None,
+                    per_layer=True, noise=True)
+# pixtral-12b whole (12.25 B params, 22.8 GiB in bf16): each of 2
+# sequences is 1024 media embeddings from the seed (the stub frontend's,
+# bf16) then 3072 text tokens, the 4096 positions configs/shapes.py
+# carves; every prefill and decode step of its 40 layers through
+# flash_attention at D 128, GQA 4.  Its random wq and wk make it chaotic
+# in depth as seamless is (the comment at LAYER_TOL), so it is held per
+# layer against each layer's own bf16 noise.
+PIXTRAL_MODEL = dict(tag="vlm-model", arch="pixtral-12b", batch=2,
+                     prompt=3072, media=1024, decode=32, seed=0, layers=None,
+                     per_layer=True, noise=True)
+# jamba-v0.1-52b at every published width (d_model 4096, 32 / 8 heads x
+# 128; Mamba2 of 128 SSD heads x P 64, N 128, G 1, conv 4, chunk 256; 16
+# experts top-2 x 14336 on the odd layers, dense d_ff 14336 on the even;
+# vocab 65536), cut to 16 of its 32 layers, two periods of 8: 2
+# attention layers, 14 Mamba layers, 8 MoE FFNs, 26.01 B params and
+# 48.4 GiB in bf16 (whole, 51.49 B params are 95.9 GiB, past one 80 GB
+# card).  The one stack where attention, Mamba and MoE layers meet:
+# flash_attention in 2 layers a call, ssd_scan in 14 a prefill, 8 host
+# reads a decode step.
+HYBRID_MODEL = dict(tag="hybrid-model", arch="jamba-v0.1-52b", batch=2,
+                    prompt=4096, decode=32, seed=0, layers=16,
                     per_layer=True)
 # phi3.5-MoE from random weights is chaotic in depth: a difference in
 # the last bits grows many times over in every layer, in the reference as
@@ -1664,7 +1717,12 @@ ENCDEC_MODEL = dict(tag="encdec-model", arch="seamless-m4t-medium", batch=4,
 # there: each decoder layer's decode is held, as the CPU tests
 # hold bf16 results, within BF16_REL times that layer's own bf16-vs-f32
 # distance over the decode rows (``layer_noise``); a decode step reads
-# the prefill's cross-attention slots.
+# the prefill's cross-attention slots.  pixtral-12b is held the same way
+# (a spec's ``noise``): its wq and wk are drawn the same way at d_model
+# 5120 and 32 heads, so its attention logits have a std of ~300 and one
+# bf16 ulp in every input element moves a layer's output by 26 % of its
+# max after one layer and by > 100 % after five, in the reference as in
+# the port (tools/vlm_depth_witness.py).
 LAYER_TOL, FLIP_MAX, BF16_REL = 2e-2, 0.05, 1.0
 
 
@@ -1773,11 +1831,12 @@ def visible_pairs(Sq: int, Sk: int, causal: bool, window) -> int:
 
 
 def model_phase(torch, ops, spec):
-    """One model (``MODEL``, ``MOE_MODEL``, ``SSM_MODEL``, ``MLA_MODEL``
-    or ``ENCDEC_MODEL``) at full width through ``make_prefill_step`` /
-    ``make_decode_step``: prefill B x S tokens (and an encoder-decoder
-    model's frames), then N greedy decode steps, twice (the main path),
-    then checks.  Every GQA attention layer launches ``flash_attention``
+    """One model (``MODEL``, ``MOE_MODEL``, ``SSM_MODEL``, ``MLA_MODEL``,
+    ``ENCDEC_MODEL``, ``PIXTRAL_MODEL`` or ``HYBRID_MODEL``) at full width
+    through ``make_prefill_step`` / ``make_decode_step``: prefill B x S
+    tokens (after a VLM's M media embeddings, so P = M + S positions; and
+    an encoder-decoder model's frames), then N greedy decode steps from
+    position P, twice (the main path), then checks.  Every GQA attention layer launches ``flash_attention``
     once per call, a cross-attention layer once more, an encoder layer
     once per prefill, an MLA layer never (it attends in plain PyTorch);
     every Mamba layer launches ``ssd_scan`` once per prefill and never at
@@ -1806,6 +1865,8 @@ def model_phase(torch, ops, spec):
     cfg = (whole if spec["layers"] is None
            else whole.replace(n_layers=spec["layers"]))
     B, S, N = spec["batch"], spec["prompt"], spec["decode"]
+    M = spec.get("media", 0)
+    P = M + S                      # positions a prefill covers
     moe = cfg.moe
     # launches each call kind must make, by kernel
     n_attn = cfg.first_k_dense + cfg.n_periods * sum(
@@ -1867,9 +1928,9 @@ def model_phase(torch, ops, spec):
     # an encoder-decoder model's frames: S / enc_seq_divisor of them, as
     # configs/shapes.py sizes its inputs and cross-attention slots
     enc_cap = S // cfg.enc_seq_divisor if cfg.encdec else 0
-    cache_bytes = tree_bytes(torch, model.init_cache(B, S + N, "meta",
+    cache_bytes = tree_bytes(torch, model.init_cache(B, P + N, "meta",
                                                      enc_cap=enc_cap))
-    slots = f"{S + N} slots" + (f" and {enc_cap} cross-attention slots"
+    slots = f"{P + N} slots" + (f" and {enc_cap} cross-attention slots"
                                 if enc_cap else "")
     say(f"cache of {slots}: {cache_bytes / 2**20:.1f} MiB")
     gen = torch.Generator(device="cuda").manual_seed(spec["seed"])
@@ -1882,6 +1943,12 @@ def model_phase(torch, ops, spec):
                                       dtype=torch.bfloat16)
         say(f"frames {tuple(batch['frames'].shape)} bf16 from seed "
             f"{spec['seed']} (the stub frontend's embeddings)")
+    if M:
+        batch["media"] = torch.randn((B, M, cfg.d_model), generator=gen,
+                                     device="cuda", dtype=torch.bfloat16)
+        say(f"media {tuple(batch['media'].shape)} bf16 from seed "
+            f"{spec['seed']} (the stub frontend's embeddings) before {S} "
+            f"text tokens: {P} positions a sequence")
     prefill, decode = make_prefill_step(model), make_decode_step(model)
     count = lambda: {k: ops.launches().get(k, 0) for k in want}
     n_pattern = len(cfg.pattern)
@@ -1933,7 +2000,7 @@ def model_phase(torch, ops, spec):
         return {k: v - n0[k] for k, v in count().items()}
 
     def serve(capture: bool):
-        cache = model.init_cache(B, S + N, enc_cap=enc_cap)
+        cache = model.init_cache(B, P + N, enc_cap=enc_cap)
         torch.cuda.synchronize()
         n0, t = count(), time.perf_counter()
         with route_tap(served) if capture else contextlib.nullcontext():
@@ -1954,7 +2021,7 @@ def model_phase(torch, ops, spec):
                 n0 = count()
                 taps(capture and step == N - 1, "decode")
                 try:
-                    lg, cache = decode(params, cache, nxt, S + step)
+                    lg, cache = decode(params, cache, nxt, P + step)
                 finally:
                     taps(False, "")
                 per_call.append(since(n0))
@@ -1964,7 +2031,7 @@ def model_phase(torch, ops, spec):
                 fed.append(nxt)
             torch.cuda.synchronize()
         t_dec = (time.perf_counter() - t) / N
-        check(cache["filled"] == S + N, f"cache filled {cache['filled']}")
+        check(cache["filled"] == P + N, f"cache filled {cache['filled']}")
         del cache
         return (logits, torch.cat(dec, 1), torch.cat(fed, 1), per_call,
                 t_pre, t_dec)
@@ -1988,10 +2055,10 @@ def model_phase(torch, ops, spec):
     check_calls(calls1)
     check(bool(torch.isfinite(pre1).all())
           and bool(torch.isfinite(dec1).all()), "non-finite logits")
-    check(pre1.shape == (B, S, cfg.padded_vocab)
+    check(pre1.shape == (B, P, cfg.padded_vocab)
           and dec1.shape == (B, N, cfg.padded_vocab),
           f"logits {tuple(pre1.shape)} {tuple(dec1.shape)}")
-    say(f"run 1 on {card}: prefill {B} x {S} tokens {t_pre * 1e3:.1f} ms, "
+    say(f"run 1 on {card}: prefill {B} x {P} positions {t_pre * 1e3:.1f} ms, "
         f"decode {t_dec * 1e3:.2f} ms/token (batch {B}, {N} steps); "
         f"launches per call {calls1[0]} (prefill), {calls1[1]} (each "
         f"decode step)")
@@ -2014,26 +2081,27 @@ def model_phase(torch, ops, spec):
     del pre1, pre2, dec2
     torch.cuda.empty_cache()
 
-    # decode logits at position S + j against row S + j of one prefill
-    # of the same S + N tokens (causal: row p reads tokens 0..p only)
+    # decode logits at position P + j against row P + j of one prefill
+    # of the same media and S + N tokens (causal: row p reads 0..p only)
     tokens = torch.cat([prompt, fed1[:, :N]], dim=1)
-    cache = model.init_cache(B, S + N, enc_cap=enc_cap)
+    cache = model.init_cache(B, P + N, enc_cap=enc_cap)
     routes = []
     # each layer's input (a Mamba layer's all rows, an attention layer's
-    # rows S..) and output rows S..
+    # rows P..) and output rows P..
     layers = []
     real_layer = tf_mod.layer_forward
 
-    # an encoder-decoder model's decoder layers: each one's whole input and
-    # the encoder output, for the bf16 yardstick (``layer_noise``)
+    # with a spec's ``noise``, each (decoder) layer's whole input and the
+    # encoder output (None without one), for the bf16 yardstick
+    # (``layer_noise``)
     full = []
 
     def tap_layer(p, cfg_, spec_, x, *a, **kw):
         out = real_layer(p, cfg_, spec_, x, *a, **kw)
         layers.append((x.clone() if spec_.kind != "attn" else
-                       x[:, S:].clone(), out[0][:, S:].clone()))
-        if cfg.encdec:
-            full.append((x, a[2]))
+                       x[:, P:].clone(), out[0][:, P:].clone()))
+        if spec.get("noise"):
+            full.append((x, a[2] if cfg.encdec else None))
         return out
     if spec["per_layer"]:
         tf_mod.layer_forward = tap_layer
@@ -2042,7 +2110,7 @@ def model_phase(torch, ops, spec):
             ref, cache = prefill(params, cache, {**batch, "tokens": tokens})
     finally:
         tf_mod.layer_forward = real_layer
-    ref = ref[:, S:].float()
+    ref = ref[:, P:].float()
     got = dec1.float()
     del dec1
     err, scale = (got - ref).abs().max().item(), ref.abs().max().item()
@@ -2051,30 +2119,32 @@ def model_phase(torch, ops, spec):
         check(err <= MODEL_TOL * scale,
               f"decode logits differ from the prefill's rows by {err} "
               f"(max|prefill| {scale}, tol {MODEL_TOL} normwise)")
-    elif cfg.encdec:
-        # the decoder; its encoder ran once for both paths
-        noise = layer_noise(torch, cfg, params["decoder"], full, layers, S)
+    elif spec.get("noise"):
+        # an encoder-decoder model's decoder: its encoder ran once for
+        # both paths
+        dec = params["decoder"] if cfg.encdec else params
+        noise = layer_noise(torch, cfg, dec, full, layers, P)
         del full
-        teacher_forced(torch, say, cfg, params["decoder"], cache, layers,
-                       routes, S, noise)
+        teacher_forced(torch, say, cfg, dec, cache, layers, routes, P,
+                       noise)
     elif moe is None:
-        teacher_forced(torch, say, cfg, params, cache, layers, routes, S)
+        teacher_forced(torch, say, cfg, params, cache, layers, routes, P)
     else:
         # the served decode tokens' top-k sets against the check's
         # prefill's, by layer: where decode and prefill part
         srt = lambda t: t.sort(-1).values
         K = moe.top_k
         dec_ids = srt(torch.stack(served[n_moe:]).view(N, n_moe, B, K))
-        ref_ids = srt(torch.stack(routes).view(n_moe, B, S + N, K))
-        flips = (dec_ids.permute(1, 2, 0, 3) != ref_ids[:, :, S:]).any(-1)
+        ref_ids = srt(torch.stack(routes).view(n_moe, B, P + N, K))
+        flips = (dec_ids.permute(1, 2, 0, 3) != ref_ids[:, :, P:]).any(-1)
         say(f"routing: the served decode tokens' top-{K} sets differ from "
             f"the check prefill's at {flips.sum().item()} of "
             f"{flips.numel()} (layer, token) pairs; by layer "
             f"{flips.sum((1, 2)).tolist()}")
-        teacher_forced(torch, say, cfg, params, cache, layers, routes, S)
+        teacher_forced(torch, say, cfg, params, cache, layers, routes, P)
     held = ("not held, see LAYER_TOL; tol" if spec["per_layer"]
             else "tol")
-    say(f"decode vs prefill of the same {S + N} tokens, all {N} "
+    say(f"decode vs prefill of the same {P + N} positions, all {N} "
         f"positions: max |decode - prefill| {err:.4f} = "
         f"{err / scale:.4f} of max|prefill| {scale:.3f} ({held} "
         f"{MODEL_TOL}); greedy tokens agree at {agree:.1%} of positions")
@@ -2083,12 +2153,12 @@ def model_phase(torch, ops, spec):
 
     # the metrics of a prefill through forward, host syncs per decode
     # step, the device's busy share, the metrics of one decode step
-    cache = model.init_cache(B, S + N, enc_cap=enc_cap)
+    cache = model.init_cache(B, P + N, enc_cap=enc_cap)
     with torch.no_grad():
         _, cache, met = model.forward(params, batch, cache)
     if moe is not None:
         counts = met["expert_counts"]
-        per_layer = B * S * moe.top_k * n_moe // cfg.n_periods
+        per_layer = B * P * moe.top_k * n_moe // cfg.n_periods
         check(tuple(counts.shape) == (cfg.n_periods, moe.num_experts)
               and bool((counts.sum(1) == per_layer).all()),
               f"prefill expert_counts {counts.tolist()}: rows must sum to "
@@ -2099,10 +2169,13 @@ def model_phase(torch, ops, spec):
             f"{per_layer / moe.num_experts:g}); aux_loss "
             f"{met['aux_loss'].item():.4f}")
     nxt = fed1[:, :1]
-    steps = iter(range(8))             # 4 steps each, positions S..S+7
-    dstep = lambda _: decode(params, cache, nxt, S + next(steps))
+    steps = iter(range(8))             # 4 steps each, positions P..P+7
+    dstep = lambda _: decode(params, cache, nxt, P + next(steps))
     syncs = host_syncs(torch, dstep, [None] * 4)
-    gemm_dim = moe.expert_d_ff if moe is not None else None
+    # the expert GEMMs by their width, unless a dense FFN shares it (jamba)
+    dense_dims = {cfg.d_ff for s in cfg.pattern if s.ffn == "dense"}
+    gemm_dim = (moe.expert_d_ff if moe is not None
+                and moe.expert_d_ff not in dense_dims else None)
     spans = contextlib.ExitStack()
     if cfg.mla:
         spans.enter_context(span(torch, tf_mod, "mla_forward"))
@@ -2115,8 +2188,11 @@ def model_phase(torch, ops, spec):
                       lambda _: prefill(params, cache, batch), [None],
                       gemm_dim)
     if moe is not None:
+        # at the filled position: P + 8 after the steps above, P over a
+        # Mamba state, which the profile's prefill restarted
         with torch.no_grad():
-            _, cache, met = lm_forward(params, cfg, nxt, S + 8, cache=cache)
+            _, cache, met = lm_forward(params, cfg, nxt, cache["filled"],
+                                       cache=cache)
         counts = met["expert_counts"]
         per_layer = B * moe.top_k * n_moe // cfg.n_periods
         check(bool((counts.sum(1) == per_layer).all()),
@@ -2136,23 +2212,29 @@ def model_phase(torch, ops, spec):
 
 
 def layer_noise(torch, cfg, params, full, layers, S):
-    """Each decoder layer's own bf16 noise over the decode rows: the
+    """Each (decoder) layer's own bf16 noise over the decode rows: the
     layer in f32 (its weights cast up) on the bf16 prefill's whole input
-    and encoder output, against that prefill's bf16 output, max
-    |difference| over max |bf16 output|.  ``full``: each layer call's
-    (input, encoder output); ``layers``: its (rows S.. of the input,
-    rows S.. of the output)."""
+    (and encoder output, if any), against that prefill's bf16 output, max
+    |difference| over max |bf16 output|.  ``params``: the decoder-only
+    tree (an encoder-decoder model's ``decoder``); ``full``: each layer
+    call's (input, encoder output or None), in ``lm_forward``'s order;
+    ``layers``: its (rows S.. of the input, rows S.. of the output)."""
     from repro_torch.models.params import index_tree
     from repro_torch.models.transformer import layer_forward
-    spec = cfg.pattern[0]
+    check(cfg.first_k_dense == 0, "layer_noise walks no dense prefix")
+    walk = [(f"pos{pos}", i, spec) for i in range(cfg.n_periods)
+            for pos, spec in enumerate(cfg.pattern)]
+    check(len(full) == len(walk) == len(layers),
+          f"layer_noise: {len(full)} layer calls, {len(walk)} layers")
     up = lambda t: ({k: up(v) for k, v in t.items()} if isinstance(t, dict)
                     else t.float())
     noise = []
     with torch.no_grad():
-        for i, ((x, enc), (_, out)) in enumerate(zip(full, layers)):
-            lp = up(index_tree(params["blocks"]["pos0"], i))
+        for (key, i, spec), (x, enc), (_, out) in zip(walk, full, layers):
+            lp = up(index_tree(params["blocks"][key], i))
             y32 = layer_forward(lp, cfg, spec, x.float(), 0, None,
-                                enc.float())[0][:, S:]
+                                None if enc is None else enc.float())
+            y32 = y32[0][:, S:]
             noise.append(((out.float() - y32).abs().max()
                           / out.float().abs().max()).item())
             del lp, y32
@@ -2178,9 +2260,9 @@ def teacher_forced(torch, say, cfg, params, cache, layers, routes, S,
     most ``FLIP_MAX`` of the (MoE layer, token) pairs may route
     otherwise.  ``layers``: each layer call's (input, output), the input
     of a Mamba layer all rows, the rest rows S..; ``routes``: each MoE
-    layer call's top-k ids.  With ``noise`` (an encoder-decoder model's
-    ``layer_noise``) each layer's output is held within ``BF16_REL``
-    times its own bf16 noise instead of ``LAYER_TOL``."""
+    layer call's top-k ids.  With ``noise`` (``layer_noise``, for a spec
+    with ``noise``: seamless, pixtral) each layer's output is held within
+    ``BF16_REL`` times its own bf16 noise instead of ``LAYER_TOL``."""
     from repro_torch.models.config import LayerSpec
     from repro_torch.models.params import index_tree
     from repro_torch.models.transformer import init_layer_cache, \
@@ -2476,6 +2558,39 @@ def main() -> int:
     print(f"[time] flash_attention seamless-m4t-medium path normwise error "
           f"{encdec_err:.3e}")
     del captured
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # pixtral-12b whole, media before the text, after seamless's params
+    t = time.perf_counter()
+    captured, served = model_phase(torch, ops, PIXTRAL_MODEL)
+    print(f"[vlm-model] phase {time.perf_counter() - t:.1f} s")
+    check(served["flash_attention"] > 0 and served["ssd_scan"] == 0,
+          f"vlm-model launches {served}")
+    launches["flash_attention"] += served["flash_attention"]
+    _, vlm_err = time_flash_attention(
+        torch, flash_attention_cuda, flash_attention_ref, captured,
+        lambda name: f"pixtral-12b layer 0 on {smi}")
+    print(f"[time] flash_attention pixtral-12b path normwise error "
+          f"{vlm_err:.3e}")
+    del captured
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # jamba-v0.1-52b, 16 of 32 layers, after pixtral's params are gone
+    t = time.perf_counter()
+    captured, served = model_phase(torch, ops, HYBRID_MODEL)
+    print(f"[hybrid-model] phase {time.perf_counter() - t:.1f} s")
+    check(served["flash_attention"] > 0 and served["ssd_scan"] > 0,
+          f"hybrid-model launches {served}")
+    launches["flash_attention"] += served["flash_attention"]
+    launches["ssd_scan"] += served["ssd_scan"]
+    args, kw = captured["ssd_scan"]
+    _, hybrid_err = time_ssd_scan(torch, ssd_scan_cuda, ssd_scan_ref, args,
+                                  kw, label="jamba-v0.1-52b layer 0 prefill",
+                                  tol="bf16", calls=5)
+    err["ssd_scan"] = max(err["ssd_scan"], hybrid_err)
+    del captured, args, kw
     gc.collect()
     torch.cuda.empty_cache()
     kernels = []

@@ -8,7 +8,11 @@
   prefill(params, cache, batch)         -> logits, cache
   decode_step(params, cache, tok, pos)  -> logits, cache
 
-``batch`` is a dict holding ``tokens`` (B, S) int32 and, for an
+``batch`` is a dict holding ``tokens`` (B, S) int32; for a VLM config
+(pixtral) ``media`` (B, S_media, D), the stub frontend's embeddings,
+which ``forward`` and ``prefill`` put before the tokens' (positions
+0..S_media-1; the logits cover them too, and a decode step after such a
+prefill is at ``pos`` = S_media + S); and for an
 encoder-decoder config (``cfg.encdec``: seamless), ``frames``
 (B, S_enc, D), the stub frontend's embeddings.  Such a config takes the
 branches of ``models/encdec.py``: ``forward`` and ``prefill`` with

@@ -20,8 +20,11 @@ deepseek-v2, mamba2-1.3b and jamba end to end, and the decoder of
 ``encdec.py`` (seamless), whose cross-attention layers
 (``LayerSpec(cross_attn=True)``) attend over the encoder output after
 self-attention and before the FFN, as the reference's
-``layer_forward``.  What raises ``NotImplementedError`` (ROADMAP Queue 1
-item 8): ``media_embeds`` (pixtral).
+``layer_forward``, and a VLM's stub frontend (pixtral): ``lm_forward``'s
+``media_embeds`` (B, S_media, D) are prepended to the token embeddings,
+as the reference's, so a step covers S_media + S_text positions from
+``start`` (the cache's slots and ``filled`` count them) and the logits
+cover every position, the media rows included.
 
 Metrics, as the reference's: ``aux_loss`` and ``dropped`` summed over
 the layers, and for a config with ``moe`` set ``expert_counts`` of shape
@@ -343,18 +346,18 @@ def lm_forward(params, cfg: ModelConfig, tokens: torch.Tensor,
                media_embeds: Optional[torch.Tensor] = None,
                enc_out=None, remat: bool = False, aux_loss: bool = True
                ) -> Tuple[torch.Tensor, Optional[dict], dict]:
-    """tokens: (B, S); ``start``: the position of the first token (0 for
-    prefill and forward, ``pos`` for a decode step).  ``enc_out``: the
+    """tokens: (B, S_text); ``start``: the position of the first token (0
+    for prefill and forward, ``pos`` for a decode step).  ``media_embeds``:
+    (B, S_media, D) embeddings put before the tokens' (cast to their
+    dtype); the step then covers S = S_media + S_text positions and the
+    logits (B, S, V) all of them.  ``enc_out``: the
     encoder output (B, S_enc, D) of a stack with cross-attention layers,
     or None to read the cache's (module docstring).  ``remat`` changes
     nothing without a backward pass; ``aux_loss=False`` skips the MoE
     layers' load-balance loss (the metric stays 0).  Returns (logits,
     cache, metrics); the cache is written in place and returned."""
-    if media_embeds is not None:
-        raise NotImplementedError(
-            "media_embeds (pixtral's stub frontend) is not ported yet: "
-            "ROADMAP Queue 1 item 8")
-    B, S = tokens.shape
+    S = tokens.shape[1] + (media_embeds.shape[1] if media_embeds is not None
+                           else 0)
     mamba, enc_len, cross = [], None, _cross_position(cfg)
     if cross is not None:
         if cache is not None and enc_out is None:
@@ -368,6 +371,8 @@ def lm_forward(params, cfg: ModelConfig, tokens: torch.Tensor,
             for t in mamba:
                 t.zero_()
     x = embed(params["embed"], tokens)
+    if media_embeds is not None:
+        x = torch.cat([media_embeds.to(x.dtype), x], dim=1)
 
     # host zeros until a MoE layer adds a tensor
     aux, dropped, counts = 0.0, 0.0, []

@@ -771,6 +771,17 @@ def test_flash_attention_cross_attention_shapes_equal_plain(cuda, Sq, Sk,
                                **_fa_tol(torch.bfloat16))
 
 
+def _host(tree, f32=False):
+    """A host copy of a nested dict of tensors (floats cast to f32 with
+    ``f32``); other leaves as they are."""
+    if isinstance(tree, dict):
+        return {k: _host(v, f32) for k, v in tree.items()}
+    if not isinstance(tree, torch.Tensor):
+        return tree
+    t = tree.cpu().clone()
+    return t.float() if f32 and t.is_floating_point() else t
+
+
 @pytest.mark.cuda
 def test_encdec_model_prefill_and_decode_on_the_card(cuda, monkeypatch):
     """seamless-m4t-medium at smoke scale with heads of 64 (2 encoder and
@@ -811,20 +822,12 @@ def test_encdec_model_prefill_and_decode_on_the_card(cuda, monkeypatch):
     real = tf_mod.layer_forward
     errs = []
 
-    def host(tree, f32=False):
-        if isinstance(tree, dict):
-            return {k: host(v, f32) for k, v in tree.items()}
-        if not isinstance(tree, torch.Tensor):
-            return tree
-        t = tree.cpu().clone()
-        return t.float() if f32 and t.is_floating_point() else t
-
     def twin(p, cfg_, spec, x, start=0, cache=None, enc_out=None, **kw):
-        h_cache, h32_cache = host(cache), host(cache, f32=True)
-        args = (start, h_cache, host(enc_out))
-        h16 = real(host(p), cfg_, spec, host(x), *args, **kw)[0].float()
-        h32 = real(host(p, True), cfg_, spec, host(x, True), start,
-                   h32_cache, host(enc_out, True), **kw)[0]
+        h_cache, h32_cache = _host(cache), _host(cache, f32=True)
+        args = (start, h_cache, _host(enc_out))
+        h16 = real(_host(p), cfg_, spec, _host(x), *args, **kw)[0].float()
+        h32 = real(_host(p, True), cfg_, spec, _host(x, True), start,
+                   h32_cache, _host(enc_out, True), **kw)[0]
         out = real(p, cfg_, spec, x, start, cache, enc_out, **kw)
         errs.append(("layer", ((out[0].float().cpu() - h16).abs().max()
                                / (h16 - h32).abs().max()).item()))
@@ -870,6 +873,164 @@ def test_encdec_model_prefill_and_decode_on_the_card(cuda, monkeypatch):
     # each entry is an error over its bound
     worst = max(errs, key=lambda e: e[1])
     assert worst[1] <= 1.0, worst
+
+
+
+
+@pytest.mark.cuda
+def test_media_model_prefill_and_decode_on_the_card(cuda, monkeypatch):
+    """pixtral-12b at smoke scale with pixtral's heads of 128 (2 layers,
+    4 / 1 heads: GQA 4), bf16: a prefill of 100 media embeddings and 200
+    text tokens (the wgmma prefill over 300 positions) and three decode
+    steps from position 300 (the split-K decode over the media's slots
+    and the text's).  Each call launches ``flash_attention`` once per
+    layer, the logits cover all 300 positions, and two runs are equal
+    bit for bit.
+
+    Random-weight pixtral is chaotic in depth (its attention is close to
+    an argmax: ``tools/vlm_depth_witness.py``), so the card's logits are
+    not held to the host's.  Every layer call is held instead, against
+    the same layer run by the plain path on the host from a host copy of
+    the card's input and cache: its output no farther from the host's
+    bf16 output than that lies from the host's f32 run of the layer,
+    ``test_torch_model.py``'s bf16 rule with ``BF16_REL`` 1, and every
+    cache leaf it writes within 2e-2 of max|host|, normwise."""
+    import copy
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.models import transformer as tf_mod
+    from repro_torch.models.model import Model
+    cfg = get_config("pixtral-12b").smoke().replace(head_dim=128,
+                                                    n_kv_heads=1)
+    model = Model(cfg)
+    card = copy.deepcopy(model.init(0, device="cpu")).to(cuda)
+    rng = np.random.default_rng(0)
+    B, M, S, N = 2, 100, 200, 3
+    P = M + S
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (B, S + N)).astype(
+        np.int32)).to(cuda)
+    media = torch.from_numpy(rng.standard_normal(
+        (B, M, cfg.d_model)).astype(np.float32)).to(cuda, torch.bfloat16)
+    prefill, decode = make_prefill_step(model), make_decode_step(model)
+    real = tf_mod.layer_forward
+    errs = []
+
+    def twin(p, cfg_, spec, x, start=0, cache=None, *a, **kw):
+        h_cache = _host(cache)
+        h16 = real(_host(p), cfg_, spec, _host(x), start, h_cache, *a,
+                   **kw)[0].float()
+        h32 = real(_host(p, True), cfg_, spec, _host(x, True), start,
+                   _host(cache, True), *a, **kw)[0]
+        out = real(p, cfg_, spec, x, start, cache, *a, **kw)
+        errs.append(("layer", ((out[0].float().cpu() - h16).abs().max()
+                               / (h16 - h32).abs().max()).item()))
+        for n in ("k", "v"):
+            b = h_cache["kv"][n].float()
+            errs.append((f"kv {n}", ((cache["kv"][n].float().cpu() - b)
+                                     .abs().max() / b.abs().max()
+                                     / 2e-2).item()))
+        return out
+
+    def serve(tap):
+        if tap:
+            monkeypatch.setattr(tf_mod, "layer_forward", twin)
+        cache = model.init_cache(B, P + N, device=cuda)
+        ops.reset_launches()
+        outs = [prefill(card, cache, {"tokens": toks[:, :S],
+                                      "media": media})[0]]
+        counts = [ops.launches().get("flash_attention", 0)]
+        paths = [fa_mod.last_path]
+        assert cache["filled"] == P
+        for j in range(N):
+            ops.reset_launches()
+            out, cache = decode(card, cache, toks[:, S + j:S + j + 1], P + j)
+            counts.append(ops.launches().get("flash_attention", 0))
+            paths.append(fa_mod.last_path)
+            outs.append(out)
+        monkeypatch.undo()
+        assert cache["filled"] == P + N
+        return outs, counts, paths
+
+    outs, counts, paths = serve(tap=False)
+    assert counts == [cfg.n_layers] * (N + 1)
+    assert paths == ["wgmma_prefill"] + ["split_k_decode"] * N
+    assert outs[0].shape == (B, P, cfg.padded_vocab)
+    assert all(torch.isfinite(o).all() for o in outs)
+    again, _, _ = serve(tap=True)
+    assert all(torch.equal(a, b) for a, b in zip(outs, again))
+    assert sum(what == "layer" for what, _ in errs) == cfg.n_layers * (N + 1)
+    # each entry is an error over its bound
+    worst = max(errs, key=lambda e: e[1])
+    assert worst[1] <= 1.0, worst
+
+
+@pytest.mark.cuda
+def test_hybrid_model_prefill_and_decode_on_the_card(cuda, monkeypatch):
+    """jamba at smoke scale in bf16 (16 layers, two periods of 8: an
+    attention layer at position 2, Mamba layers elsewhere, a 4-expert MoE
+    FFN on the odd positions): a 300-token prefill and three decode
+    steps launch ``flash_attention`` once per attention layer per call
+    and ``ssd_scan`` once per Mamba layer per prefill and never at a
+    decode step; two runs on the card are equal bit for bit; and the
+    card's routing parts from the host's run of the same weights (the
+    plain versions) at no more than 5 % of the (token, MoE layer) pairs
+    (a token whose top-2 router logits nearly tie may route otherwise
+    after a last-bit difference; random-weight jamba in bf16 is chaotic
+    in depth, ``test_torch_model.py``, so its logits are not held to the
+    host's)."""
+    import copy
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models.model import Model
+    cfg = get_config("jamba-v0.1-52b").smoke()
+    model = Model(cfg)
+    host = model.init(0, device="cpu")
+    card = copy.deepcopy(host).to(cuda)
+    B, S, N = 2, 300, 3
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (B, S + N)).astype(np.int32))
+    prefill, decode = make_prefill_step(model), make_decode_step(model)
+    n_attn = cfg.n_periods * sum(s.kind == "attn" for s in cfg.pattern)
+    n_mamba = cfg.n_layers - n_attn
+    n_moe = cfg.n_periods * sum(s.ffn == "moe" for s in cfg.pattern)
+    routes, real_route = [], moe_mod.route
+
+    def tap(*a, **kw):
+        out = real_route(*a, **kw)
+        routes.append(out[1].sort(-1).values.cpu())
+        return out
+    monkeypatch.setattr(moe_mod, "route", tap)
+
+    def serve(params, device):
+        routes.clear()
+        cache = model.init_cache(B, S + N, device=device)
+        ops.reset_launches()
+        outs = [prefill(params, cache, {"tokens": toks[:, :S].to(device)})[0]]
+        counts = [dict(ops.launches())]
+        for j in range(N):
+            ops.reset_launches()
+            out, cache = decode(params, cache,
+                                toks[:, S + j:S + j + 1].to(device), S + j)
+            counts.append(dict(ops.launches()))
+            outs.append(out)
+        assert cache["filled"] == S + N
+        return [o.float().cpu() for o in outs], counts, list(routes)
+
+    on_card, counts, card_routes = serve(card, cuda)
+    assert [c.get("flash_attention", 0) for c in counts] == \
+        [n_attn] * (N + 1)
+    assert [c.get("ssd_scan", 0) for c in counts] == [n_mamba] + [0] * N
+    assert all(torch.isfinite(o).all() for o in on_card)
+    again, _, again_routes = serve(card, cuda)
+    assert all(torch.equal(a, b) for a, b in zip(on_card, again))
+    assert all(torch.equal(a, b) for a, b in zip(card_routes, again_routes))
+    _, host_counts, host_routes = serve(host, "cpu")
+    assert all(not c for c in host_counts)
+    assert len(card_routes) == len(host_routes) == n_moe * (N + 1)
+    flips = torch.cat([(a != b).any(-1) for a, b in
+                       zip(card_routes, host_routes)])
+    assert flips.float().mean().item() <= 0.05, flips.float().mean()
 
 
 def _serving_runtime(device, cfg, controller=None):

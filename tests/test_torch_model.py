@@ -737,10 +737,7 @@ def test_params_from_numpy_carries_mla_prefix_and_shared_leaves():
 def test_unported_branches_raise():
     pix = Model(get_config("pixtral-12b").smoke())
     pp = pix.init(0, device="cpu")
-    media = torch.zeros((1, 8, pix.cfg.d_model), dtype=torch.bfloat16)
     toks = torch.zeros((1, 4), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="media_embeds"):
-        pix.forward(pp, {"tokens": toks, "media": media})
     with pytest.raises(NotImplementedError, match="training|loss"):
         pix.loss(pp, {"tokens": toks, "labels": toks})
     cache = pix.init_cache(1, 16, device="cpu")
@@ -756,10 +753,12 @@ EXPECTED_PARAMS = {"gemma2-9b": (9e9, 0.25), "deepseek-7b": (7e9, 0.25),
                    "deepseek-v2-236b": (236e9, 0.25),
                    "mamba2-1.3b": (1.3e9, 0.25),
                    "jamba-v0.1-52b": (52e9, 0.25),
-                   "seamless-m4t-medium": (1.2e9, 0.5)}
+                   "seamless-m4t-medium": (1.2e9, 0.5),
+                   "pixtral-12b": (12e9, 0.25)}
 
 
-@pytest.mark.parametrize("arch", ARCHS + ["seamless-m4t-medium"])
+@pytest.mark.parametrize("arch", ARCHS + ["seamless-m4t-medium",
+                                          "pixtral-12b"])
 def test_full_config_param_count(arch):
     """Counted from shapes on the meta device, nothing allocated; equal to
     the reference's abstract count."""
