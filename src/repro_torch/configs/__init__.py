@@ -2,8 +2,9 @@
 
 The ten config modules are data copied from ``repro.configs``.  The
 reference's ``configs/shapes.py`` (the dry-run and training shape
-specs) is not ported yet: it serves the training and dry-run paths,
-which wait for their own slice of the port.
+specs) is not ported yet: it serves the dry-run path and the sharded
+training shapes, which wait for the mesh slice (ROADMAP Queue 1 item
+12).
 """
 from __future__ import annotations
 

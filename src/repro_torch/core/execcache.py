@@ -183,6 +183,18 @@ class ExecutableCache:
         with self._lock:
             return signature in self._quarantined
 
+    def purge_namespace(self, ns: Hashable) -> int:
+        """Drop every entry whose key was built under ``ns`` (counted as
+        evictions); returns how many were dropped.  The owner rotates to
+        a fresh namespace when its topology epoch ends."""
+        with self._lock:
+            dead = [k for k in self._entries
+                    if isinstance(k, tuple) and k and k[0] == ns]
+            for k in dead:
+                del self._entries[k]
+                self.stats.evictions += 1
+            return len(dead)
+
     def clear(self) -> None:
         with self._lock:
             self._entries.clear()

@@ -15,8 +15,7 @@ paths are exercised end to end:
     after ``patience`` suspect steps the mitigation callback fires.
 
 Not ported yet: ``elastic_reshard`` (restore a checkpoint onto a new
-mesh) needs the checkpoint module and a mesh, which wait for ROADMAP.md
-Queue 1 items 10 and 12.
+mesh) needs a mesh, which waits for ROADMAP.md Queue 1 item 12.
 """
 from __future__ import annotations
 
@@ -44,8 +43,8 @@ class SimulatedCompileFailure(SimulatedFailure):
 class LostStepError(RuntimeError):
     """A fault fired AFTER a step's inputs were consumed: the in-process
     fault boundary cannot retry, and the driver must restore the latest
-    checkpoint and replay.  Raised by the training supervisor, which
-    waits for ROADMAP.md Queue 1 item 10."""
+    checkpoint and replay.  Raised by the optimizer's in-place update
+    (``optim/adamw.py``) and passed on by the training supervisor."""
 
 
 @dataclass

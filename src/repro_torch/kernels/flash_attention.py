@@ -28,6 +28,17 @@ in place.  What it does not take raises; nothing falls back.  The plain
 PyTorch version of the same function is :func:`flash_attention_ref`
 (``kernels/ref.py``); ``kernels/ops.py`` chooses between them by the
 tensors' device.
+
+The gradient is a second library, ``csrc/flash_attention_bwd.cu``
+(its header gives the design): :func:`flash_attention_bwd_cuda` takes
+q, k, v, the forward's output and its cotangent and returns dq, dk and
+dv in q's dtype, in three or four launches that count as one
+``flash_attention_bwd``, on the tensor cores for bf16 at D 64 or 128
+and on the CUDA cores otherwise (:func:`bwd_path`).  :class:`FlashAttentionFn` ties the two for
+autograd: its forward is :func:`flash_attention_cuda` and its backward
+the kernel.  Its plain version is :func:`flash_attention_bwd_ref`
+(autograd through ``flash_attention_ref``), which the tests and the
+smoke run compare it with and no card path takes.
 """
 from __future__ import annotations
 
@@ -39,7 +50,8 @@ import torch
 
 from . import build
 from .hot_gather import LAUNCHES
-from .ref import flash_attention_ref  # noqa: F401  (the plain version)
+from .ref import flash_attention_bwd_ref  # noqa: F401  (the plain versions)
+from .ref import flash_attention_ref  # noqa: F401
 from .ref import SPLIT_TILE, split_keys
 
 SUPPORTED_DTYPES = (torch.float32, torch.bfloat16)
@@ -182,3 +194,138 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     last_path = path
     LAUNCHES["flash_attention"] += 1
     return out
+
+
+BWD_PATHS = {"cuda_cores": 0, "mma_sync": 1}
+MMA_HEAD_DIMS = (64, 128)
+last_bwd_path: Optional[str] = None    # the path of the last backward
+
+
+def bwd_path(D: int, dtype: torch.dtype) -> str:
+    """The backward's path, by dtype and head dim alone: the tensor cores
+    (``mma_sync``) for bf16 at D 64 or 128, else the CUDA cores."""
+    if dtype == torch.bfloat16 and D in MMA_HEAD_DIMS:
+        return "mma_sync"
+    return "cuda_cores"
+
+
+def _bwd_lib() -> ctypes.CDLL:
+    lib = build.load("flash_attention_bwd")
+    fn = lib.flash_attention_bwd_launch
+    if fn.argtypes is None:
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        fn.argtypes = [p] * 11 + [i] * 9 + [f, f, i, i, p]
+        fn.restype = ctypes.c_int
+        lib.flash_attention_bwd_error_string.argtypes = [ctypes.c_int]
+        lib.flash_attention_bwd_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, out: torch.Tensor,
+                             dout: torch.Tensor, *, causal: bool = True,
+                             window: Optional[int] = None,
+                             logit_softcap: float = 0.0
+                             ) -> Tuple[torch.Tensor, torch.Tensor,
+                                        torch.Tensor]:
+    """The gradient of :func:`flash_attention_cuda` at q, k, v (its
+    shapes, dtypes and options) given its output ``out`` and the
+    cotangent ``dout`` (both q's shape): ``(dq, dk, dv)`` in q's dtype,
+    through :func:`bwd_path`'s kernels (``last_bwd_path`` records it).
+    Operands of any stride are copied dense (and 16-byte aligned) first;
+    what the forward does not take raises here too."""
+    global last_bwd_path
+    dev = q.device
+    if dev.type != "cuda":
+        raise ValueError(f"flash_attention_bwd_cuda needs CUDA tensors, got "
+                         f"{dev}")
+    if q.dtype not in SUPPORTED_DTYPES:
+        raise TypeError(f"flash_attention_bwd: unsupported dtype {q.dtype} "
+                        f"(kernel takes {SUPPORTED_DTYPES})")
+    ts = {"k": k, "v": v, "out": out, "dout": dout}
+    for name, t in ts.items():
+        if t.dtype != q.dtype:
+            raise TypeError(f"flash_attention_bwd: {name} is {t.dtype}, q "
+                            f"{q.dtype}: one dtype expected")
+        if t.device != dev:
+            raise ValueError(f"flash_attention_bwd: {name} on {t.device}, "
+                             f"q on {dev}")
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError("flash_attention_bwd: q (B,Sq,H,D), k/v "
+                         "(B,Sk,Hkv,D) expected")
+    B, Sq, H, D = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    if (k.shape[0] != B or k.shape[3] != D or v.shape != k.shape
+            or out.shape != q.shape or dout.shape != q.shape):
+        raise ValueError(f"flash_attention_bwd: shapes q {tuple(q.shape)} k "
+                         f"{tuple(k.shape)} v {tuple(v.shape)} out "
+                         f"{tuple(out.shape)} dout {tuple(dout.shape)} "
+                         f"disagree")
+    if D % 8 or not 8 <= D <= MAX_D:
+        raise ValueError(f"flash_attention_bwd: head dim {D} must be a "
+                         f"multiple of 8 in [8, {MAX_D}]")
+    if Hkv < 1 or H % Hkv:
+        raise ValueError(f"flash_attention_bwd: H={H} is not a multiple of "
+                         f"Hkv={Hkv}")
+    if window is not None and not -INT32_MAX <= int(window) <= INT32_MAX:
+        raise ValueError(f"flash_attention_bwd: window {window} beyond int32")
+    if not (math.isfinite(logit_softcap) and logit_softcap >= 0):
+        raise ValueError(f"flash_attention_bwd: logit_softcap "
+                         f"{logit_softcap} must be finite and >= 0")
+    if max(B, Sq, Sk, H) > INT32_MAX or max(B, H) > 65535:
+        raise ValueError(f"flash_attention_bwd: shape {tuple(q.shape)} / "
+                         f"{tuple(k.shape)} beyond the kernel's grid")
+    q, k, v, out, dout = (
+        t if t.is_contiguous() and t.data_ptr() % 16 == 0
+        else t.clone(memory_format=torch.contiguous_format)
+        for t in (q, k, v, out, dout))
+    dq, dk, dv = (torch.zeros_like(t) for t in (q, k, v))
+    if B == 0 or Sq == 0 or H == 0:
+        return dq, dk, dv
+    lse = torch.empty((B, H, Sq), dtype=torch.float32, device=dev)
+    delta = torch.empty_like(lse)
+    path = bwd_path(D, q.dtype)
+    # the mma path's per-query-head dk and dv, summed over each kv head's
+    # G query heads in order by its last pass
+    part = (torch.empty((2, B, Sk, H, D), dtype=torch.float32, device=dev)
+            if path == "mma_sync" and Sk else None)
+    lib = _bwd_lib()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.flash_attention_bwd_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            dout.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(),
+            None if part is None else part.data_ptr(), B, Sq, Sk, H, Hkv, D,
+            int(bool(causal)), int(window is not None),
+            0 if window is None else int(window), 1.0 / math.sqrt(D),
+            float(logit_softcap), 0 if q.dtype == torch.float32 else 1,
+            BWD_PATHS[path], stream)
+    if err != 0:
+        msg = lib.flash_attention_bwd_error_string(err).decode()
+        raise RuntimeError(f"flash_attention_bwd launch failed ({path}): "
+                           f"{msg} ({err})")
+    last_bwd_path = path
+    LAUNCHES["flash_attention_bwd"] += 1
+    return dq, dk, dv
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """``flash_attention_cuda`` with ``flash_attention_bwd_cuda`` as its
+    gradient; q, k and v are saved with the output (a remat recompute
+    runs the forward kernel again)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, logit_softcap):
+        out = flash_attention_cuda(q, k, v, causal=causal, window=window,
+                                   logit_softcap=logit_softcap)
+        ctx.save_for_backward(q, k, v, out)
+        ctx.opts = dict(causal=causal, window=window,
+                        logit_softcap=logit_softcap)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd_cuda(q, k, v, out, dout, **ctx.opts)
+        return dq, dk, dv, None, None, None

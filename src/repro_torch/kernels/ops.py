@@ -17,7 +17,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from . import ref as _ref
-from .flash_attention import flash_attention_cuda
+from .flash_attention import FlashAttentionFn, flash_attention_cuda
 from .hot_gather import LAUNCHES, hot_gather_cuda
 from .ssd_scan import ssd_scan_cuda
 
@@ -41,8 +41,16 @@ def flash_attention(q, k, v, *, causal: bool = True,
     """Attention over the implicit positions ``arange(Sq)`` /
     ``arange(Sk)``.  On the card always the CUDA kernel, which raises on
     a shape, dtype or stride it does not take (``block`` sizes only the
-    plain version's key blocks)."""
+    plain version's key blocks).  With grad enabled and an input that
+    requires it, the kernel goes through ``FlashAttentionFn``, whose
+    backward is the ``flash_attention_bwd`` kernel; every other call is
+    the plain launch.  On the host autograd runs through the plain
+    version."""
     if _use_kernel(q, force):
+        if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                        or v.requires_grad):
+            return FlashAttentionFn.apply(q, k, v, causal, window,
+                                          logit_softcap)
         return flash_attention_cuda(q, k, v, causal=causal, window=window,
                                     logit_softcap=logit_softcap)
     return _ref.flash_attention_ref(q, k, v, causal=causal, window=window,
@@ -61,8 +69,17 @@ def ssd_scan(x, dt, A, Bm, Cm, *, chunk: int, init_state=None,
              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Mamba2 SSD chunked scan: ``(y, final_state)``.  On the card always
     the CUDA kernel, which raises on a shape or dtype it does not take
-    (the reference's dispatcher silently takes its oracle instead)."""
+    (the reference's dispatcher silently takes its oracle instead), and
+    which has no backward: with grad enabled and an input that requires
+    it, the card raises ``NotImplementedError`` (ROADMAP item 10b); the
+    host differentiates the plain version."""
     if _use_kernel(x, force):
+        if torch.is_grad_enabled() and any(
+                t is not None and t.requires_grad
+                for t in (x, dt, A, Bm, Cm, init_state)):
+            raise NotImplementedError(
+                "ssd_scan has no backward kernel yet: training a Mamba "
+                "layer on the card waits for ROADMAP Queue 1 item 10b")
         return ssd_scan_cuda(x, dt, A, Bm, Cm, chunk=chunk,
                              init_state=init_state)
     return _ref.ssd_scan_ref(x, dt, A, Bm, Cm, chunk, init_state=init_state)

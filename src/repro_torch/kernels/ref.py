@@ -35,6 +35,22 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         block=block)
 
 
+def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, dout: torch.Tensor, *,
+                            causal: bool = True,
+                            window: Optional[int] = None,
+                            logit_softcap: float = 0.0, block: int = 512):
+    """``(dq, dk, dv)``: autograd through :func:`flash_attention_ref` at
+    q, k, v with cotangent ``dout`` — the plain version of the
+    ``flash_attention_bwd`` kernel (the reference differentiates its
+    plain attention the same way)."""
+    with torch.enable_grad():
+        qq, kk, vv = (t.detach().requires_grad_(True) for t in (q, k, v))
+        out = flash_attention_ref(qq, kk, vv, causal=causal, window=window,
+                                  logit_softcap=logit_softcap, block=block)
+        return torch.autograd.grad(out, (qq, kk, vv), dout)
+
+
 LOG2E = 1.4426950408889634
 SPLIT_TILE = 64    # the decode kernel plans its splits in 64-key tiles
 

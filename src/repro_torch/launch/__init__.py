@@ -1,2 +1,3 @@
-"""Step functions of the serving path (``launch/steps.py``) and the
-serving CLI (``python -m repro_torch.launch.serve``)."""
+"""Step functions (``launch/steps.py``), the serving CLI
+(``python -m repro_torch.launch.serve``) and the training CLI
+(``python -m repro_torch.launch.train``)."""

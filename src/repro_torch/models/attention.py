@@ -306,14 +306,24 @@ def mla_forward(params, cfg: ModelConfig, x: torch.Tensor, start: int = 0,
             k_nope = dot_f32("btr,rhn->bthn", cblk, w_uk)
             v_blk = dot_f32("btr,rhv->bthv", cblk, w_uv)
             logits = dot_f32("bshn,bthn->bhst", q_nope, k_nope)
-        logits += dot_f32("bshr,btr->bhst", q_rope, rblk)
-        logits *= scale
         masked = ~((posblk >= 0)[None, :]
                    & (posblk[None, :] <= positions[:, None]))   # (S,block)
-        logits.masked_fill_(masked, NEG_INF)
-        m_new = torch.maximum(m_run, logits.amax(dim=-1))
+        if logits.requires_grad:
+            # autograd keeps what the in-place updates would overwrite:
+            # the same operations out of place (a training step)
+            logits = (logits + dot_f32("bshr,btr->bhst", q_rope, rblk)
+                      ) * scale
+            logits = logits.masked_fill(masked, NEG_INF)
+            m_new = torch.maximum(m_run, logits.amax(dim=-1))
+            p = (logits - m_new[..., None]).exp().masked_fill(masked, 0.0)
+        else:
+            logits += dot_f32("bshr,btr->bhst", q_rope, rblk)
+            logits *= scale
+            logits.masked_fill_(masked, NEG_INF)
+            m_new = torch.maximum(m_run, logits.amax(dim=-1))
+            p = logits.sub_(m_new[..., None]).exp_().masked_fill_(masked,
+                                                                   0.0)
         alpha = torch.exp(m_run - m_new)
-        p = logits.sub_(m_new[..., None]).exp_().masked_fill_(masked, 0.0)
         l_run = l_run * alpha + p.sum(dim=-1)
         if absorb:
             pv = dot_f32("bhst,btr->bshr", p.to(cblk.dtype), cblk)

@@ -10,7 +10,7 @@ carry cross-attention (``LayerSpec(cross_attn=True)``).
 The encoder's layers are one stacked tree of shape (n_enc_layers, ...),
 as the reference's ``stack_pspecs``, so its weights carry across one to
 one; the reference's ``lax.scan`` over them is a Python loop over
-``index_tree(blocks, i)`` (views, no copies).  That scan's carry starts
+``unbind_tree(blocks)`` (views, no copies).  That scan's carry starts
 as the frames cast to bf16 and must keep its dtype, so the reference
 raises ``TypeError`` when a layer's weights are not bf16 (bf16 x f32
 promotes the carry to f32); :func:`encoder_forward` raises the same
@@ -21,10 +21,11 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import torch
+import torch.utils.checkpoint
 
 from .config import LayerSpec, ModelConfig
 from .layers import init_rmsnorm, rmsnorm
-from .params import Initializer, ParamTree, index_tree, stack_draws
+from .params import Initializer, ParamTree, stack_draws, unbind_tree
 from .transformer import init_layer, init_lm_cache, layer_forward, \
     lm_forward, lm_tree
 
@@ -55,11 +56,14 @@ def _leaves(tree, prefix=""):
         yield prefix.rstrip("."), tree
 
 
-def encoder_forward(params, cfg: ModelConfig,
-                    frames: torch.Tensor) -> torch.Tensor:
+def encoder_forward(params, cfg: ModelConfig, frames: torch.Tensor,
+                    remat: bool = False) -> torch.Tensor:
     """frames: (B, S_enc, D) stub-frontend embeddings -> (B, S_enc, D) in
     bf16.  Raises ``TypeError`` on a weight that is not bf16 (module
-    docstring; the norms' scales are f32 in every tree and cast back)."""
+    docstring; the norms' scales are f32 in every tree and cast back).
+    ``remat`` with autograd recording runs each layer under one
+    non-reentrant ``torch.utils.checkpoint``, as the reference's
+    ``jax.checkpoint`` of its scan body."""
     blocks = params["blocks"]
     wrong = {k: v.dtype for k, v in _leaves(blocks)
              if not k.endswith("scale") and v.dtype != CARRY_DTYPE}
@@ -68,15 +72,23 @@ def encoder_forward(params, cfg: ModelConfig,
             f"the encoder's carry is {CARRY_DTYPE} (the frames' cast) and "
             f"these weights would promote it: {wrong}")
     x = frames.to(CARRY_DTYPE)
+    layers = unbind_tree(blocks, cfg.n_enc_layers)
+
+    def run_layer(x, i):
+        return layer_forward(layers[i], cfg, ENC_SPEC, x, 0, causal=False)[0]
+
+    checkpoint = remat and torch.is_grad_enabled()
     for i in range(cfg.n_enc_layers):
-        x, _, _ = layer_forward(index_tree(blocks, i), cfg, ENC_SPEC, x, 0,
-                                causal=False)
+        x = (torch.utils.checkpoint.checkpoint(run_layer, x, i,
+                                               use_reentrant=False)
+             if checkpoint else run_layer(x, i))
     return rmsnorm(params["final_norm"], x, cfg.rms_eps)
 
 
 def encdec_forward(params, cfg: ModelConfig, frames: Optional[torch.Tensor],
                    tokens: torch.Tensor, start: int = 0, cache=None,
-                   aux_loss: bool = True
+                   aux_loss: bool = True, remat: bool = False,
+                   hot_experts=None
                    ) -> Tuple[torch.Tensor, Optional[dict], dict]:
     """Prefill / forward: frames given, the encoder runs and each
     cross-attention layer's projection is written to the cache.  Decode:
@@ -84,9 +96,11 @@ def encdec_forward(params, cfg: ModelConfig, frames: Optional[torch.Tensor],
     rules).  Returns ``lm_forward``'s (logits, cache, metrics)."""
     enc_out = None
     if frames is not None:
-        enc_out = encoder_forward(params["encoder"], cfg, frames)
+        enc_out = encoder_forward(params["encoder"], cfg, frames,
+                                  remat=remat and cache is None)
     return lm_forward(params["decoder"], cfg, tokens, start, cache=cache,
-                      enc_out=enc_out, aux_loss=aux_loss)
+                      enc_out=enc_out, aux_loss=aux_loss, remat=remat,
+                      hot_experts=hot_experts)
 
 
 def init_encdec_cache(cfg: ModelConfig, batch: int, cap: int, enc_cap: int,

@@ -46,9 +46,37 @@ def init_embedding(ini: Initializer, vocab: int, d: int):
     return {"table": ini.normal((vocab, d), fan_in=d)}
 
 
+class _EmbedRows(torch.autograd.Function):
+    """``table.index_select(0, ids)`` whose gradient is a one-hot product,
+    ``onehot(ids)^T @ grad``: deterministic, where ``index_select``'s own
+    backward (``index_add_``) adds a repeated id's rows with float atomics
+    on the card, in an order that changes from run to run, which would
+    break the trainer's bit-exact crash/resume.  The product sums in f32
+    and costs ``2 V T D`` flops (~2.5 TFLOP at starcoder2-3b's 8192
+    tokens, a few ms on the card)."""
+
+    @staticmethod
+    def forward(ctx, table, ids):
+        ctx.save_for_backward(ids)
+        ctx.vocab = table.shape[0]
+        return table.index_select(0, ids)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (ids,) = ctx.saved_tensors
+        onehot = torch.zeros((ids.shape[0], ctx.vocab), dtype=grad.dtype,
+                             device=grad.device)
+        onehot.scatter_(1, ids.long()[:, None], 1.0)
+        return onehot.t() @ grad, None
+
+
 def embed(params, tokens: torch.Tensor) -> torch.Tensor:
     table = params["table"]
-    rows = table.index_select(0, tokens.reshape(-1))
+    ids = tokens.reshape(-1)
+    if torch.is_grad_enabled() and table.requires_grad:
+        rows = _EmbedRows.apply(table, ids)
+    else:
+        rows = table.index_select(0, ids)
     return rows.reshape(*tokens.shape, table.shape[1])
 
 
@@ -59,9 +87,13 @@ def init_unembed(ini: Initializer, d: int, vocab: int):
 def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
     """``cap * tanh(x / cap)`` computed in f32 and cast back.  In place on
     one f32 copy: at gemma2-9b's prefill the logits are (2, 6144, 256000),
-    and each further f32 temporary would be 12.6 GB."""
+    and each further f32 temporary would be 12.6 GB.  Out of place when
+    autograd records it."""
     if not cap:
         return x
+    if torch.is_grad_enabled() and x.requires_grad:
+        # autograd keeps tanh's output, which the in-place mul would change
+        return (torch.tanh(x.float() / cap) * cap).to(x.dtype)
     y = x.float() if x.dtype != torch.float32 else x.clone()
     return y.div_(cap).tanh_().mul_(cap).to(x.dtype)
 

@@ -5,10 +5,12 @@
   init(seed, device)                    -> ParamTree of bf16 params
   init_cache(batch, cap, device, enc_cap) -> cache tree
   forward(params, batch, cache)         -> logits, cache, metrics
+  loss(params, batch)                   -> scalar loss, metrics (train)
   prefill(params, cache, batch)         -> logits, cache
   decode_step(params, cache, tok, pos)  -> logits, cache
 
-``batch`` is a dict holding ``tokens`` (B, S) int32; for a VLM config
+``batch`` is a dict holding ``tokens`` (B, S) int32 (and ``labels``
+(B, S_text) for ``loss``); for a VLM config
 (pixtral) ``media`` (B, S_media, D), the stub frontend's embeddings,
 which ``forward`` and ``prefill`` put before the tokens' (positions
 0..S_media-1; the logits cover them too, and a decode step after such a
@@ -37,12 +39,25 @@ rolls back (``models/transformer.py``).  ``forward``'s metrics are the reference
 (``aux_loss``, ``dropped``, and ``expert_counts`` (n_periods, E) for a
 MoE config); ``prefill`` and ``decode_step`` discard them, as the
 reference's do, and so skip the MoE load-balance loss.  A MoE layer
-reads its group sizes on the host once per call.  Training (``loss``)
-is not ported yet and raises.
+reads its group sizes on the host once per call.
+
+Training: ``forward`` and ``loss`` run with autograd as the caller has
+it (the trainer's params are ``params.trainable``); ``loss`` is the
+reference's: the mean cross entropy over the text positions (a VLM's
+media positions are cut from the logits first, padded vocab columns are
+left out) plus ``router_aux_weight`` times the MoE load-balance loss,
+with ``remat`` on by default and ``hot_experts`` passed down to the MoE
+layers' hot-expert branch.  On the card every GQA attention call then
+goes through the ``flash_attention`` kernel's autograd function, whose
+backward is the ``flash_attention_bwd`` kernel; a Mamba layer's
+``ssd_scan`` kernel has no backward yet, and training a Mamba stack on
+the card raises (``kernels/ops.py``).  ``prefill`` and ``decode_step``
+run under ``torch.no_grad()``.
 """
 from __future__ import annotations
 
 import operator
+from typing import Optional
 
 import torch
 
@@ -51,6 +66,21 @@ from .config import ModelConfig
 from .encdec import encdec_forward, init_encdec, init_encdec_cache
 from .params import ParamTree, tree_from_numpy
 from .transformer import init_lm, init_lm_cache, lm_forward
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  n_valid: Optional[int] = None) -> torch.Tensor:
+    """Stable softmax CE in f32, the mean over (B, S).  logits (B, S, V)
+    any float dtype, labels (B, S).  ``n_valid``: the real vocab entries;
+    the padded columns past it are left out (the reference masks them to
+    -1e30, which adds exp(-1e30 - max) = 0 to every row's sum).  The
+    reference's per-token ``mask`` has no caller and is not ported."""
+    logits = logits.float()
+    if n_valid is not None and n_valid < logits.shape[-1]:
+        logits = logits[..., :n_valid]
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, labels.long()[..., None])[..., 0]
+    return (lse - gold).mean()
 
 
 def params_from_numpy(tree, device="cuda") -> ParamTree:
@@ -94,8 +124,10 @@ class Model:
 
     # ---- forward paths ---------------------------------------------------
     def _run(self, params, batch, cache, start: int = 0,
-             aux_loss: bool = True):
+             aux_loss: bool = True, remat: bool = False, hot_experts=None):
         cfg = self.cfg
+        kw = dict(cache=cache, aux_loss=aux_loss, remat=remat,
+                  hot_experts=hot_experts)
         if cfg.encdec:
             frames = batch.get("frames")
             if frames is None and cache is None:
@@ -103,17 +135,27 @@ class Model:
                     f"{cfg.name}: a forward pass without a cache needs the "
                     f"encoder's frames")
             return encdec_forward(params, cfg, frames, batch["tokens"],
-                                  start, cache=cache, aux_loss=aux_loss)
-        return lm_forward(params, cfg, batch["tokens"], start, cache=cache,
-                          media_embeds=batch.get("media"), aux_loss=aux_loss)
+                                  start, **kw)
+        return lm_forward(params, cfg, batch["tokens"], start,
+                          media_embeds=batch.get("media"), **kw)
 
-    def forward(self, params, batch, cache=None, remat: bool = False):
-        return self._run(params, batch, cache)
+    def forward(self, params, batch, cache=None, remat: bool = False,
+                hot_experts=None):
+        return self._run(params, batch, cache, remat=remat,
+                         hot_experts=hot_experts)
 
-    def loss(self, params, batch, remat: bool = True):
-        raise NotImplementedError(
-            "loss / cross_entropy (training) are not ported yet: ROADMAP "
-            "Queue 1 item 10")
+    def loss(self, params, batch, remat: bool = True, hot_experts=None):
+        """(scalar f32 loss, metrics): the reference's ``Model.loss``
+        (``metrics["ce_loss"]`` is the total, as there)."""
+        cfg = self.cfg
+        logits, _, metrics = self.forward(params, batch, remat=remat,
+                                          hot_experts=hot_experts)
+        if cfg.num_media_tokens and "media" in batch:
+            logits = logits[:, batch["media"].shape[1]:, :]
+        loss = cross_entropy(logits, batch["labels"], n_valid=cfg.vocab)
+        if cfg.moe is not None:
+            loss = loss + cfg.moe.router_aux_weight * metrics["aux_loss"]
+        return loss, {**metrics, "ce_loss": loss}
 
     @torch.no_grad()
     def prefill(self, params, cache, batch):

@@ -11,8 +11,9 @@ its input's min and max on the host first).
 
 :func:`moe_ffn` is the transformer's entry, for one device only: the
 reference's expert-parallel ``moe_ffn_sharded`` (a mesh; ROADMAP Queue 1
-item 12) and its hot-expert branch, reached only through
-``meshctx.use_moe_hot`` in the training step (item 10), are not ported.
+item 12) is not ported.  Its hot-expert branch is: the trainer passes the
+hot set down explicitly (``make_train_step(hot_experts=)``), where the
+reference installs it in a process-global around its trace.
 
 Routing ties: ``jax.lax.top_k`` returns the lower expert id first among
 equal logits.  :func:`route` takes the first k of a stable descending
@@ -87,6 +88,9 @@ def _expert_compute(xs: torch.Tensor, group_sizes: Sequence[int],
     row count of each group; group g runs expert ``experts[g]`` (default:
     group g is expert g) of the stacked weights.  Returns (N,D)."""
     experts = range(len(group_sizes)) if experts is None else experts
+    # one unbind a stack: under autograd each stack's gradient is built
+    # once, not a zero-filled stack per expert
+    w1, w3, w2 = w1.unbind(0), w3.unbind(0), w2.unbind(0)
     out = []
     start = 0
     for e, g in zip(experts, group_sizes):
@@ -136,14 +140,24 @@ def moe_ffn_local(params, x2d: torch.Tensor, moe: MoEConfig,
 
 
 def moe_ffn(params, x: torch.Tensor, cfg: ModelConfig,
-            aux_loss: bool = True):
+            aux_loss: bool = True,
+            hot_experts: Optional[Sequence[int]] = None):
     """x: (B,S,D) -> (y, metrics), the reference's ``moe_ffn`` with no
-    mesh and no hot-expert set: ``moe_ffn_local`` over the B*S tokens,
-    plus the shared experts' FFN when ``num_shared`` is set."""
+    mesh: ``moe_ffn_local`` over the B*S tokens, or, given a hot-expert
+    set smaller than the expert count, the branch-injected
+    ``moe_ffn_hotpath`` (the reference reads that set from a
+    process-global installed around its trace; the trainer passes it
+    here explicitly), plus the shared experts' FFN when ``num_shared``
+    is set."""
     moe = cfg.moe
     B, S, D = x.shape
-    y, metrics = moe_ffn_local(params, x.reshape(B * S, D), moe,
-                               cfg.ffn_act, aux_loss)
+    if hot_experts and len(hot_experts) < moe.num_experts:
+        from ..core.passes.branch_inject import moe_ffn_hotpath
+        y, metrics = moe_ffn_hotpath(params, x.reshape(B * S, D), cfg,
+                                     tuple(hot_experts), cfg.ffn_act)
+    else:
+        y, metrics = moe_ffn_local(params, x.reshape(B * S, D), moe,
+                                   cfg.ffn_act, aux_loss)
     y = y.reshape(B, S, D)
     if moe.num_shared:
         y = y + ffn(params["shared"], x, cfg.ffn_act)

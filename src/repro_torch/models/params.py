@@ -6,6 +6,7 @@ sharding axes beside them, which the single-device port does not need).
 ``nn.Parameter``, every nested dict a ``ParamTree``, every list an
 ``nn.ModuleList`` — so ``.to(device)`` and ``state_dict`` work, while
 model code keeps the reference's ``params["moe"]["w1"]`` indexing.
+:func:`trainable` unfreezes a tree for training.
 """
 from __future__ import annotations
 
@@ -127,6 +128,65 @@ def stack_draws(draw, n: int):
     del first
     for i in range(1, n):
         put(out, draw(), i)
+    return out
+
+
+def trainable(params: ParamTree) -> ParamTree:
+    """Make every floating-point leaf of ``params`` require grad, in place,
+    and return it: the trainer's tree (the serving path's leaves stay
+    frozen, so its calls record no graph and take the plain kernel
+    launches)."""
+    for p in params.parameters():
+        if p.is_floating_point():
+            p.requires_grad_(True)
+    return params
+
+
+def _children(tree):
+    if isinstance(tree, ParamTree):
+        return list(tree._parameters.items()) + list(tree._modules.items())
+    if isinstance(tree, nn.ModuleList):
+        return [(str(i), m) for i, m in enumerate(tree)]
+    if isinstance(tree, dict):
+        return list(tree.items())
+    if isinstance(tree, (list, tuple)):
+        return [(str(i), v) for i, v in enumerate(tree)]
+    return None
+
+
+def unbind_tree(tree, n: int):
+    """The ``n`` entries of a stacked tree as ``n`` trees of views, one
+    ``unbind`` a leaf: under autograd each leaf's gradient is then stacked
+    once, where indexing entry ``i`` of the stack for each of ``n`` layers
+    would add a zero-filled stack-sized gradient per layer."""
+    kids = _children(tree)
+    if kids is None:
+        return list(tree.unbind(0))
+    subs = {k: unbind_tree(v, n) for k, v in kids}
+    return [{k: v[i] for k, v in subs.items()} for i in range(n)]
+
+
+def flat_tree(tree, prefix: str = "") -> Dict[str, Any]:
+    """``{"a/b/c": leaf}`` over a tree of dicts, lists and ParamTrees: the
+    reference's checkpoint keys (its path entries joined by ``/``)."""
+    kids = _children(tree)
+    if kids is None:
+        return {prefix[:-1]: tree}
+    out: Dict[str, Any] = {}
+    for k, v in kids:
+        out.update(flat_tree(v, f"{prefix}{k}/"))
+    return out
+
+
+def unflat_tree(flat: Dict[str, Any]) -> Dict[str, Any]:
+    """Nested dicts from :func:`flat_tree`'s keys."""
+    out: Dict[str, Any] = {}
+    for key, v in flat.items():
+        *path, last = key.split("/")
+        node = out
+        for part in path:
+            node = node.setdefault(part, {})
+        node[last] = v
     return out
 
 

@@ -63,6 +63,7 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import torch
+import torch.utils.checkpoint
 
 from .attention import gqa_forward, init_attention, init_mla_attention, \
     mla_forward, project_kv
@@ -71,7 +72,7 @@ from .layers import embed, ffn, init_embedding, init_ffn, init_rmsnorm, \
     init_unembed, rmsnorm, softcap, unembed
 from .moe import init_moe, moe_ffn
 from .params import Initializer, ParamTree, index_tree, stack_draws, \
-    stack_pspecs
+    stack_pspecs, unbind_tree
 from .ssd import init_mamba, init_mamba_cache, mamba_decode, mamba_forward
 
 CACHE_DTYPE = torch.bfloat16       # the reference's cache dtype
@@ -163,7 +164,7 @@ def _check_cross(xkv, enc_out, enc_len: Optional[int]) -> None:
 def layer_forward(p, cfg: ModelConfig, spec: LayerSpec, x: torch.Tensor,
                   start: int = 0, cache=None, enc_out=None,
                   causal: bool = True, aux_loss: bool = True,
-                  enc_len: Optional[int] = None):
+                  enc_len: Optional[int] = None, hot_experts=None):
     """Returns (x, new_cache, metrics); ``start`` is the position of x's
     first token.  The cache is written in place (``new_cache`` holds the
     same tensors): a Mamba layer's one-token step over a cache takes
@@ -175,7 +176,7 @@ def layer_forward(p, cfg: ModelConfig, spec: LayerSpec, x: torch.Tensor,
     dense layer adds no aux loss and drops nothing: its metrics are host
     zeros, so a decode step launches no kernels for them.  A MoE layer's
     metrics are ``moe_ffn``'s (``aux_loss=False`` skips its load-balance
-    loss)."""
+    loss; ``hot_experts`` takes its hot-expert branch)."""
     if spec.cross_attn:
         _check_cross(cache["xkv"] if cache is not None else None, enc_out,
                      enc_len)
@@ -226,7 +227,7 @@ def layer_forward(p, cfg: ModelConfig, spec: LayerSpec, x: torch.Tensor,
     if spec.ffn != "none":
         h = rmsnorm(p["ffn_norm"], x, cfg.rms_eps)
         if spec.ffn == "moe":
-            f, metrics = moe_ffn(p["ffn"], h, cfg, aux_loss)
+            f, metrics = moe_ffn(p["ffn"], h, cfg, aux_loss, hot_experts)
         else:
             f = ffn(p["ffn"], h, cfg.ffn_act)
         if cfg.post_norm:
@@ -344,7 +345,8 @@ def _check_step(cache, start: int, S: int, mamba: bool) -> None:
 def lm_forward(params, cfg: ModelConfig, tokens: torch.Tensor,
                start: int = 0, cache=None,
                media_embeds: Optional[torch.Tensor] = None,
-               enc_out=None, remat: bool = False, aux_loss: bool = True
+               enc_out=None, remat: bool = False, aux_loss: bool = True,
+               hot_experts=None
                ) -> Tuple[torch.Tensor, Optional[dict], dict]:
     """tokens: (B, S_text); ``start``: the position of the first token (0
     for prefill and forward, ``pos`` for a decode step).  ``media_embeds``:
@@ -352,10 +354,16 @@ def lm_forward(params, cfg: ModelConfig, tokens: torch.Tensor,
     dtype); the step then covers S = S_media + S_text positions and the
     logits (B, S, V) all of them.  ``enc_out``: the
     encoder output (B, S_enc, D) of a stack with cross-attention layers,
-    or None to read the cache's (module docstring).  ``remat`` changes
-    nothing without a backward pass; ``aux_loss=False`` skips the MoE
-    layers' load-balance loss (the metric stays 0).  Returns (logits,
-    cache, metrics); the cache is written in place and returned."""
+    or None to read the cache's (module docstring).  ``remat``: without a
+    cache and with autograd recording, each period runs under one
+    ``torch.utils.checkpoint`` (non-reentrant), so only the period
+    boundaries are kept and the backward recomputes each period's
+    forward, as the reference's ``jax.checkpoint(policy=
+    nothing_saveable)`` of its scan body; otherwise it changes nothing.
+    ``aux_loss=False`` skips the MoE layers' load-balance loss (the metric
+    stays 0); ``hot_experts`` takes the MoE layers' hot-expert branch.
+    Returns (logits, cache, metrics); the cache is written in place and
+    returned."""
     S = tokens.shape[1] + (media_embeds.shape[1] if media_embeds is not None
                            else 0)
     mamba, enc_len, cross = [], None, _cross_position(cfg)
@@ -382,21 +390,36 @@ def lm_forward(params, cfg: ModelConfig, tokens: torch.Tensor,
         x, _, m = layer_forward(params[f"prefix{i}"], cfg, dense_spec, x,
                                 start, c, aux_loss=aux_loss)
         aux = aux + m["aux_loss"]
-    blocks = params["blocks"]
-    for i in range(cfg.n_periods):
-        period = None
+    # one unbind a stacked leaf (views): its gradient is stacked once
+    blocks = {f"pos{pos}": unbind_tree(params["blocks"][f"pos{pos}"],
+                                       cfg.n_periods)
+              for pos in range(len(cfg.pattern))}
+
+    def run_period(x, i):
+        aux, dropped, period = 0.0, 0.0, None
         for pos, spec in enumerate(cfg.pattern):
             key = f"pos{pos}"
             c = (index_tree(cache["blocks"][key], i) if cache is not None
                  else None)
-            x, _, m = layer_forward(index_tree(blocks[key], i), cfg, spec, x,
-                                    start, c, enc_out, aux_loss=aux_loss,
-                                    enc_len=enc_len)
+            x, _, m = layer_forward(blocks[key][i], cfg, spec, x, start, c,
+                                    enc_out, aux_loss=aux_loss,
+                                    enc_len=enc_len, hot_experts=hot_experts)
             aux = aux + m["aux_loss"]
             dropped = dropped + m["dropped"]
             if "expert_counts" in m:
                 period = (m["expert_counts"] if period is None
                           else period + m["expert_counts"])
+        return x, aux, dropped, period
+
+    checkpoint = remat and cache is None and torch.is_grad_enabled()
+    for i in range(cfg.n_periods):
+        if checkpoint:
+            x, a, d, period = torch.utils.checkpoint.checkpoint(
+                run_period, x, i, use_reentrant=False)
+        else:
+            x, a, d, period = run_period(x, i)
+        aux = aux + a
+        dropped = dropped + d
         if cfg.moe is not None:
             counts.append(period if period is not None else torch.zeros(
                 cfg.moe.num_experts, dtype=torch.int32, device=x.device))

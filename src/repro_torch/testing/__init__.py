@@ -22,12 +22,15 @@ sequence, with guards catching every mispredict.
   * :mod:`~repro_torch.testing.fingerprint` hashes plan signatures
     canonically (the reference's serialization, byte for byte).
 
-Not ported yet (ROADMAP.md): the training chaos cells and the
-cross-process fingerprint CLI.
+  * :func:`~repro_torch.testing.chaos.run_train_chaos` drives the
+    training supervisor through a crash and resume, a step fault and
+    build faults (the device-loss cell needs a mesh and raises).
+
+Not ported yet (ROADMAP.md): the cross-process fingerprint CLI.
 """
 from .archzoo import ArchPlane, build_plane, conformance_engine_config
-from .chaos import CHAOS_MODES, FAULT_KINDS, chaos_health_config, \
-    run_chaos, run_train_chaos
+from .chaos import CHAOS_MODES, FAULT_KINDS, TRAIN_SCENARIOS, \
+    chaos_health_config, run_chaos, run_train_chaos
 from .churn import ChurnEvent, generate_schedule, register_churn_move
 from .conformance import ConformanceError, run_conformance
 from .fingerprint import plan_fingerprint
@@ -37,6 +40,6 @@ __all__ = [
     "ChurnEvent", "generate_schedule", "register_churn_move",
     "ConformanceError", "run_conformance",
     "CHAOS_MODES", "FAULT_KINDS", "chaos_health_config", "run_chaos",
-    "run_train_chaos",
+    "TRAIN_SCENARIOS", "run_train_chaos",
     "plan_fingerprint",
 ]

@@ -39,8 +39,9 @@ degraded plane are rejected ``PLANE_DEGRADED``, and the run ends with
 the accounting invariant — every submitted request reached exactly one
 terminal state.
 
-Not ported yet: the TRAINING chaos cells (``run_train_chaos``), which
-need the training supervisor (ROADMAP.md Queue 1 item 10).
+The TRAINING chaos cells (``run_train_chaos``, at the end of this file)
+drive the training supervisor; their device-loss cell needs a mesh and
+raises (ROADMAP.md Queue 1 item 12).
 """
 from __future__ import annotations
 
@@ -322,13 +323,251 @@ def _final_sweep(pair: _Pair, ctl: MorpheusController, plane: ArchPlane,
                          f"{report.arch}/{report.mode}: post-recovery")
 
 
-def run_train_chaos(scenario: str, seed: int = 0) -> Dict[str, Any]:
-    """The TRAINING chaos cells (crash/resume, step fault, device loss,
-    compile fault on the training plane) need the training supervisor,
-    which is not ported yet."""
+# ---------------------------------------------------------------------------
+# Training-plane chaos (the TrainSupervisor), ported from the reference
+# ---------------------------------------------------------------------------
+#
+# The training plane's obligations are trajectory-level:
+#
+#   crash_resume  a crash + resume replays the never-crashed run
+#                 BIT-EXACTLY (losses and every state leaf), because the
+#                 supervisor's executable sequence pi(step) is
+#                 deterministic and checkpoint-coupled — and the resume
+#                 itself performs ZERO training-thread builds (the plan
+#                 revalidates in background).
+#   step_fault    an in-process fault deopts to the resident generic and
+#                 retries the same batch: the optimizer step counter
+#                 advances exactly once per batch (no lost, no double
+#                 step) and the run ends re-specialized + healthy.
+#   device_loss   the elastic arc needs a mesh: raises
+#                 NotImplementedError (ROADMAP Queue 1 item 12).
+#   compile       injected build failures: bounded-backoff retries
+#                 absorb a short burst off the training thread; a burst
+#                 past max_retries quarantines the plan signature and
+#                 the run survives on generic.
+
+TRAIN_SCENARIOS = ("crash_resume", "step_fault", "device_loss", "compile")
+TRAIN_CHAOS_ARCH = "phi3.5-moe-42b-a6.6b"
+
+
+def _train_cell(seed: int, steps: int, device, *,
+                respecialize_every: int = 8, hot_coverage: float = 0.7,
+                seq: int = 32, batch: int = 4):
+    """One training-plane cell: smoke MoE config, deterministic data
+    stream, fast-clock health knobs (as the serving chaos cells)."""
+    from ..configs import get_config
+    from ..data import DataConfig
+    from ..models.model import Model
+    from ..optim import AdamWConfig
+    from ..training import SupervisorConfig
+
+    cfg = get_config(TRAIN_CHAOS_ARCH).smoke()
+    model = Model(cfg)
+    dcfg = DataConfig(vocab=cfg.vocab, seq=seq, global_batch=batch,
+                      seed=seed, media_tokens=cfg.num_media_tokens,
+                      d_model=cfg.d_model, enc_seq=0)
+    opt_cfg = AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=steps)
+    scfg = SupervisorConfig(respecialize_every=respecialize_every,
+                            hot_coverage=hot_coverage,
+                            health=chaos_health_config("plain"))
+
+    def make_sup(injector=None, ckpt_dir=None, log=None):
+        from ..data import TokenPipeline
+        from ..launch.train import build_state
+        from ..training import TrainSupervisor
+        state = build_state(model, seed, device)
+        example = TokenPipeline(dcfg, device).peek_batch()
+        sup = TrainSupervisor(model, opt_cfg, state, example, cfg=scfg,
+                              injector=injector, ckpt_dir=ckpt_dir,
+                              log_fn=log or (lambda m: None))
+        return sup, state
+
+    return dcfg, make_sup
+
+
+def _opt_step(state) -> int:
+    return int(state["opt"]["step"])
+
+
+def _leaves(state) -> list:
+    from ..models.params import flat_tree
+    return [t.detach().cpu().clone() for t in flat_tree(state).values()]
+
+
+def _assert_train(cond: bool, msg: str) -> None:
+    if not cond:
+        raise ConformanceError(msg)
+
+
+def _train_crash_resume(seed: int, device, report: Dict[str, Any]) -> None:
+    import shutil
+    import tempfile
+
+    import torch
+
+    from ..checkpoint import restore, save
+    from ..data import TokenPipeline
+
+    steps, crash_at, ckpt_every = 24, 14, 6
+    dcfg, make_sup = _train_cell(seed, steps, device)
+
+    # the never-crashed reference trajectory
+    sup, state = make_sup()
+    pipe = TokenPipeline(dcfg, device)
+    ref_losses = []
+    for _ in range(steps):
+        state, m = sup.step(state, pipe.next_batch())
+        ref_losses.append(float(m["loss"]))
+    ref_leaves = _leaves(state)
+    _assert_train(sup.stats()["activations"] >= 1,
+                  "crash_resume: reference run never specialized")
+    sup.close()
+    del state
+
+    # the crashed run: checkpoint cadence, then abandon mid-interval
+    d = tempfile.mkdtemp(prefix="train_chaos_")
+    try:
+        sup, state = make_sup(ckpt_dir=d)
+        pipe = TokenPipeline(dcfg, device)
+        for i in range(crash_at):
+            state, m = sup.step(state, pipe.next_batch())
+            if (i + 1) % ckpt_every == 0:
+                save(d, i + 1, state,
+                     meta={"data": pipe.state_dict(),
+                           "morpheus": sup.spec_meta()})
+        sup.close()                      # crash: all live state is gone
+        del state
+
+        # resume as a fresh process would: new supervisor, cold cache
+        sup, state = make_sup(ckpt_dir=d)
+        state, meta = restore(d, None, state)
+        pipe = TokenPipeline(dcfg, device)
+        pipe.load_state_dict(meta["data"])
+        start = meta["step"]
+        sup.restore_spec(meta.get("morpheus"), resume_step=start)
+        res_losses = []
+        for _ in range(start, steps):
+            state, m = sup.step(state, pipe.next_batch())
+            res_losses.append(float(m["loss"]))
+        s = sup.stats()
+        # zero training-thread specialization builds at resume: the only
+        # sync build is the resident generic of the constructor
+        _assert_train(s["sync_compiles"] == 1,
+                      f"crash_resume: resume built on the training "
+                      f"thread (sync_compiles={s['sync_compiles']})")
+        _assert_train(res_losses == ref_losses[start:],
+                      f"crash_resume: loss trajectory diverged after "
+                      f"resume at {start}")
+        bad = [i for i, (a, b) in enumerate(zip(ref_leaves,
+                                                _leaves(state)))
+               if not torch.equal(a, b)]
+        _assert_train(not bad,
+                      f"crash_resume: {len(bad)} state leaves differ "
+                      f"from the never-crashed run")
+        sup.close()
+        report.update(resume_step=start, bit_exact=True,
+                      resume_stats=s)
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+
+
+def _train_step_fault(seed: int, device, report: Dict[str, Any]) -> None:
+    from ..data import TokenPipeline
+
+    steps, fault_at = 32, 14
+    dcfg, make_sup = _train_cell(seed, steps, device)
+    inj = FailureInjector()
+    sup, state = make_sup(injector=inj)
+    pipe = TokenPipeline(dcfg, device)
+    for i in range(steps):
+        if i == fault_at:
+            _assert_train(sup.active_plan.specialized,
+                          "step_fault: plane not specialized at the "
+                          "injection point")
+            inj.arm_next(SimulatedFailure("chaos: train step fault"))
+        state, m = sup.step(state, pipe.next_batch())
+        if i == fault_at:
+            _assert_train(not sup.active_plan.specialized,
+                          "step_fault: fault did not deopt to generic")
+    s = sup.stats()
+    # the no-lost-step obligation: every batch applied exactly once
+    _assert_train(_opt_step(state) == steps,
+                  f"step_fault: optimizer applied {_opt_step(state)} "
+                  f"updates for {steps} batches")
+    _assert_train(s["step_faults"] == 1, "step_fault: fault not counted")
+    _assert_train(s["respecialize_recoveries"] >= 1
+                  and s["health"] == HEALTHY
+                  and s["active"].startswith("specialized"),
+                  f"step_fault: plane never recovered "
+                  f"(health={s['health']} active={s['active']})")
+    _assert_train(np.isfinite(float(m["loss"])),
+                  "step_fault: non-finite loss after recovery")
+    sup.close()
+    report.update(fault_step=fault_at, stats=s)
+
+
+def _train_device_loss(seed: int, device, report: Dict[str, Any]) -> None:
     raise NotImplementedError(
-        "training chaos waits for the training slice of the port "
-        "(ROADMAP.md Queue 1 item 10)")
+        "the training device-loss arc needs a mesh and elastic resharding: "
+        "ROADMAP Queue 1 item 12")
+
+
+def _train_compile_fault(seed: int, device, report: Dict[str, Any]) -> None:
+    from ..data import TokenPipeline
+
+    dcfg, make_sup = _train_cell(seed, 16, device)
+    # episode A: a short burst (<= max_retries) is absorbed by the
+    # scheduler's bounded backoff — the swap still happens, off-thread
+    sup, state = make_sup()
+    pipe = TokenPipeline(dcfg, device)
+    sup.arm_compile_faults(2)
+    for _ in range(16):
+        state, m = sup.step(state, pipe.next_batch())
+    s = sup.stats()
+    sched = sup.scheduler.stats()
+    _assert_train(s["activations"] >= 1 and s["quarantines"] == 0,
+                  f"compile: retry burst not absorbed ({s})")
+    _assert_train(sched["retries"] >= 1,
+                  "compile: scheduler never retried")
+    sup.close()
+    report.update(absorbed_stats=s)
+
+    # episode B: a burst past max_retries quarantines the signature;
+    # the run survives on generic
+    sup, state = make_sup()
+    pipe = TokenPipeline(dcfg, device)
+    sup.arm_compile_faults(10)
+    for _ in range(16):
+        state, m = sup.step(state, pipe.next_batch())
+    s = sup.stats()
+    _assert_train(s["quarantines"] == 1 and s["activations"] == 0,
+                  f"compile: give-up did not quarantine ({s})")
+    _assert_train(s["health"] == "quarantined"
+                  and s["active"] == "generic",
+                  f"compile: quarantined plane not on generic ({s})")
+    _assert_train(_opt_step(state) == 16 and np.isfinite(float(m["loss"])),
+                  "compile: training did not survive quarantine")
+    sup.close()
+    report.update(quarantine_stats=s)
+
+
+_TRAIN_SCENARIOS = {"crash_resume": _train_crash_resume,
+                    "step_fault": _train_step_fault,
+                    "device_loss": _train_device_loss,
+                    "compile": _train_compile_fault}
+
+
+def run_train_chaos(scenario: str, seed: int = 0,
+                    device="cuda") -> Dict[str, Any]:
+    """Drive one training-plane chaos scenario on ``device`` (see the
+    section comment above); raises :class:`ConformanceError` on any
+    violated obligation; returns the report dict on success."""
+    if scenario not in _TRAIN_SCENARIOS:
+        raise ValueError(f"scenario {scenario!r} not in {TRAIN_SCENARIOS}")
+    report: Dict[str, Any] = {"scenario": scenario, "seed": seed,
+                              "arch": TRAIN_CHAOS_ARCH}
+    _TRAIN_SCENARIOS[scenario](seed, device, report)
+    return report
 
 
 def run_chaos(arch_id: str, mode: str = "plain", seed: int = 0,

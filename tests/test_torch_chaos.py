@@ -119,7 +119,7 @@ def test_chaos_schedule_equals_the_reference(arch, seed, n_events):
 
 
 def test_unported_chaos_parts_raise():
-    with pytest.raises(NotImplementedError, match="item 10"):
-        run_train_chaos("step_fault")
+    with pytest.raises(NotImplementedError, match="item 12"):
+        run_train_chaos("device_loss", device="cpu")
     with pytest.raises(ValueError):
         run_chaos("llama3-8b", "fused", device="cpu")

@@ -1287,3 +1287,190 @@ def test_window_fault_on_the_card_fails_its_requests_and_serves_on(cuda):
             fe.stop(drain=False)
         rt.close()
         ctl.close()
+
+
+# ---------------------------------------------------------------------------
+# flash_attention's backward (csrc/flash_attention_bwd.cu) and training
+# ---------------------------------------------------------------------------
+
+# FA_SHAPES, then the train-kernel phase's shapes at a test's size:
+# starcoder2-3b's layer (GQA 24/2, D 128, causal), gemma2-9b's local
+# layer (D 256, window, softcap 50) and seamless's encoder (D 64, MHA,
+# not causal)
+BWD_SHAPES = FA_SHAPES + [(1, 512, 512, 24, 2, 128, True, None, 0.0),
+                          (1, 300, 300, 16, 8, 256, True, 128, 50.0),
+                          (2, 200, 200, 16, 16, 64, False, None, 0.0)]
+BWD_F32_TOL = 1e-4     # normwise, f32 kernel vs f32 plain: sums reordered
+BWD_BF16_REL = 2.0     # x the plain version's own bf16 distance from f32
+
+
+def _bwd_inputs(B, Sq, Sk, H, Hkv, D, dtype, device, seed=0):
+    q, k, v = _fa_inputs(B, Sq, Sk, H, Hkv, D, dtype, device, seed)
+    rng = np.random.default_rng(seed + 1)
+    do = torch.from_numpy(rng.standard_normal((B, Sq, H, D)).astype(
+        np.float32)).to(device=device, dtype=dtype)
+    return q, k, v, do
+
+
+def _normwise(got, ref):
+    return float((got.float() - ref.float()).abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,Sq,Sk,H,Hkv,D,causal,window,cap", BWD_SHAPES)
+def test_flash_attention_bwd_kernel_equals_plain(cuda, B, Sq, Sk, H, Hkv, D,
+                                                 causal, window, cap):
+    """Normwise over the three gradients together (a decode-shaped row
+    that sees one key has dq = 0 exactly, which no relative error of its
+    own can hold): f32, each gradient within ``BWD_F32_TOL`` times the
+    largest entry of the plain backward's f32 grads; bf16, within
+    ``BWD_BF16_REL`` times the plain version's own largest bf16 distance
+    from those f32 grads."""
+    kw = dict(causal=causal, window=window, logit_softcap=cap)
+    q, k, v, do = _bwd_inputs(B, Sq, Sk, H, Hkv, D, torch.float32, cuda)
+    ref32 = TR.flash_attention_bwd_ref(q, k, v, do, **kw)
+    o = fa_mod.flash_attention_cuda(q, k, v, **kw)
+    before = ops.launches().get("flash_attention_bwd", 0)
+    got = fa_mod.flash_attention_bwd_cuda(q, k, v, o, do, **kw)
+    torch.cuda.synchronize()
+    assert ops.launches()["flash_attention_bwd"] == before + 1
+    scale = max(float(r.abs().max()) for r in ref32)
+    for name, g, r in zip("qkv", got, ref32):
+        assert g.dtype == torch.float32 and g.shape == r.shape
+        assert _normwise(g, r) <= BWD_F32_TOL * scale, name
+    qb, kb, vb, dob = (t.bfloat16() for t in (q, k, v, do))
+    ob = fa_mod.flash_attention_cuda(qb, kb, vb, **kw)
+    got = fa_mod.flash_attention_bwd_cuda(qb, kb, vb, ob, dob, **kw)
+    assert fa_mod.last_bwd_path == fa_mod.bwd_path(D, torch.bfloat16) == (
+        "mma_sync" if D in (64, 128) else "cuda_cores")
+    plain = TR.flash_attention_bwd_ref(qb, kb, vb, dob, **kw)
+    noise = max(_normwise(p, r) for p, r in zip(plain, ref32))
+    for name, g, r in zip("qkv", got, ref32):
+        assert g.dtype == torch.bfloat16 and torch.isfinite(g).all()
+        assert _normwise(g, r) <= BWD_BF16_REL * noise, (name, noise)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,D", [(torch.float32, 256),
+                                     (torch.bfloat16, 256),
+                                     (torch.bfloat16, 128)])
+def test_flash_attention_bwd_kernel_is_deterministic(cuda, dtype, D):
+    """Both paths: two calls give the same bits."""
+    q, k, v, do = _bwd_inputs(2, 300, 300, 16, 8, D, dtype, cuda, seed=3)
+    kw = dict(window=100, logit_softcap=50.0)
+    o = fa_mod.flash_attention_cuda(q, k, v, **kw)
+    a = fa_mod.flash_attention_bwd_cuda(q, k, v, o, do, **kw)
+    b = fa_mod.flash_attention_bwd_cuda(q, k, v, o, do, **kw)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+def test_flash_attention_bwd_kernel_reads_unaligned_and_strided_operands(
+        cuda):
+    """A view that is not dense or starts off a 16-byte boundary is copied
+    first: the gradient equals the one of a dense copy bit for bit."""
+    q, k, v, do = _bwd_inputs(1, 130, 130, 8, 2, 128, torch.bfloat16, cuda)
+    o = fa_mod.flash_attention_cuda(q, k, v)
+    want = fa_mod.flash_attention_bwd_cuda(q, k, v, o, do)
+    big = torch.zeros(q.numel() + 1, dtype=q.dtype, device=cuda)
+    q_off = big[1:].view(q.shape)
+    q_off.copy_(q)
+    assert q_off.data_ptr() % 16
+    k_t = k.transpose(1, 2).contiguous().transpose(1, 2)
+    got = fa_mod.flash_attention_bwd_cuda(q_off, k_t, v, o, do)
+    for x, y in zip(got, want):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+def test_flash_attention_bwd_kernel_rejects_what_it_does_not_take(cuda):
+    q, k, v, do = _bwd_inputs(1, 16, 16, 4, 2, 32, torch.float32, cuda)
+    bwd = fa_mod.flash_attention_bwd_cuda
+    with pytest.raises(TypeError):              # mixed dtypes
+        bwd(q, k.bfloat16(), v.bfloat16(), q, do)
+    with pytest.raises(TypeError):              # half precision
+        bwd(*(t.half() for t in (q, k, v, q, do)))
+    with pytest.raises(ValueError):             # D not a multiple of 8
+        odd = torch.zeros(1, 16, 4, 20, device=cuda)
+        bwd(odd, odd[:, :, :2], odd[:, :, :2], odd, odd)
+    with pytest.raises(ValueError):             # H not a multiple of Hkv
+        kv3 = torch.zeros(1, 16, 3, 32, device=cuda)
+        bwd(q, kv3, kv3, q, do)
+    with pytest.raises(ValueError):             # do's shape
+        bwd(q, k, v, q, do[:, :8])
+    with pytest.raises(ValueError):             # host tensors
+        bwd(*(t.cpu() for t in (q, k, v, q, do)))
+
+
+@pytest.mark.cuda
+def test_flash_attention_autograd_takes_the_backward_kernel(cuda):
+    """With grad, ``ops.flash_attention`` launches the forward and the
+    backward kernel; without it, the plain forward launch only."""
+    q, k, v, do = _bwd_inputs(1, 130, 130, 8, 2, 128, torch.bfloat16, cuda)
+    ops.reset_launches()
+    with torch.no_grad():
+        ops.flash_attention(q, k, v)
+    assert ops.launches() == {"flash_attention": 1}
+    qg, kg, vg = (t.clone().requires_grad_(True) for t in (q, k, v))
+    out = ops.flash_attention(qg, kg, vg)
+    out.backward(do)
+    assert ops.launches() == {"flash_attention": 2, "flash_attention_bwd": 1}
+    want = fa_mod.flash_attention_bwd_cuda(
+        q, k, v, fa_mod.flash_attention_cuda(q, k, v), do)
+    for t, w in zip((qg, kg, vg), want):
+        assert torch.equal(t.grad, w)
+
+
+@pytest.mark.cuda
+def test_mamba_training_on_the_card_raises(cuda):
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import Model
+    from repro_torch.models.params import trainable
+    cfg = get_config("mamba2-1.3b").smoke()
+    model = Model(cfg)
+    params = trainable(model.init(0, cuda))
+    tok = torch.zeros((1, 16), dtype=torch.int32, device=cuda)
+    with pytest.raises(NotImplementedError, match="10b"):
+        model.loss(params, {"tokens": tok, "labels": tok})
+
+
+@pytest.mark.cuda
+def test_train_step_on_the_card_matches_the_host(cuda):
+    """One starcoder2 smoke step in f32 from the same params and batch:
+    the loss and every gradient on the card (the flash_attention kernels
+    forward and backward) against the host's (the plain version), then a
+    whole ``make_train_step`` step's loss and gradient norm."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, TokenPipeline
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.model import Model
+    from repro_torch.models.params import flat_tree, trainable
+    from repro_torch.optim import AdamWConfig, init_opt_state
+    cfg = get_config("starcoder2-3b").smoke()
+    model = Model(cfg)
+    host = model.init(0, "cpu").float()
+    card = trainable(model.init(0, "cpu").float().to(cuda))
+    host = trainable(host)
+    dcfg = DataConfig(vocab=cfg.vocab, seq=64, global_batch=2, seed=0)
+    bh = TokenPipeline(dcfg, "cpu").next_batch()
+    bc = TokenPipeline(dcfg, cuda).next_batch()
+    ops.reset_launches()
+    lh, _ = model.loss(host, bh)
+    lc, _ = model.loss(card, bc)
+    lh.backward()
+    lc.backward()
+    assert ops.launches()["flash_attention_bwd"] == cfg.n_layers
+    assert abs(float(lc) - float(lh)) <= 1e-5 * abs(float(lh))
+    for (name, ph), pc in zip(flat_tree(host).items(),
+                              flat_tree(card).values()):
+        gh, gc = ph.grad, pc.grad.cpu()
+        assert _normwise(gc, gh) <= 1e-4 * float(gh.abs().max()), name
+    opt = AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=4)
+    outs = []
+    for params, batch in ((host, bh), (card, bc)):
+        state = {"params": params, "opt": init_opt_state(params)}
+        _, m = make_train_step(model, opt)(state, batch)
+        outs.append((float(m["loss"]), float(m["grad_norm"])))
+    assert outs[1][0] == pytest.approx(outs[0][0], rel=1e-5)
+    assert outs[1][1] == pytest.approx(outs[0][1], rel=1e-4)

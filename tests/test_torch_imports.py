@@ -42,6 +42,16 @@ def test_fault_chaos_and_serve_modules_are_checked():
         assert f"src/repro_torch/{rel}" in names
 
 
+def test_training_modules_are_checked():
+    """The training slice's subpackages are among the files held to
+    import neither JAX nor the reference."""
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    for rel in ("optim/adamw.py", "data/pipeline.py", "checkpoint/ckpt.py",
+                "training/plan.py", "training/supervisor.py",
+                "launch/train.py", "launch/steps.py"):
+        assert f"src/repro_torch/{rel}" in names
+
+
 def test_importing_the_port_leaves_jax_unloaded():
     code = ("import sys, repro_torch, repro_torch.core, repro_torch.serving,"
             " repro_torch.kernels.ops, repro_torch.configs,"
@@ -50,7 +60,9 @@ def test_importing_the_port_leaves_jax_unloaded():
             " repro_torch.models.attention, repro_torch.models.transformer,"
             " repro_torch.models.model, repro_torch.launch.steps,"
             " repro_torch.serving.frontend, repro_torch.distributed.fault,"
-            " repro_torch.testing.chaos, repro_torch.launch.serve; "
+            " repro_torch.testing.chaos, repro_torch.launch.serve,"
+            " repro_torch.optim, repro_torch.data, repro_torch.checkpoint,"
+            " repro_torch.training, repro_torch.launch.train; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; "
             "assert not bad, bad; print('ok')")
