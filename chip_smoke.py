@@ -23,7 +23,9 @@
    and equal bits from call to call; each case names the kernel path it
    took.  Before it, the count of ``HGMMA`` and ``UTMALDG`` instructions
    per ``flash_attention`` path in the built library's SASS
-   (``cuobjdump -sass``): the wgmma prefill must hold both.
+   (``cuobjdump -sass``): the wgmma prefill must hold both; so must
+   ``flash_attention_bwd``'s wgmma dk / dv and dq kernels, whose
+   registers and spills (``-Xptxas -v``) it prints beside them.
 3. Serving phase at full width (the widths of
    ``src/repro/configs/phi3p5_moe.py``; 2 layers instead of 32, because
    f32 params at 32 layers do not fit one card): generic steps, a
@@ -216,13 +218,19 @@
    reference kernel test's flash shapes, starcoder2-3b's layer (B 4,
    S 2048, 24 / 2 heads x 128, causal), gemma2-9b's local layer (D 256,
    window 4096, softcap 50) and seamless's encoder layer (D 64, MHA, not
-   causal).  The yardstick is the plain backward in f32; the kernel's
-   bf16 gradients must lie within ``BWD_BF16_REL`` times the plain
-   version's own bf16 distance from it (normwise over dq, dk, dv), and
-   two calls must give equal bits.  Per shape it prints the kernel's
-   time under CUDA-graph replay, the plain version's, SDPA's backward
-   where one call computes the same function (no window, no softcap),
-   and the bound, 10 B H (visible pairs) D FLOP at the bf16 peak.
+   causal).  The backward takes the forward's output and logsumexp
+   (``return_lse=True``), as ``FlashAttentionFn`` saves them.  The
+   yardstick is the plain backward in f32; the kernel's bf16 gradients
+   must lie within ``BWD_BF16_REL`` times the plain version's own bf16
+   distance from it (normwise over dq, dk, dv), two calls must give
+   equal bits, and each shape must take ``bwd_path``'s path (``wgmma``
+   at D 64 / 128, with ``bwd_head_groups``'s groups; the CUDA cores at
+   D 256).  Per shape it prints the path, the kernel's time under
+   CUDA-graph replay, the plain version's, SDPA's backward where one
+   call computes the same function (no window, no softcap), and the
+   bound, 10 B H (visible pairs) D FLOP at the bf16 peak; at
+   starcoder2-3b's layer also the forward's time without and with the
+   logsumexp, in turns, and the backward's host enqueue time a call.
 15. Train-dense phase (``[train-dense]``): starcoder2-3b whole (30
    layers, every published width, 3.03 B params) through
    ``repro_torch.launch.train.main`` at batch 4 x seq 2048, 6 steps,
@@ -375,7 +383,7 @@ def eager_ms(torch, fn, iters: int = 50) -> float:
 # matches); the rest is elementwise and other work
 KERNEL_CLASSES = (("GEMM", r"gemm|Gemm|GEMM|cutlass|xmma|nvjet|cublas"),
                   ("flash", r"flash_"),
-                  ("flash bwd", r"bwd_prep|bwd_dkdv|bwd_dq"),
+                  ("flash bwd", r"bwd_delta|bwd_dkdv|bwd_dq|bwd_reduce"),
                   ("ssd_scan", r"chunk_state|state_pass|chunk_out"),
                   ("sort", r"[Ss]ort|[Rr]adix"),
                   ("gather/scatter", r"[Ii]ndex|[Ss]catter|[Gg]ather|Cat"))
@@ -493,21 +501,28 @@ FA_PATHS = {"flash_decode": "split_k_decode",
             "flash_combine": "split_k_decode",
             "flash_prefill_wgmma": "wgmma_prefill", "flash_bf16": "mma_sync",
             "flash_f32": "f32"}
+# flash_attention_bwd's kernels (csrc/flash_attention_bwd.cu): the wgmma
+# path's dk / dv and dq must each hold HGMMA and UTMALDG
+BWD_KERNELS = {"bwd_dkdv_wgmma": "wgmma dk/dv", "bwd_dq_wgmma": "wgmma dq",
+               "bwd_reduce": "wgmma reduce", "bwd_delta": "delta",
+               "bwd_dkdv": "cuda_cores dk/dv", "bwd_dq": "cuda_cores dq"}
 
 
-def sass_counts(build) -> dict:
-    """HGMMA (wgmma) and UTMALDG (TMA load) instructions per
-    flash_attention path in the built library's SASS."""
+def sass_counts(build, name: str = "flash_attention",
+                paths: dict = FA_PATHS) -> dict:
+    """HGMMA (wgmma) and UTMALDG (TMA load) instructions per kernel path
+    (the first key of ``paths`` in a function's name) in the SASS of
+    ``csrc/<name>.cu``'s built library."""
     tool = Path(build._nvcc()).with_name("cuobjdump")
     sass = subprocess.run([str(tool), "-sass",
-                           str(build.library_path("flash_attention"))],
+                           str(build.library_path(name))],
                           capture_output=True, text=True, timeout=300,
                           check=True).stdout
     counts, path = {}, None
     for line in sass.splitlines():
         fn = re.search(r"Function : (\S+)", line)
         if fn:
-            path = next((v for k, v in FA_PATHS.items()
+            path = next((v for k, v in paths.items()
                          if k in fn.group(1)), None)
             if path:
                 counts.setdefault(path, {"HGMMA": 0, "UTMALDG": 0,
@@ -517,6 +532,26 @@ def sass_counts(build) -> dict:
             for op in ("HGMMA", "UTMALDG"):
                 counts[path][op] += len(re.findall(rf"\b{op}\b", line))
     return counts
+
+
+def ptxas_usage(log: str, pattern: str) -> dict:
+    """``{entry: (registers, spill store bytes, spill load bytes)}`` for
+    the entry functions whose mangled name matches ``pattern``, from
+    nvcc's ``-Xptxas -v`` output."""
+    usage, entry, spills = {}, None, (0, 0)
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            entry, spills = m.group(1), (0, 0)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spills = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and entry and re.search(pattern, entry):
+            usage[entry] = (int(m.group(1)),) + spills
+    return usage
 
 
 def kernel_phase(torch, hot_gather_cuda, hot_gather_ref) -> float:
@@ -2500,12 +2535,17 @@ def train_kernel_phase(torch, smi):
         ref32 = flash_attention_bwd_ref(q, k, v, do, **kw)
         qb, kb, vb, dob = (t.bfloat16() for t in (q, k, v, do))
         plain = flash_attention_bwd_ref(qb, kb, vb, dob, **kw)
-        ob = fa_mod.flash_attention_cuda(qb, kb, vb, **kw)
-        run = lambda: fa_mod.flash_attention_bwd_cuda(qb, kb, vb, ob, dob,
-                                                      **kw)
+        # the forward's output and logsumexp, as FlashAttentionFn saves
+        ob, lseb = fa_mod.flash_attention_cuda(qb, kb, vb, return_lse=True,
+                                               **kw)
+        run = lambda: fa_mod.flash_attention_bwd_cuda(qb, kb, vb, ob, lseb,
+                                                      dob, **kw)
         got = run()
+        path = fa_mod.last_bwd_path
         again = run()
         torch.cuda.synchronize()
+        check(path == fa_mod.bwd_path(D, torch.bfloat16),
+              f"flash_attention_bwd {label}: took {path}")
         check(all(torch.equal(a, b) for a, b in zip(got, again)),
               f"flash_attention_bwd {label}: two calls differ")
         d = lambda a, b: (a.float() - b.float()).abs().max().item()
@@ -2540,9 +2580,11 @@ def train_kernel_phase(torch, smi):
                 torch, lambda: torch.autograd.grad(out, (qt, kt, vt), dot,
                                                    retain_graph=True),
                 5 if big else 20)
+        groups = (f", {fa_mod.bwd_head_groups(B, Hkv, Sk, H // Hkv)} head "
+                  f"groups" if path == "wgmma" else "")
         print(f"[train-kernel] flash_attention_bwd {label} B{B} Sq{Sq} Sk{Sk}"
               f" H{H}/{Hkv} D{D} causal={causal} window={window} cap={cap} "
-              f"bf16 ({fa_mod.bwd_path(D, torch.bfloat16)}): max |kernel - "
+              f"bf16 ({path}{groups}): max |kernel - "
               f"plain f32| {err:.3e} ({err / scale:.2e} "
               f"of max), the plain version's own bf16 {noise:.3e}; call == "
               f"call bit for bit; {pairs} visible pairs per (b, h), "
@@ -2554,6 +2596,26 @@ def train_kernel_phase(torch, smi):
               f"{smi}")
         if label == TRAIN_MAIN_SHAPE:
             main_row, main_err = row, err
+            # what asking for the logsumexp costs the forward
+            fwd = lambda lse: (lambda: fa_mod.flash_attention_cuda(
+                qb, kb, vb, return_lse=lse, **kw))
+            t_no, t_lse, t_no2, t_lse2 = (device_ms(torch, fwd(x))
+                                          for x in (False, True, False, True))
+            print(f"[train-kernel] flash_attention forward {label} "
+                  f"({fa_mod.last_path}): {t_no:.4f} / {t_no2:.4f} ms "
+                  f"without the logsumexp, {t_lse:.4f} / {t_lse2:.4f} ms "
+                  f"with it (graph replay, in turns) on {smi}")
+            # the host's cost a call (checks, scratch, four tensor maps,
+            # launches): 50 calls enqueued, the host clock stopped before
+            # the device is waited for (the queue holds their launches)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(50):
+                run()
+            host = (time.perf_counter() - t0) / 50 * 1e3
+            torch.cuda.synchronize()
+            print(f"[train-kernel] flash_attention_bwd {label} host "
+                  f"enqueue {host:.4f} ms a call")
         del q, k, v, do, ref32, plain, got, again
         gc.collect()
         torch.cuda.empty_cache()
@@ -2885,6 +2947,23 @@ def main() -> int:
     wg = sass.get("wgmma_prefill", {})
     check(wg.get("HGMMA", 0) > 0 and wg.get("UTMALDG", 0) > 0,
           f"the wgmma prefill's SASS holds no HGMMA or UTMALDG: {sass}")
+    bwd = sass_counts(build, "flash_attention_bwd", BWD_KERNELS)
+    for path, c in sorted(bwd.items()):
+        print(f"[sass] flash_attention_bwd {path}: {c['HGMMA']} HGMMA, "
+              f"{c['UTMALDG']} UTMALDG in {c['functions']} functions")
+    for path in ("wgmma dk/dv", "wgmma dq"):
+        c = bwd.get(path, {})
+        check(c.get("HGMMA", 0) > 0 and c.get("UTMALDG", 0) > 0,
+              f"flash_attention_bwd's {path} SASS holds no HGMMA or "
+              f"UTMALDG: {bwd}")
+    log = build.build_info["flash_attention_bwd"][1]
+    for entry, (regs, st, ld) in sorted(ptxas_usage(
+            log, r"bwd_(dkdv|dq)_wgmma|bwd_(dkdv|dq)I13__nv_bfloat16Li256E"
+    ).items()):
+        name = re.search(r"bwd_(?:dkdv|dq)\w*?I[^E]*E", entry)
+        print(f"[sass] flash_attention_bwd {name.group(0) if name else entry}"
+              f": {regs} registers at launch, spill stores {st} B, spill "
+              f"loads {ld} B")
 
     err = {"hot_gather": kernel_phase(torch, hot_gather_cuda,
                                       hot_gather_ref),

@@ -57,6 +57,17 @@
 // (x * 1 == x).  Key tiles with no visible pair are skipped: they would
 // leave m, l and acc unchanged bit for bit.
 //
+// The logsumexp: when the caller passes an f32 (B, H, Sq) `lse`, every
+// path also writes each row's logsumexp in log2 units,
+//
+//   lse2 = log2(sum over visible keys of 2^(x * log2(e))) = m + log2(l)
+//
+// from the m (log2 units) and l it already holds (flash_f32's natural-unit
+// m is multiplied by log2(e) first; the decode path's are flash_combine's
+// merged ones); a row that sees no key (l = 0) gets NEG_INF, finite.  The
+// backward (flash_attention_bwd.cu) reads it as P = 2^(x log2(e) - lse2).
+// With lse null nothing else changes: the output is the same bits.
+//
 // Head dims: D a multiple of 8 up to 256.  k and v may be strided along
 // batch, sequence and head (a decode reads a slice of the cache in
 // place); the last dim is dense and rows are 16-byte aligned.  Every sum
@@ -99,6 +110,7 @@ struct Params {
   float* part_ml;   // (B, Hkv, splits, R, 2): m (log2 units), l
   float* part_acc;  // (B, Hkv, splits, R, D)
   int splits, kps;  // splits, keys a split
+  float* lse;       // (B, H, Sq) logsumexp in log2 units, or null
 };
 
 __device__ __forceinline__ bool visible(const Params& p, int qp, int kp) {
@@ -185,6 +197,17 @@ __device__ __forceinline__ float logit2(const Params& p, float acc) {
     return p.cap_out * (1.f - 2.f * rcp(e + 1.f));
   }
   return acc * p.qk2;
+}
+
+// a row's logsumexp in log2 units from its max m (log2 units) and sum l;
+// NEG_INF for a row that sees no key
+__device__ __forceinline__ float row_lse2(float m, float l) {
+  return l > 0.f ? m + log2f(l) : kNegInf;
+}
+
+__device__ __forceinline__ void store_lse(const Params& p, int b, int h,
+                                          int row, float lse2) {
+  p.lse[((long long)b * p.H + h) * p.Sq + row] = lse2;
 }
 
 // ---------------------------------------------------------------------------
@@ -409,6 +432,9 @@ __global__ void __launch_bounds__(kThreads) flash_bf16(Params p) {
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     if (rows[r] >= p.Sq) continue;
+    if (p.lse != nullptr && t == 0) {
+      store_lse(p, b, h, rows[r], row_lse2(m[r], l[r]));
+    }
     const float den = fmaxf(l[r], 1e-30f);
     bf16* dst = og + (((long long)b * p.Sq + rows[r]) * p.H + h) * D + 2 * t;
 #pragma unroll
@@ -716,6 +742,9 @@ __global__ void __launch_bounds__(kThreads) flash_combine(Params p) {
   float l = 0.f;
   for (int s = 0; s < S; ++s) l += sml[S + s] * exp2f(sml[s] - m);
   const float den = fmaxf(l, 1e-30f);
+  if (p.lse != nullptr && threadIdx.x == 0) {
+    store_lse(p, b, hk * G + r % G, r / G, row_lse2(m, l));
+  }
   T* dst = static_cast<T*>(p.o) +
            (((long long)b * p.Sq + r / G) * p.H + hk * G + r % G) * D;
   const float* acc = p.part_acc + base * D;
@@ -873,7 +902,12 @@ __global__ void __launch_bounds__(kThreads) flash_f32(Params p) {
     }
   }
 
-  if (half == 0) s_l[srow] = l_r;
+  if (half == 0) {
+    s_l[srow] = l_r;
+    if (p.lse != nullptr && q0 + srow < p.Sq) {
+      store_lse(p, b, h, q0 + srow, row_lse2(m_r * kLog2e, l_r));
+    }
+  }
   __syncthreads();
   float* og = static_cast<float*>(p.o);
 #pragma unroll
@@ -1273,6 +1307,9 @@ __global__ void __launch_bounds__(kWgThreads, 1)
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     if (rows[r] >= p.Sq) continue;
+    if (p.lse != nullptr && t == 0) {
+      store_lse(p, b, h, rows[r], row_lse2(m[r], l[r]));
+    }
     const float den = fmaxf(l[r], 1e-30f);
     bf16* dst = og + (((long long)b * p.Sq + rows[r]) * p.H + h) * D + 2 * t;
 #pragma unroll
@@ -1415,14 +1452,16 @@ cudaError_t launch_decode_d(const Params& p, cudaStream_t s) {
 // 1 bfloat16.  Strides are in elements; the last dim of q, k and v is
 // dense, the output (B, Sq, H, D) contiguous.  part_ml / part_acc: the
 // decode's f32 scratch, (B, Hkv, splits, G Sq, 2) and (..., D); `kps`
-// keys a split.
+// keys a split.  lse: an f32 (B, H, Sq) for each row's logsumexp (log2
+// units, the header's), or null.
 extern "C" int flash_attention_launch(
     const void* q, const void* k, const void* v, void* o, int B, int Sq,
     int Sk, int H, int Hkv, int D, long long q_sb, long long q_ss,
     long long q_sh, long long k_sb, long long k_ss, long long k_sh,
     long long v_sb, long long v_ss, long long v_sh, int causal,
     int has_window, int window, float scale, float cap, int dtype, int path,
-    void* part_ml, void* part_acc, int splits, int kps, void* stream) {
+    void* part_ml, void* part_acc, int splits, int kps, void* lse,
+    void* stream) {
   if (B <= 0 || Sq <= 0 || Sk < 0 || H <= 0 || Hkv <= 0 || H % Hkv != 0 ||
       D < 8 || D > 256 || D % 8 != 0 || (dtype != 0 && dtype != 1)) {
     return (int)cudaErrorInvalidValue;
@@ -1460,6 +1499,7 @@ extern "C" int flash_attention_launch(
   p.part_acc = static_cast<float*>(part_acc);
   p.splits = splits;
   p.kps = kps;
+  p.lse = static_cast<float*>(lse);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (path) {
     case 0: {

@@ -29,16 +29,27 @@ PyTorch version of the same function is :func:`flash_attention_ref`
 (``kernels/ref.py``); ``kernels/ops.py`` chooses between them by the
 tensors' device.
 
+Asked with ``return_lse=True``, :func:`flash_attention_cuda` also
+returns each row's logsumexp, an f32 (B, H, Sq) in log2 units
+(``log2 sum 2^(s log2 e)`` over the row's visible keys, ``NEG_INF`` for
+a row that sees none; :func:`~.ref.flash_attention_lse_ref` is its
+plain version), written by every path from the running max and sum it
+already holds; the output is the same bits either way.
+
 The gradient is a second library, ``csrc/flash_attention_bwd.cu``
 (its header gives the design): :func:`flash_attention_bwd_cuda` takes
-q, k, v, the forward's output and its cotangent and returns dq, dk and
-dv in q's dtype, in three or four launches that count as one
-``flash_attention_bwd``, on the tensor cores for bf16 at D 64 or 128
-and on the CUDA cores otherwise (:func:`bwd_path`).  :class:`FlashAttentionFn` ties the two for
-autograd: its forward is :func:`flash_attention_cuda` and its backward
-the kernel.  Its plain version is :func:`flash_attention_bwd_ref`
-(autograd through ``flash_attention_ref``), which the tests and the
-smoke run compare it with and no card path takes.
+q, k, v, the forward's output, its logsumexp and the cotangent and
+returns dq, dk and dv in q's dtype, in three or four launches that count
+as one ``flash_attention_bwd``: ``wgmma`` products fed by TMA for bf16
+at D 64 or 128, the CUDA cores otherwise (:func:`bwd_path`).  On the
+``wgmma`` path a kv head's G query heads form :func:`bwd_head_groups`
+groups, whose dk / dv shares are summed in order.
+:class:`FlashAttentionFn` ties the two for autograd: its forward is
+:func:`flash_attention_cuda` with the logsumexp, saved with q, k, v and
+the output, and its backward the kernel.  Its plain version is
+:func:`flash_attention_bwd_ref` (autograd through
+``flash_attention_ref``), which the tests and the smoke run compare it
+with and no card path takes.
 """
 from __future__ import annotations
 
@@ -51,6 +62,7 @@ import torch
 from . import build
 from .hot_gather import LAUNCHES
 from .ref import flash_attention_bwd_ref  # noqa: F401  (the plain versions)
+from .ref import flash_attention_lse_ref  # noqa: F401
 from .ref import flash_attention_ref  # noqa: F401
 from .ref import SPLIT_TILE, split_keys
 
@@ -94,7 +106,7 @@ def _lib() -> ctypes.CDLL:
         p, i, ll, f = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                        ctypes.c_float)
         fn.argtypes = ([p] * 4 + [i] * 6 + [ll] * 9 + [i] * 3 + [f, f, i, i]
-                       + [p, p, i, i, p])
+                       + [p, p, i, i, p, p])
         fn.restype = ctypes.c_int
         lib.flash_attention_error_string.argtypes = [ctypes.c_int]
         lib.flash_attention_error_string.restype = ctypes.c_char_p
@@ -119,12 +131,15 @@ def _strides(name: str, t: torch.Tensor):
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, causal: bool = True,
                          window: Optional[int] = None,
-                         logit_softcap: float = 0.0) -> torch.Tensor:
+                         logit_softcap: float = 0.0,
+                         return_lse: bool = False):
     """q: (B, Sq, H, D); k, v: (B, Sk, Hkv, D); one dtype, f32 or bf16,
     on one CUDA device; D a multiple of 8 up to 256, H a multiple of Hkv;
     any Sq and Sk.  Positions are the implicit aranges, so ``causal`` is
     top-left aligned.  Returns (B, Sq, H, D) in q's dtype, the function
-    of ``flash_attention_ref`` (its sums in another order).  The kernel is
+    of ``flash_attention_ref`` (its sums in another order), and with
+    ``return_lse`` also the rows' logsumexp (the module docstring's,
+    :func:`~.ref.flash_attention_lse_ref`'s).  The kernel is
     :func:`choose_path`'s; ``last_path`` records it."""
     global last_path
     dev = q.device
@@ -162,8 +177,10 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"flash_attention: shape {tuple(q.shape)} / "
                          f"{tuple(k.shape)} beyond the kernel's grid")
     out = torch.empty((B, Sq, H, D), dtype=q.dtype, device=dev)
+    lse = (torch.empty((B, H, Sq), dtype=torch.float32, device=dev)
+           if return_lse else None)
     if B == 0 or Sq == 0 or H == 0:
-        return out
+        return (out, lse) if return_lse else out
     qs, ks, vs = (_strides(n, t) for n, t in (("q", q), ("k", k), ("v", v)))
     path = choose_path(Sq, H, Hkv, D, q.dtype)
     part_ml = part_acc = None
@@ -186,27 +203,43 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             0 if q.dtype == torch.float32 else 1, PATHS[path],
             None if part_ml is None else part_ml.data_ptr(),
             None if part_acc is None else part_acc.data_ptr(),
-            splits, kps, stream)
+            splits, kps, None if lse is None else lse.data_ptr(), stream)
     if err != 0:
         msg = lib.flash_attention_error_string(err).decode()
         raise RuntimeError(f"flash_attention launch failed ({path}): {msg} "
                            f"({err})")
     last_path = path
     LAUNCHES["flash_attention"] += 1
-    return out
+    return (out, lse) if return_lse else out
 
 
-BWD_PATHS = {"cuda_cores": 0, "mma_sync": 1}
-MMA_HEAD_DIMS = (64, 128)
+BWD_PATHS = {"cuda_cores": 0, "wgmma": 1}
+WGMMA_BWD_HEAD_DIMS = (64, 128)
+BWD_KEYS = 128                     # keys a wgmma dk / dv block
 last_bwd_path: Optional[str] = None    # the path of the last backward
 
 
 def bwd_path(D: int, dtype: torch.dtype) -> str:
-    """The backward's path, by dtype and head dim alone: the tensor cores
-    (``mma_sync``) for bf16 at D 64 or 128, else the CUDA cores."""
-    if dtype == torch.bfloat16 and D in MMA_HEAD_DIMS:
-        return "mma_sync"
+    """The backward's path, by dtype and head dim alone: ``wgmma`` (the
+    tensor cores, fed by TMA) for bf16 at D 64 or 128, else
+    ``cuda_cores``."""
+    if dtype == torch.bfloat16 and D in WGMMA_BWD_HEAD_DIMS:
+        return "wgmma"
     return "cuda_cores"
+
+
+def bwd_head_groups(B: int, Hkv: int, Sk: int, G: int) -> int:
+    """Groups of a kv head's ``G`` query heads that the ``wgmma`` dk / dv
+    kernel takes in separate blocks: the fewest (a divisor of ``G``) that
+    give its grid, ``B * Hkv * ceil(Sk / BWD_KEYS)`` blocks a group, at
+    least two blocks an SM; ``G`` when none does.  Each group's share goes
+    to an f32 scratch that a last pass sums in group order (none with one
+    group).  A pure function, importable without CUDA."""
+    blocks = B * Hkv * max(1, -(-Sk // BWD_KEYS))
+    for d in range(1, G + 1):
+        if G % d == 0 and blocks * d >= 2 * SMS:
+            return d
+    return G
 
 
 def _bwd_lib() -> ctypes.CDLL:
@@ -214,7 +247,7 @@ def _bwd_lib() -> ctypes.CDLL:
     fn = lib.flash_attention_bwd_launch
     if fn.argtypes is None:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [p] * 11 + [i] * 9 + [f, f, i, i, p]
+        fn.argtypes = [p] * 11 + [i] * 9 + [f, f, i, i, i, p]
         fn.restype = ctypes.c_int
         lib.flash_attention_bwd_error_string.argtypes = [ctypes.c_int]
         lib.flash_attention_bwd_error_string.restype = ctypes.c_char_p
@@ -223,17 +256,20 @@ def _bwd_lib() -> ctypes.CDLL:
 
 def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
                              v: torch.Tensor, out: torch.Tensor,
-                             dout: torch.Tensor, *, causal: bool = True,
+                             lse: torch.Tensor, dout: torch.Tensor, *,
+                             causal: bool = True,
                              window: Optional[int] = None,
                              logit_softcap: float = 0.0
                              ) -> Tuple[torch.Tensor, torch.Tensor,
                                         torch.Tensor]:
     """The gradient of :func:`flash_attention_cuda` at q, k, v (its
-    shapes, dtypes and options) given its output ``out`` and the
-    cotangent ``dout`` (both q's shape): ``(dq, dk, dv)`` in q's dtype,
-    through :func:`bwd_path`'s kernels (``last_bwd_path`` records it).
-    Operands of any stride are copied dense (and 16-byte aligned) first;
-    what the forward does not take raises here too."""
+    shapes, dtypes and options) given its output ``out``, its logsumexp
+    ``lse`` (f32 (B, H, Sq), log2 units: what the forward returns with
+    ``return_lse=True``) and the cotangent ``dout`` (q's shape):
+    ``(dq, dk, dv)`` in q's dtype, through :func:`bwd_path`'s kernels
+    (``last_bwd_path`` records it).  Operands of any stride are copied
+    dense (and 16-byte aligned) first; what the forward does not take
+    raises here too."""
     global last_bwd_path
     dev = q.device
     if dev.type != "cuda":
@@ -275,32 +311,38 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
     if max(B, Sq, Sk, H) > INT32_MAX or max(B, H) > 65535:
         raise ValueError(f"flash_attention_bwd: shape {tuple(q.shape)} / "
                          f"{tuple(k.shape)} beyond the kernel's grid")
-    q, k, v, out, dout = (
+    if (lse.dtype != torch.float32 or lse.device != dev
+            or tuple(lse.shape) != (B, H, Sq)):
+        raise ValueError(f"flash_attention_bwd: lse must be f32 "
+                         f"{(B, H, Sq)} on {dev}, got {lse.dtype} "
+                         f"{tuple(lse.shape)} on {lse.device}")
+    q, k, v, out, dout, lse = (
         t if t.is_contiguous() and t.data_ptr() % 16 == 0
         else t.clone(memory_format=torch.contiguous_format)
-        for t in (q, k, v, out, dout))
-    dq, dk, dv = (torch.zeros_like(t) for t in (q, k, v))
+        for t in (q, k, v, out, dout, lse))
+    # every element is written, but with no key dq is 0 (and dk, dv empty)
+    alloc = torch.zeros_like if Sk == 0 else torch.empty_like
+    dq, dk, dv = (alloc(t) for t in (q, k, v))
     if B == 0 or Sq == 0 or H == 0:
         return dq, dk, dv
-    lse = torch.empty((B, H, Sq), dtype=torch.float32, device=dev)
-    delta = torch.empty_like(lse)
+    delta = torch.empty((B, H, Sq), dtype=torch.float32, device=dev)
     path = bwd_path(D, q.dtype)
-    # the mma path's per-query-head dk and dv, summed over each kv head's
-    # G query heads in order by its last pass
-    part = (torch.empty((2, B, Sk, H, D), dtype=torch.float32, device=dev)
-            if path == "mma_sync" and Sk else None)
+    groups = bwd_head_groups(B, Hkv, Sk, H // Hkv) if path == "wgmma" else 1
+    # the groups' f32 dk / dv shares, summed in group order by a last pass
+    part = (torch.empty((2, groups, B, Sk, Hkv, D), dtype=torch.float32,
+                        device=dev) if groups > 1 and Sk else None)
     lib = _bwd_lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.flash_attention_bwd_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            dout.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(),
+            dout.data_ptr(), lse.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), delta.data_ptr(),
             None if part is None else part.data_ptr(), B, Sq, Sk, H, Hkv, D,
             int(bool(causal)), int(window is not None),
             0 if window is None else int(window), 1.0 / math.sqrt(D),
             float(logit_softcap), 0 if q.dtype == torch.float32 else 1,
-            BWD_PATHS[path], stream)
+            BWD_PATHS[path], groups, stream)
     if err != 0:
         msg = lib.flash_attention_bwd_error_string(err).decode()
         raise RuntimeError(f"flash_attention_bwd launch failed ({path}): "
@@ -312,20 +354,24 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
 
 class FlashAttentionFn(torch.autograd.Function):
     """``flash_attention_cuda`` with ``flash_attention_bwd_cuda`` as its
-    gradient; q, k and v are saved with the output (a remat recompute
-    runs the forward kernel again)."""
+    gradient; q, k and v are saved with the output and the forward's
+    logsumexp, which the backward reads (a remat recompute runs the
+    forward kernel again)."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, logit_softcap):
-        out = flash_attention_cuda(q, k, v, causal=causal, window=window,
-                                   logit_softcap=logit_softcap)
-        ctx.save_for_backward(q, k, v, out)
+        out, lse = flash_attention_cuda(q, k, v, causal=causal,
+                                        window=window,
+                                        logit_softcap=logit_softcap,
+                                        return_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
         ctx.opts = dict(causal=causal, window=window,
                         logit_softcap=logit_softcap)
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        q, k, v, out = ctx.saved_tensors
-        dq, dk, dv = flash_attention_bwd_cuda(q, k, v, out, dout, **ctx.opts)
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd_cuda(q, k, v, out, lse, dout,
+                                              **ctx.opts)
         return dq, dk, dv, None, None, None

@@ -52,6 +52,42 @@ def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
 
 
 LOG2E = 1.4426950408889634
+
+
+def flash_attention_lse_ref(q: torch.Tensor, k: torch.Tensor, *,
+                            causal: bool = True,
+                            window: Optional[int] = None,
+                            logit_softcap: float = 0.0,
+                            block: int = 512) -> torch.Tensor:
+    """Each row's logsumexp over its visible keys in log2 units, f32
+    (B, H, Sq): ``log2 sum 2^(s log2 e)`` with s the forward's logit
+    (scale, softcap) and the mask of :func:`flash_attention_ref`;
+    ``NEG_INF`` for a row that sees no key.  The plain version of what
+    the ``flash_attention`` kernels write with ``return_lse=True`` and
+    the backward reads, in query blocks of ``block`` rows."""
+    B, Sq, H, D = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    kk = k.float().repeat_interleave(H // Hkv, dim=2)
+    kpos = torch.arange(Sk, device=q.device)
+    out = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    for i0 in range(0, Sq, block):
+        qb = q[:, i0:i0 + block].float()
+        s = torch.einsum("bqhd,bkhd->bhqk", qb, kk) / math.sqrt(D)
+        if logit_softcap:
+            s = logit_softcap * torch.tanh(s / logit_softcap)
+        qpos = torch.arange(i0, i0 + qb.shape[1], device=q.device)
+        mask = torch.ones((qb.shape[1], Sk), dtype=torch.bool,
+                          device=q.device)
+        if causal:
+            mask &= kpos[None, :] <= qpos[:, None]
+        if window is not None:
+            mask &= qpos[:, None] - kpos[None, :] < window
+        lse = torch.logsumexp(s.masked_fill(~mask, float("-inf")), dim=-1)
+        out[:, :, i0:i0 + block] = torch.where(
+            mask.any(-1), lse * LOG2E, torch.tensor(NEG_INF))
+    return out
+
+
 SPLIT_TILE = 64    # the decode kernel plans its splits in 64-key tiles
 
 

@@ -503,6 +503,43 @@ def test_flash_attention_takes_the_path_its_rule_names(cuda, shape, dtype,
     assert fa_mod.last_path == path
 
 
+# every forward path (shape, dtype, path) with the logsumexp asked for;
+# the logsumexp within LSE_TOL (log2 units, absolute) of the plain one:
+# the sums run in another order, and ex2.approx errs by ~2^-22 relative
+LSE_CASES = [((2, 1, 300, 16, 8, 256), torch.bfloat16, "split_k_decode"),
+             ((2, 4, 1000, 8, 2, 64), torch.float32, "split_k_decode"),
+             ((2, 300, 300, 16, 8, 256), torch.bfloat16, "wgmma_prefill"),
+             ((1, 130, 130, 24, 2, 128), torch.bfloat16, "wgmma_prefill"),
+             ((2, 200, 200, 4, 4, 64), torch.bfloat16, "wgmma_prefill"),
+             ((1, 70, 70, 2, 1, 24), torch.bfloat16, "mma_sync"),
+             ((2, 100, 100, 4, 2, 32), torch.float32, "f32")]
+LSE_MASKS = [(True, None, 0.0), (True, 64, 50.0), (False, None, 30.0),
+             (True, 0, 0.0)]
+LSE_TOL = 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal,window,cap", LSE_MASKS)
+@pytest.mark.parametrize("shape,dtype,path", LSE_CASES)
+def test_flash_attention_writes_the_logsumexp_on_every_path(
+        cuda, shape, dtype, path, causal, window, cap):
+    """With ``return_lse`` the output is the same bits as without it, and
+    the logsumexp (log2 units) equals the plain one; a row that sees no
+    key (window 0) gets NEG_INF exactly."""
+    B, Sq, Sk, H, Hkv, D = shape
+    q, k, v = _fa_inputs(B, Sq, Sk, H, Hkv, D, dtype, cuda, seed=Sk)
+    kw = dict(causal=causal, window=window, logit_softcap=cap)
+    plain_out = fa_mod.flash_attention_cuda(q, k, v, **kw)
+    out, lse = fa_mod.flash_attention_cuda(q, k, v, return_lse=True, **kw)
+    torch.cuda.synchronize()
+    assert fa_mod.last_path == path
+    assert torch.equal(out, plain_out)
+    assert lse.dtype == torch.float32 and lse.shape == (B, H, Sq)
+    ref = TR.flash_attention_lse_ref(q, k, **kw)
+    assert torch.equal(lse == TR.NEG_INF, ref == TR.NEG_INF)
+    torch.testing.assert_close(lse, ref, rtol=0, atol=LSE_TOL)
+
+
 @pytest.mark.cuda
 def test_model_prefill_and_decode_on_the_card_go_through_the_kernel(cuda):
     """gemma2-9b at smoke scale in bf16: every attention layer launches
@@ -1299,7 +1336,10 @@ def test_window_fault_on_the_card_fails_its_requests_and_serves_on(cuda):
 # not causal)
 BWD_SHAPES = FA_SHAPES + [(1, 512, 512, 24, 2, 128, True, None, 0.0),
                           (1, 300, 300, 16, 8, 256, True, 128, 50.0),
-                          (2, 200, 200, 16, 16, 64, False, None, 0.0)]
+                          (2, 200, 200, 16, 16, 64, False, None, 0.0),
+                          # GQA 12, causal, Sk not a multiple of the
+                          # wgmma path's 128-key blocks
+                          (1, 300, 300, 24, 2, 128, True, None, 0.0)]
 BWD_F32_TOL = 1e-4     # normwise, f32 kernel vs f32 plain: sums reordered
 BWD_BF16_REL = 2.0     # x the plain version's own bf16 distance from f32
 
@@ -1316,6 +1356,11 @@ def _normwise(got, ref):
     return float((got.float() - ref.float()).abs().max())
 
 
+def _fwd(q, k, v, **kw):
+    """The forward's output and logsumexp, which the backward takes."""
+    return fa_mod.flash_attention_cuda(q, k, v, return_lse=True, **kw)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,Sq,Sk,H,Hkv,D,causal,window,cap", BWD_SHAPES)
 def test_flash_attention_bwd_kernel_equals_plain(cuda, B, Sq, Sk, H, Hkv, D,
@@ -1329,9 +1374,9 @@ def test_flash_attention_bwd_kernel_equals_plain(cuda, B, Sq, Sk, H, Hkv, D,
     kw = dict(causal=causal, window=window, logit_softcap=cap)
     q, k, v, do = _bwd_inputs(B, Sq, Sk, H, Hkv, D, torch.float32, cuda)
     ref32 = TR.flash_attention_bwd_ref(q, k, v, do, **kw)
-    o = fa_mod.flash_attention_cuda(q, k, v, **kw)
+    o, lse = _fwd(q, k, v, **kw)
     before = ops.launches().get("flash_attention_bwd", 0)
-    got = fa_mod.flash_attention_bwd_cuda(q, k, v, o, do, **kw)
+    got = fa_mod.flash_attention_bwd_cuda(q, k, v, o, lse, do, **kw)
     torch.cuda.synchronize()
     assert ops.launches()["flash_attention_bwd"] == before + 1
     scale = max(float(r.abs().max()) for r in ref32)
@@ -1339,10 +1384,10 @@ def test_flash_attention_bwd_kernel_equals_plain(cuda, B, Sq, Sk, H, Hkv, D,
         assert g.dtype == torch.float32 and g.shape == r.shape
         assert _normwise(g, r) <= BWD_F32_TOL * scale, name
     qb, kb, vb, dob = (t.bfloat16() for t in (q, k, v, do))
-    ob = fa_mod.flash_attention_cuda(qb, kb, vb, **kw)
-    got = fa_mod.flash_attention_bwd_cuda(qb, kb, vb, ob, dob, **kw)
+    ob, lseb = _fwd(qb, kb, vb, **kw)
+    got = fa_mod.flash_attention_bwd_cuda(qb, kb, vb, ob, lseb, dob, **kw)
     assert fa_mod.last_bwd_path == fa_mod.bwd_path(D, torch.bfloat16) == (
-        "mma_sync" if D in (64, 128) else "cuda_cores")
+        "wgmma" if D in (64, 128) else "cuda_cores")
     plain = TR.flash_attention_bwd_ref(qb, kb, vb, dob, **kw)
     noise = max(_normwise(p, r) for p, r in zip(plain, ref32))
     for name, g, r in zip("qkv", got, ref32):
@@ -1358,11 +1403,40 @@ def test_flash_attention_bwd_kernel_is_deterministic(cuda, dtype, D):
     """Both paths: two calls give the same bits."""
     q, k, v, do = _bwd_inputs(2, 300, 300, 16, 8, D, dtype, cuda, seed=3)
     kw = dict(window=100, logit_softcap=50.0)
-    o = fa_mod.flash_attention_cuda(q, k, v, **kw)
-    a = fa_mod.flash_attention_bwd_cuda(q, k, v, o, do, **kw)
-    b = fa_mod.flash_attention_bwd_cuda(q, k, v, o, do, **kw)
+    o, lse = _fwd(q, k, v, **kw)
+    a = fa_mod.flash_attention_bwd_cuda(q, k, v, o, lse, do, **kw)
+    b = fa_mod.flash_attention_bwd_cuda(q, k, v, o, lse, do, **kw)
     for x, y in zip(a, b):
         assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("groups", [1, 2, 3, 12])
+def test_flash_attention_bwd_head_groups_sum_in_order(cuda, groups,
+                                                      monkeypatch):
+    """The wgmma path at GQA 12 with the kv head's query heads cut into
+    1, 2, 3 or 12 groups (the group count forced): each within
+    ``BWD_BF16_REL`` of the plain version's own bf16 noise, call == call
+    bit for bit, and dq the same bits whatever the groups (they cut only
+    dk / dv's sum)."""
+    kw = dict(causal=True)
+    q, k, v, do = _bwd_inputs(2, 300, 300, 24, 2, 128, torch.float32, cuda,
+                              seed=9)
+    ref32 = TR.flash_attention_bwd_ref(q, k, v, do, **kw)
+    qb, kb, vb, dob = (t.bfloat16() for t in (q, k, v, do))
+    noise = max(_normwise(p, r) for p, r in zip(
+        TR.flash_attention_bwd_ref(qb, kb, vb, dob, **kw), ref32))
+    ob, lseb = _fwd(qb, kb, vb, **kw)
+    want_dq = fa_mod.flash_attention_bwd_cuda(qb, kb, vb, ob, lseb, dob,
+                                              **kw)[0]
+    monkeypatch.setattr(fa_mod, "bwd_head_groups", lambda *a: groups)
+    got = fa_mod.flash_attention_bwd_cuda(qb, kb, vb, ob, lseb, dob, **kw)
+    again = fa_mod.flash_attention_bwd_cuda(qb, kb, vb, ob, lseb, dob, **kw)
+    assert fa_mod.last_bwd_path == "wgmma"
+    assert torch.equal(got[0], want_dq)
+    for name, g, a, r in zip("qkv", got, again, ref32):
+        assert torch.equal(g, a), name
+        assert _normwise(g, r) <= BWD_BF16_REL * noise, (name, noise)
 
 
 @pytest.mark.cuda
@@ -1371,14 +1445,16 @@ def test_flash_attention_bwd_kernel_reads_unaligned_and_strided_operands(
     """A view that is not dense or starts off a 16-byte boundary is copied
     first: the gradient equals the one of a dense copy bit for bit."""
     q, k, v, do = _bwd_inputs(1, 130, 130, 8, 2, 128, torch.bfloat16, cuda)
-    o = fa_mod.flash_attention_cuda(q, k, v)
-    want = fa_mod.flash_attention_bwd_cuda(q, k, v, o, do)
+    o, lse = _fwd(q, k, v)
+    want = fa_mod.flash_attention_bwd_cuda(q, k, v, o, lse, do)
     big = torch.zeros(q.numel() + 1, dtype=q.dtype, device=cuda)
     q_off = big[1:].view(q.shape)
     q_off.copy_(q)
     assert q_off.data_ptr() % 16
     k_t = k.transpose(1, 2).contiguous().transpose(1, 2)
-    got = fa_mod.flash_attention_bwd_cuda(q_off, k_t, v, o, do)
+    lse_t = lse.transpose(1, 2).contiguous().transpose(1, 2)
+    assert not lse_t.is_contiguous()
+    got = fa_mod.flash_attention_bwd_cuda(q_off, k_t, v, o, lse_t, do)
     for x, y in zip(got, want):
         assert torch.equal(x, y)
 
@@ -1386,21 +1462,26 @@ def test_flash_attention_bwd_kernel_reads_unaligned_and_strided_operands(
 @pytest.mark.cuda
 def test_flash_attention_bwd_kernel_rejects_what_it_does_not_take(cuda):
     q, k, v, do = _bwd_inputs(1, 16, 16, 4, 2, 32, torch.float32, cuda)
+    lse = torch.zeros(1, 4, 16, device=cuda)
     bwd = fa_mod.flash_attention_bwd_cuda
     with pytest.raises(TypeError):              # mixed dtypes
-        bwd(q, k.bfloat16(), v.bfloat16(), q, do)
+        bwd(q, k.bfloat16(), v.bfloat16(), q, lse, do)
     with pytest.raises(TypeError):              # half precision
-        bwd(*(t.half() for t in (q, k, v, q, do)))
+        bwd(*(t.half() for t in (q, k, v, q)), lse, do.half())
     with pytest.raises(ValueError):             # D not a multiple of 8
         odd = torch.zeros(1, 16, 4, 20, device=cuda)
-        bwd(odd, odd[:, :, :2], odd[:, :, :2], odd, odd)
+        bwd(odd, odd[:, :, :2], odd[:, :, :2], odd, lse, odd)
     with pytest.raises(ValueError):             # H not a multiple of Hkv
         kv3 = torch.zeros(1, 16, 3, 32, device=cuda)
-        bwd(q, kv3, kv3, q, do)
+        bwd(q, kv3, kv3, q, lse, do)
     with pytest.raises(ValueError):             # do's shape
-        bwd(q, k, v, q, do[:, :8])
+        bwd(q, k, v, q, lse, do[:, :8])
+    with pytest.raises(ValueError):             # lse's shape
+        bwd(q, k, v, q, lse[:, :, :8], do)
+    with pytest.raises(ValueError):             # lse's dtype
+        bwd(q, k, v, q, lse.double(), do)
     with pytest.raises(ValueError):             # host tensors
-        bwd(*(t.cpu() for t in (q, k, v, q, do)))
+        bwd(*(t.cpu() for t in (q, k, v, q, lse, do)))
 
 
 @pytest.mark.cuda
@@ -1416,8 +1497,7 @@ def test_flash_attention_autograd_takes_the_backward_kernel(cuda):
     out = ops.flash_attention(qg, kg, vg)
     out.backward(do)
     assert ops.launches() == {"flash_attention": 2, "flash_attention_bwd": 1}
-    want = fa_mod.flash_attention_bwd_cuda(
-        q, k, v, fa_mod.flash_attention_cuda(q, k, v), do)
+    want = fa_mod.flash_attention_bwd_cuda(q, k, v, *_fwd(q, k, v), do)
     for t, w in zip((qg, kg, vg), want):
         assert torch.equal(t.grad, w)
 
