@@ -87,7 +87,11 @@
    plain and phi3.5-MoE fused; each mamba2 report must equal the same
    run's on the host.  Then the chaos cells: ``run_chaos`` of llama3-8b
    plain and frontend and mamba2-1.3b plain, whose report must equal
-   the host's.
+   the host's.  Then the fingerprint check (``[fingerprint]``): the
+   warmup scenario's plan fingerprints of llama3-8b and mamba2-1.3b on
+   the card in this process, on the card in a subprocess under another
+   ``PYTHONHASHSEED`` (``python -m repro_torch.testing.fingerprint``)
+   and on the host must be equal.
 6. Each kernel timed on the inputs its main path gave it (device time:
    calls captured in a CUDA graph, replays timed with CUDA events),
    beside its plain version, its library call where one exists, and its
@@ -280,6 +284,7 @@ import gc
 import itertools
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
@@ -1291,6 +1296,39 @@ def chaos_conformance_phase() -> None:
                   f"{arch} {mode}: card report != host report {host}")
             print(f"[chaos-conformance] {arch} {mode}: the card's report "
                   f"equals the host's")
+
+
+FP_ARCHS = ("llama3-8b", "mamba2-1.3b")
+
+
+def fingerprint_phase() -> None:
+    """The cross-process fingerprint check on the card: the warmup
+    scenario's plan fingerprints in this process, in a subprocess under
+    another ``PYTHONHASHSEED`` (``python -m
+    repro_torch.testing.fingerprint``) and on the host must be equal, so
+    planning on the card depends on nothing salted per process and
+    nothing that varies by device."""
+    from repro_torch.testing import run_fingerprints
+    t = time.perf_counter()
+    card = run_fingerprints(FP_ARCHS, seed=0, device="cuda")
+    env = dict(os.environ, PYTHONHASHSEED="271828",
+               PYTHONPATH=str(ROOT / "src"))
+    res = subprocess.run(
+        [sys.executable, "-m", "repro_torch.testing.fingerprint",
+         "--device", "cuda", *FP_ARCHS],
+        capture_output=True, text=True, env=env, timeout=600)
+    check(res.returncode == 0,
+          f"fingerprint CLI exited {res.returncode}: {res.stderr[-2000:]}")
+    other = json.loads(res.stdout)
+    host = run_fingerprints(FP_ARCHS, seed=0, device="cpu")
+    for label, fps in (("card, this process", card),
+                       ("card, PYTHONHASHSEED=271828", other),
+                       ("host", host)):
+        print(f"[fingerprint] {label}: {json.dumps(fps, sort_keys=True)}")
+    check(card == other == host, "plan fingerprints differ across "
+          "processes or devices")
+    print(f"[fingerprint] the three maps are equal "
+          f"({time.perf_counter() - t:.1f} s)")
 
 
 def time_hot_gather(torch, hot_gather_cuda, hot_gather_ref, table, hot_ids,
@@ -3007,6 +3045,7 @@ def main() -> int:
 
     conformance_phase()
     chaos_conformance_phase()
+    fingerprint_phase()
 
     timing = {"hot_gather": time_hot_gather(torch, hot_gather_cuda,
                                             hot_gather_ref, table, hot_ids,

@@ -435,6 +435,17 @@ class MorpheusRuntime:
         return self._active[0]
 
     @property
+    def exec(self) -> Callable:
+        """The active specialized executable."""
+        return self._active[1]
+
+    @property
+    def instr_exec(self) -> Callable:
+        """The active instrumented twin (the specialized executable
+        itself while the sampler has instrumentation disarmed)."""
+        return self._active[2]
+
+    @property
     def generic_exec(self) -> Callable:
         """The active generic (deopt target) executable."""
         return self._active[3]

@@ -20,20 +20,20 @@ sequence, with guards catching every mispredict.
     injection: degraded-mode serving held to the oracle, and the
     health-gated recovery after every fault;
   * :mod:`~repro_torch.testing.fingerprint` hashes plan signatures
-    canonically (the reference's serialization, byte for byte).
+    canonically (the reference's serialization, byte for byte);
+    ``python -m repro_torch.testing.fingerprint`` prints the warmup
+    scenario's map, for a diff across processes.
 
   * :func:`~repro_torch.testing.chaos.run_train_chaos` drives the
     training supervisor through a crash and resume, a step fault and
     build faults (the device-loss cell needs a mesh and raises).
-
-Not ported yet (ROADMAP.md): the cross-process fingerprint CLI.
 """
 from .archzoo import ArchPlane, build_plane, conformance_engine_config
 from .chaos import CHAOS_MODES, FAULT_KINDS, TRAIN_SCENARIOS, \
     chaos_health_config, run_chaos, run_train_chaos
 from .churn import ChurnEvent, generate_schedule, register_churn_move
 from .conformance import ConformanceError, run_conformance
-from .fingerprint import plan_fingerprint
+from .fingerprint import plan_fingerprint, run_fingerprints
 
 __all__ = [
     "ArchPlane", "build_plane", "conformance_engine_config",
@@ -41,5 +41,5 @@ __all__ = [
     "ConformanceError", "run_conformance",
     "CHAOS_MODES", "FAULT_KINDS", "chaos_health_config", "run_chaos",
     "TRAIN_SCENARIOS", "run_train_chaos",
-    "plan_fingerprint",
+    "plan_fingerprint", "run_fingerprints",
 ]

@@ -9,18 +9,45 @@ traffic and the tables, not on the weights).  The same holds in the
 ``fused`` mode (``step_many`` windows) and the ``frontend`` mode (the
 request frontend's windows replayed on the oracle), and the reference's
 own quick cells of those modes, phi3.5-MoE fused and seamless frontend,
-pass."""
+pass.
+
+The cross-process fingerprint CLI: ``python -m
+repro_torch.testing.fingerprint`` under another ``PYTHONHASHSEED``
+prints the map ``run_fingerprints`` gives in process, and that map is
+the reference's for llama3-8b and mamba2-1.3b, whose plans read no
+weight.  A MoE plane's plan reads its router's expert choices, so it
+depends on the weights, which each package draws from its own
+generator: phi3.5-MoE (and deepseek-v2, jamba) plan differently from the
+reference on their own weights and equally on the reference's, carried
+across.  Without ``--device cpu`` and without a card the CLI exits
+non-zero."""
+import json
+import os
+import subprocess
+import sys
+
+import jax
 import numpy as np
 import pytest
+import torch
 
 from repro.testing import build_plane as j_build_plane, \
     generate_schedule as j_generate_schedule, \
     run_conformance as j_run_conformance
+from repro.testing import archzoo as j_archzoo
 from repro.testing.churn import churn_moves as j_churn_moves
+from repro.testing.fingerprint import run_fingerprints as j_run_fingerprints
 from repro_torch.testing import build_plane, generate_schedule, \
-    run_conformance
+    run_conformance, run_fingerprints
+from repro_torch.testing import conformance as conformance_mod
+from repro_torch.testing.archzoo import params_from_numpy
 from repro_torch.testing.churn import churn_moves
 from repro_torch.testing.conformance import MODES
+
+SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))), "src")
+FP_ARCHS = ("llama3-8b", "mamba2-1.3b")
+MOE_ARCH = "phi3.5-moe-42b-a6.6b"
 
 REPORT_KEYS = ("events", "steps", "compares", "recompiles", "mispredicts",
                "deopt_steps", "impls_seen", "signature")
@@ -107,3 +134,60 @@ def test_unported_modes_raise():
     assert MODES == ("plain", "fused", "frontend")
     with pytest.raises(ValueError):
         run_conformance("mamba2-1.3b", "bogus", device="cpu")
+
+
+# ---------------------------------------------------------------------------
+# the cross-process fingerprint CLI
+# ---------------------------------------------------------------------------
+
+def _cli(*args):
+    env = dict(os.environ, PYTHONHASHSEED="271828", PYTHONPATH=SRC)
+    return subprocess.run(
+        [sys.executable, "-m", "repro_torch.testing.fingerprint", *args],
+        capture_output=True, text=True, env=env, timeout=300)
+
+
+@pytest.fixture(scope="module")
+def reference_fingerprints():
+    return j_run_fingerprints(FP_ARCHS + (MOE_ARCH,), seed=0)
+
+
+def test_plan_fingerprints_match_across_processes():
+    """The twin of the reference's cross-process check: two processes
+    with different hash salts plan the same signatures."""
+    here = run_fingerprints(["llama3-8b"], seed=0, device="cpu")
+    res = _cli("--device", "cpu", "llama3-8b")
+    assert res.returncode == 0, res.stderr
+    assert json.loads(res.stdout) == here
+    assert res.stdout.endswith("}\n")
+
+
+def test_fingerprint_map_equals_the_reference(reference_fingerprints):
+    fps = run_fingerprints(FP_ARCHS, seed=0, device="cpu")
+    assert fps == {a: reference_fingerprints[a] for a in FP_ARCHS}
+
+
+def test_moe_fingerprint_equals_the_reference_on_its_weights(
+        reference_fingerprints, monkeypatch):
+    """The MoE plane's plan follows the router, so on the port's own
+    weights it differs; on the reference's weights it is the same."""
+    own = run_fingerprints([MOE_ARCH], seed=0, device="cpu")[MOE_ARCH]
+    assert own != reference_fingerprints[MOE_ARCH]
+
+    def carried(plane, seed, device):
+        jplane = j_archzoo.build_plane(plane.arch_id)
+        return params_from_numpy(jax.tree.map(
+            np.asarray, j_archzoo.build_params(jplane, seed)), device)
+
+    monkeypatch.setattr(conformance_mod, "build_params", carried)
+    assert run_fingerprints([MOE_ARCH], seed=0, device="cpu") == \
+        {MOE_ARCH: reference_fingerprints[MOE_ARCH]}
+
+
+def test_the_fingerprint_cli_needs_the_card_unless_told_otherwise():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device works")
+    res = _cli("llama3-8b")
+    assert res.returncode != 0
+    assert "CUDA is not available" in res.stderr
+    assert res.stdout == ""

@@ -4,6 +4,7 @@ where only PyTorch is installed:
 
     PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py
 """
+import threading
 import time
 
 import numpy as np
@@ -1554,3 +1555,57 @@ def test_train_step_on_the_card_matches_the_host(cuda):
         outs.append((float(m["loss"]), float(m["grad_norm"])))
     assert outs[1][0] == pytest.approx(outs[0][0], rel=1e-5)
     assert outs[1][1] == pytest.approx(outs[0][1], rel=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# the executable cache on the card (the seqlock and system twins run on
+# the card as the [cuda] cases of test_torch_fused.py / test_torch_system.py)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+def test_exec_cache_deduplicates_inflight_builds_on_the_card(cuda):
+    """Two threads ask one cache for the specialized executable while
+    its build (device constants materialized on the card) is in flight:
+    it is built once, both get it, and it serves through hot_gather,
+    equal to the generic oracle."""
+    from repro_torch.core import ExecutableCache
+    from repro_torch.serving import ServeConfig, make_synthetic_batch
+    cfg = ServeConfig()
+    rt = _serving_runtime(cuda, cfg)
+    try:
+        _warm_serving(rt, cfg, cuda)
+        plan = rt.plan
+        c = ExecutableCache(capacity=8)
+        started, gate = threading.Event(), threading.Event()
+        builds, out = [], []
+
+        def build():
+            started.set()
+            assert gate.wait(timeout=30)
+            builds.append(1)
+            return rt.engine.compile(plan, rt.state)
+
+        key = ("card", plan.signature)
+        t1 = threading.Thread(
+            target=lambda: out.append(c.get_or_compile(key, build)))
+        t1.start()
+        assert started.wait(timeout=30)
+        t2 = threading.Thread(
+            target=lambda: out.append(c.get_or_compile(key, build)))
+        t2.start()
+        time.sleep(0.05)
+        gate.set()
+        t1.join(30)
+        t2.join(30)
+        assert len(builds) == 1 and len(out) == 2
+        assert out[0][0] is out[1][0]
+        assert sorted(p[1] is None for p in out) == [False, True]
+        assert c.stats.inflight_waits == 1 and c.stats.inserts == 1
+        b = make_synthetic_batch(cfg, seed=500, device=cuda)
+        want = rt.run_generic(b)
+        ops.reset_launches()
+        got, _ = out[0][0](rt.params, rt.state, b)
+        assert ops.launches().get("hot_gather", 0) > 0
+        assert torch.equal(got, want)
+    finally:
+        rt.close()

@@ -4,25 +4,28 @@ twins of ``tests/test_dispatch_fastpath.py``'s fused and placement cases
 K in the cache key; an ambiguous pre-stacked input rejected; K=1
 degrading to ``step``; a mid-window update queued and the next window
 deopting in FIFO order; the fused generic deopt target built ahead;
+the seqlock: an update queued behind a single step drains at its
+commit, the executable runs outside the runtime lock, and every writer
+(a control update, a recompile's swap) bumps the generation;
 zero transfers for a placed batch; one locked stats call per window;
 window-granular sampling; one publish per instrumented window), a
 stress run of windows against control churn, and parity with the
 reference on the same numpy inputs for ``stack_batches``,
-``_induced_window_avals`` and the ``RuntimeStats`` histograms."""
+``_induced_window_avals`` and the ``RuntimeStats`` histograms.
+
+The three seqlock twins also run on the card (their ``[cuda]`` case,
+marked ``cuda``), where the executable's launches are still in flight
+while the runtime lock is free.  ``test_writer_quiesces_and_bumps_generation``
+is twinned by ``test_writer_clears_the_fused_memo_and_refuses_a_stale_claim``.
+The reference is imported inside the parity tests alone, so the card's
+run of this file needs no JAX."""
 import sys
 import threading
 
-import jax
 import numpy as np
 import pytest
 import torch
 
-from repro.core import RuntimeStats as JRuntimeStats, \
-    stack_batches as j_stack_batches
-from repro.core.passes.batch_shape import BATCH_SHAPE_SITE as J_SITE
-from repro.core.runtime import _induced_window_avals as j_induced
-from repro.core.specialize import SiteSpec as JSiteSpec, \
-    SpecializationPlan as JPlan
 from repro_torch.core import BATCH_SHAPE_SITE, EngineConfig, \
     MorpheusRuntime, PlaneSampling, RuntimeStats, SketchConfig, SiteSpec, \
     SpecializationPlan, Table, TableSet, stack_batches
@@ -30,6 +33,10 @@ from repro_torch.core import runtime as runtime_mod
 from repro_torch.core.execcache import batch_key
 
 N_VALID = 48
+DEVICES = ["cpu", pytest.param("cuda", marks=[
+    pytest.mark.cuda,
+    pytest.mark.skipif(not torch.cuda.is_available(),
+                       reason="needs a CUDA card")])]
 
 
 def _user_step(params, ctx, batch):
@@ -60,10 +67,10 @@ def _batch(i=0):
             "slot": rng.integers(0, 16, 16).astype(np.int32)}
 
 
-def _mk(seed=0, sample_every=2, **kw):
+def _mk(seed=0, sample_every=2, device="cpu", **kw):
     cfg = EngineConfig(sketch=SketchConfig(sample_every=sample_every,
                                            max_hot=4, hot_coverage=0.5),
-                       device="cpu", **kw)
+                       device=device, **kw)
     return MorpheusRuntime(_user_step, _tables(seed), None, _batch(),
                            cfg=cfg)
 
@@ -259,11 +266,84 @@ def test_fused_generic_deopt_target_is_precompiled():
         rt.close()
 
 
-def test_writer_clears_the_fused_memo_and_refuses_a_stale_claim():
-    """Every committed writer empties the fused memo before it bumps the
-    generation, and a claim prepared against an older generation is
-    refused (the caller re-prepares)."""
-    rt = _mk()
+@pytest.mark.parametrize("device", DEVICES)
+def test_update_queued_during_single_step_drains_at_commit(device):
+    """The same queue/drain protocol covers plain step(): the control
+    plane never blocks behind an in-flight executable."""
+    rt = _mk(device=device)
+    try:
+        rt.step(_batch())
+        started, release = threading.Event(), threading.Event()
+        spec = rt._active
+
+        def gated(params, state, batch):
+            started.set()
+            assert release.wait(timeout=30)
+            return spec[1](params, state, batch)
+
+        with rt._cond:
+            rt._active = (spec[0], gated, gated, gated)
+        th = threading.Thread(target=lambda: rt.step(_batch(1)))
+        th.start()
+        assert started.wait(timeout=30)
+        rt.control_update("classes",
+                          {"scale": np.full(N_VALID, 9.0, np.float32)})
+        assert rt._queued                               # non-blocking
+        release.set()
+        th.join(timeout=60)
+        assert not th.is_alive()
+        assert not rt._queued                           # drained
+        assert float(rt.state.tables["classes"]["scale"][0]) == 9.0
+        with rt._cond:
+            rt._active = spec
+    finally:
+        rt.close()
+
+
+# ---------------------------------------------------------------------------
+# the seqlock protocol
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("device", DEVICES)
+def test_executable_runs_outside_the_runtime_lock(device):
+    """During execution the runtime lock is FREE, and the step slot is
+    claimed.  On the card this holds while the step's launches are
+    still in flight (a spin kernel is queued ahead of them)."""
+    rt = _mk(device=device)
+    try:
+        rt.step(_batch())
+        seen = {}
+        spec = rt._active
+
+        def probe(params, state, batch):
+            if device == "cuda":
+                torch.cuda.synchronize()
+                torch.cuda._sleep(200_000_000)     # ~0.1 s of device time
+            out = spec[1](params, state, batch)
+            if device == "cuda":
+                seen["in_flight"] = not torch.cuda.current_stream().query()
+            seen["locked"] = rt._lock.locked()
+            seen["stepping"] = rt._stepping
+            return out
+
+        with rt._cond:
+            rt._active = (spec[0], probe, probe, probe)
+        rt.step(_batch(1))
+        with rt._cond:
+            rt._active = spec
+        assert seen.pop("in_flight", True) is True
+        assert seen == {"locked": False, "stepping": True}
+    finally:
+        rt.close()
+
+
+@pytest.mark.parametrize("device", DEVICES)
+def test_writer_clears_the_fused_memo_and_refuses_a_stale_claim(device):
+    """Every committed writer (a control update, a recompile's swap)
+    empties the fused memo before it bumps the generation, and a claim
+    prepared against an older generation is refused (the caller
+    re-prepares)."""
+    rt = _mk(device=device)
     try:
         rt.step_many([_batch(i) for i in range(2)])
         assert rt._fused_memo
@@ -271,10 +351,18 @@ def test_writer_clears_the_fused_memo_and_refuses_a_stale_claim():
         rt.control_update("classes",
                           {"scale": np.full(N_VALID, 3.0, np.float32)})
         assert rt._gen > g0 and not rt._fused_memo
+        g1 = rt._gen
+        rt.step_many([_batch(i) for i in range(2)])
+        assert rt._fused_memo
+        rt.recompile(block=True)                 # the swap is a writer too
+        assert rt._gen > g1 and not rt._fused_memo
         assert rt._begin_step(expect_gen=g0) is None
         claim = rt._begin_step(expect_gen=rt._gen)
         assert claim is not None
         rt._abort_step()
+        out = rt.step(_batch(2))
+        assert out.device.type == device
+        assert float(rt.state.tables["classes"]["scale"][0]) == 3.0
     finally:
         rt.close()
 
@@ -425,6 +513,7 @@ def test_fused_window_instruments_and_publishes_once():
 
 @pytest.mark.parametrize("k", [1, 3])
 def test_stack_batches_matches_reference(k):
+    from repro.core import stack_batches as j_stack_batches
     batches = [_batch(i) for i in range(k)]
     ours = stack_batches(batches)
     theirs = j_stack_batches(batches)
@@ -444,6 +533,12 @@ def test_stack_batches_matches_reference(k):
 @pytest.mark.parametrize("buckets,k", [((2, 8), 3), ((4,), 1),
                                        ((1, 16), 4)])
 def test_induced_window_shapes_match_reference(buckets, k):
+    import jax
+    from repro.core import stack_batches as j_stack_batches
+    from repro.core.passes.batch_shape import BATCH_SHAPE_SITE as J_SITE
+    from repro.core.runtime import _induced_window_avals as j_induced
+    from repro.core.specialize import SiteSpec as JSiteSpec, \
+        SpecializationPlan as JPlan
     spec = dict(impl="batch_shape", hot_keys=buckets,
                 const_fields=(("window_k", k),))
     plan = SpecializationPlan(sites=((BATCH_SHAPE_SITE, SiteSpec(**spec)),))
@@ -468,6 +563,7 @@ def test_induced_window_shapes_match_reference(buckets, k):
 
 
 def test_runtime_stats_histograms_match_reference():
+    from repro.core import RuntimeStats as JRuntimeStats
     rng = np.random.default_rng(4)
     series = [{"request_total_s": rng.lognormal(-5, 1, 50).tolist(),
                "request_queue_wait_s": rng.exponential(1e-3, 30).tolist()}

@@ -19,7 +19,8 @@ scale, on the CPU, with the reference's weights carried across by
   and ``schedule``;
 - the twin of ``test_substrate.py``'s microbatch test, at its
   tolerances; ``remat`` on and off give the same bits; the port's
-  ``TokenPipeline`` gives the reference's batches bit for bit;
+  ``TokenPipeline`` gives the reference's batches bit for bit, and its
+  Zipf skew (the twin of ``test_substrate.py::test_pipeline_zipf_skew``);
 - the twins of ``test_substrate.py``'s CLI tests (crash and resume, the
   hot-expert swap) through ``python -m repro_torch.launch.train --device
   cpu``.
@@ -313,6 +314,20 @@ def test_token_pipeline_equals_the_reference_bit_for_bit():
                 assert str(x.dtype) == str(y.dtype).removeprefix("torch.")
                 np.testing.assert_array_equal(x, y.numpy())
     assert port.state_dict() == ref.state_dict()
+
+
+def test_pipeline_zipf_skew():
+    """The twin of ``test_substrate.py::test_pipeline_zipf_skew`` on the
+    port's pipeline (``DataConfig.zipf_a``), and the same tokens as the
+    reference's."""
+    kw = dict(vocab=512, seq=64, global_batch=16, seed=0)
+    toks = TokenPipeline(DataConfig(**kw), device="cpu").next_batch()[
+        "tokens"].numpy().ravel()
+    # Zipf: token 0 should be much more common than the tail
+    assert (toks == 0).sum() > (toks >= 256).sum() / 4
+    ref = np.asarray(JTokenPipeline(JDataConfig(**kw)).next_batch()[
+        "tokens"]).ravel()
+    np.testing.assert_array_equal(toks, ref)
 
 
 def test_train_crash_resume_end_to_end(tmp_path):
