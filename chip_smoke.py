@@ -265,12 +265,36 @@
    Phases 15-17 each zero the launch counts just before and read them
    just after, and fail unless ``flash_attention`` and
    ``flash_attention_bwd`` launched.
+18. SSD-backward kernel phase (``[ssd-bwd-kernel]``): ``ssd_scan_bwd``
+   (``csrc/ssd_scan_bwd.cu``, after the forward kernel whose ``dacs``
+   and ``states`` it reads) against the plain backward (autograd through
+   ``ssd_scan_ref``) and the blocked one on ``test_torch_ssd_bwd.py``'s
+   shapes (f32 and bf16, an initial state, a final-state cotangent) and
+   on mamba2-1.3b's training layer (``SSD_BWD_MAIN``: strided bf16, as
+   the model calls it), each gradient within ``SSD_BWD_TOL``, two calls
+   equal bit for bit; there its time, the plain version's, its passes and
+   its bound (3xTF32 operations, beside the CUDA cores' figure).
+19. Train-SSM phase (``[train-ssm]``): mamba2-1.3b whole (``TRAIN_SSM``)
+   through ``repro_torch.launch.train.main``: finite losses and gradient
+   norms, 96 ``ssd_scan`` (forward and remat recompute) and 48
+   ``ssd_scan_bwd`` launches every step, step ms, the last step's device
+   time by class, the peak memory; then a crash after a checkpoint and
+   ``--resume``: every final leaf equals the uninterrupted run's bit for
+   bit.
+20. Train-hybrid phase (``[train-hybrid]``): jamba-v0.1-52b at every
+   width, cut to layers 0-1 (``TRAIN_HYBRID``: Mamba with a dense FFN,
+   Mamba with the MoE FFN), the state reckoned; finite losses, 4
+   ``ssd_scan`` and 2 ``ssd_scan_bwd`` launches a step, step ms, peak.
+   Phases 19-20 each zero the launch counts just before and read them
+   just after, and fail unless ``ssd_scan`` and ``ssd_scan_bwd``
+   launched.
 
 In every model phase the kernels JSON counts ``flash_attention``'s and
 ``ssd_scan``'s launches over the two served runs alone (counts zeroed
 just before the first, read just after the second), not over the checks
-after them; ``flash_attention``'s count adds the training phases', and
-``flash_attention_bwd``'s is theirs.
+after them; ``flash_attention``'s and ``ssd_scan``'s counts add the
+training phases', and ``flash_attention_bwd``'s and ``ssd_scan_bwd``'s
+are theirs.
 
 The last three lines are the kernels JSON, the nvidia-smi line and the
 device JSON.  Any failure raises (exit code != 0) and prints no result;
@@ -308,6 +332,9 @@ KERNELS = {                     # name -> (source, TPU kernel it replaces)
     "flash_attention_bwd": (
         "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
         "src/repro/models/attention.py:70"),
+    # no pallas_call: the reference differentiates its ssd_scan_ref
+    "ssd_scan_bwd": ("src/repro_torch/kernels/csrc/ssd_scan_bwd.cu",
+                     "src/repro/kernels/ref.py:36"),
 }
 # ssd_scan against its plain version.  On the reference kernel test's
 # shapes, that test's elementwise tolerances (abs + rel): y 2e-5 in f32,
@@ -320,6 +347,14 @@ KERNELS = {                     # name -> (source, TPU kernel it replaces)
 # (worst case ~2e-4).  There y (f32) is held normwise:
 # max|y - y_plain| <= 1e-4 * max|y_plain|.
 SSD_TOL = {"f32": 2e-5, "bf16": 2e-2, "state": 1e-3, "f32_normwise": 1e-4}
+# ssd_scan_bwd against its plain version (autograd through ssd_scan_ref on
+# the same inputs) and its blocked one, normwise per gradient (dx, ddt,
+# dA, dB, dC, dinit): max|kernel - plain| <= tol * max|plain|.  f32: the
+# sums run in other orders (up to 4.9e-5 of the largest entry on the
+# test shapes, dA the worst: its sum over every step cancels); bf16: dx,
+# dB and dC are rounded to 8 bits on both sides, and a tie broken the
+# other way is ~4e-3 of an entry.
+SSD_BWD_TOL = {"f32": 1e-4, "bf16": 1e-2}
 
 
 class SmokeFailure(RuntimeError):
@@ -388,6 +423,8 @@ def eager_ms(torch, fn, iters: int = 50) -> float:
 # matches); the rest is elementwise and other work
 KERNEL_CLASSES = (("GEMM", r"gemm|Gemm|GEMM|cutlass|xmma|nvjet|cublas"),
                   ("flash", r"flash_"),
+                  ("ssd_scan bwd", r"bwd_(local|state|cols|rows|finish|"
+                                    r"reduce_bc|reduce_da)\b"),
                   ("flash bwd", r"bwd_delta|bwd_dkdv|bwd_dq|bwd_reduce"),
                   ("ssd_scan", r"chunk_state|state_pass|chunk_out"),
                   ("sort", r"[Ss]ort|[Rr]adix"),
@@ -2681,7 +2718,6 @@ def train_dense_phase(torch, ops, smi) -> None:
     """``[train-dense]``: starcoder2-3b whole through
     ``repro_torch.launch.train.main``; step ms, tokens/s, the device's
     busy share over one profiled step, flash launches a step, losses."""
-    from torch.profiler import ProfilerActivity, profile as prof_
     from repro_torch.configs import get_config
     from repro_torch.launch import train as T
     t = TRAIN
@@ -2696,22 +2732,14 @@ def train_dense_phase(torch, ops, smi) -> None:
     torch.cuda.reset_peak_memory_stats()
     rec = {"loss": [], "s": [], "launches": [], "gnorm": []}
     prof = {}
+    profile_at = profile_last_step(t["steps"], prof)
 
     def on_step(step, state, metrics, dt, sup):
         rec["loss"].append(float(metrics["loss"]))
         rec["gnorm"].append(float(metrics["grad_norm"]))
         rec["s"].append(dt)
         rec["launches"].append(ops.launches())
-        if step == t["steps"] - 2:      # profile the last step alone
-            torch.cuda.synchronize()
-            prof["p"] = prof_(activities=[ProfilerActivity.CPU,
-                                          ProfilerActivity.CUDA])
-            prof["p"].__enter__()
-            prof["t"] = time.perf_counter()
-        elif step == t["steps"] - 1:
-            torch.cuda.synchronize()
-            prof["wall"] = time.perf_counter() - prof["t"]
-            prof["p"].__exit__(None, None, None)
+        profile_at(step)
     rc = T.main(["--arch", t["arch"], "--batch", str(t["batch"]),
                  "--seq", str(t["seq"]), "--steps", str(t["steps"]),
                  "--lr", str(t["lr"]), "--ckpt-every", "0",
@@ -2729,25 +2757,52 @@ def train_dense_phase(torch, ops, smi) -> None:
               and p.get("flash_attention_bwd") == cfg.n_layers,
               f"train-dense: flash launches a step {p}")
     ms = statistics.median(rec["s"][1:5]) * 1e3
+    share, by = step_by_class(prof)
+    print(f"[train-dense] step ms (median of steps 2-5) {ms:.1f}, "
+          f"{t['batch'] * t['seq'] / ms * 1e3:.0f} tokens/s, device busy "
+          f"{share} (the profiled last step), flash_attention {per[-1]} "
+          f"launches a step; peak {gib(peak)} allocated; on {smi}")
+    if by:
+        print(f"[train-dense] device time by class, ms/step: {by}")
+
+
+def profile_last_step(steps: int, prof: dict):
+    """An ``on_step`` piece: torch.profiler over the last step alone,
+    into ``prof`` (``p`` the profiler, ``wall`` the step's seconds)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile as prof_
+
+    def at(step):
+        if step == steps - 2:
+            torch.cuda.synchronize()
+            prof["p"] = prof_(activities=[ProfilerActivity.CPU,
+                                          ProfilerActivity.CUDA])
+            prof["p"].__enter__()
+            prof["t"] = time.perf_counter()
+        elif step == steps - 1:
+            torch.cuda.synchronize()
+            prof["wall"] = time.perf_counter() - prof["t"]
+            prof["p"].__exit__(None, None, None)
+    return at
+
+
+def step_by_class(prof: dict):
+    """(the device's busy share of the profiled step, its device ms by
+    ``KERNEL_CLASSES`` as a printable string, "" without device time)."""
     events = [e for e in prof["p"].key_averages()
               if str(e.device_type).endswith("CUDA")
               and getattr(e, "self_device_time_total", 0) > 0]
+    if not events:
+        return "not measured (no device time in the trace)", ""
     busy = sum(e.self_device_time_total for e in events) / 1e6
-    share = (f"{busy / prof['wall']:.1%} of {prof['wall'] * 1e3:.0f} ms"
-             if events else "not measured (no device time in the trace)")
     by = {}
     for e in events:
         cls = next((c for c, pat in KERNEL_CLASSES if re.search(pat, e.key)),
                    "elementwise and other")
         by[cls] = by.get(cls, 0) + e.self_device_time_total
-    print(f"[train-dense] step ms (median of steps 2-5) {ms:.1f}, "
-          f"{t['batch'] * t['seq'] / ms * 1e3:.0f} tokens/s, device busy "
-          f"{share} (the profiled last step), flash_attention {per[-1]} "
-          f"launches a step; peak {gib(peak)} allocated; on {smi}")
-    if events:
-        print("[train-dense] device time by class, ms/step: " + ", ".join(
-            f"{c} {v / 1e3:.1f}" for c, v in sorted(
-                by.items(), key=lambda kv: -kv[1])))
+    return (f"{busy / prof['wall']:.1%} of {prof['wall'] * 1e3:.0f} ms",
+            ", ".join(f"{c} {v / 1e3:.1f}" for c, v in
+                      sorted(by.items(), key=lambda kv: -kv[1])))
 
 
 def train_plain_check(torch, ops) -> None:
@@ -2948,6 +3003,294 @@ def train_moe_phase(torch, ops, smi) -> None:
           f"{[round(x['loss'], 4) for x in rec]}; step ms (median) "
           f"{statistics.median(x['dt'] for x in rec) * 1e3:.0f}; peak "
           f"{gib(torch.cuda.max_memory_allocated())} on {smi}")
+
+
+# mamba2-1.3b's training layer: B 4 x S 2048 (TRAIN_SSM), 64 heads x 64,
+# N 128, chunk 256, G 1, x / B / C slices of one bf16 projection
+SSD_BWD_MAIN = (4, 2048, 64, 64, 128, 256, 1)
+SSD_BWD_NAMES = ("dx", "ddt", "dA", "dB", "dC", "dinit")
+# mamba2-1.3b whole: 48 layers, 1.34 B params, 19 GB of training state;
+# the crash at step 4 after a checkpoint at step 3 resumes into steps 3-5
+TRAIN_SSM = dict(arch="mamba2-1.3b", batch=4, seq=2048, steps=6, every=3,
+                 crash=4, lr=1e-4)
+# jamba-v0.1-52b cut to layers 0-1 (Mamba + dense FFN, Mamba + 16-expert
+# MoE FFN): 3.8 B params, ~53 GB of training state; a cut with two MoE
+# layers (~6.6 B params, ~93 GB) does not fit the card's 80 GB
+TRAIN_HYBRID = dict(arch="jamba-v0.1-52b", layers=2, batch=2, seq=2048,
+                    steps=4, lr=1e-4)
+
+
+def ssd_bwd_case(torch, gen, B, S, H, P, N, G, dtype, init: bool,
+                 strided: bool = False):
+    """``ssd_inputs`` with the cotangents of y and the final state; with
+    ``strided`` x, B and C are slices of one projection, as the Mamba2
+    block passes them."""
+    x, dt, A, Bm, Cm, s0 = ssd_inputs(torch, gen, B, S, H, P, N, G, dtype,
+                                      init)
+    if strided:
+        xBC = torch.cat([x.flatten(2), Bm.flatten(2), Cm.flatten(2)], -1)
+        x = xBC[..., :H * P].unflatten(2, (H, P))
+        Bm = xBC[..., H * P:H * P + G * N].unflatten(2, (G, N))
+        Cm = xBC[..., H * P + G * N:].unflatten(2, (G, N))
+    dy = torch.randn(B, S, H, P, generator=gen).to(dtype).cuda()
+    dfin = torch.randn(B, H, P, N, generator=gen).cuda()
+    return (x, dt, A, Bm, Cm), s0, dy, dfin
+
+
+def ssd_bwd_compare(torch, label, args, s0, dy, dfin, chunk, key):
+    """The kernel (after the forward kernel, whose scratch it reads)
+    against the plain backward and the blocked one on one input, each
+    gradient normwise within ``SSD_BWD_TOL[key]``; two calls equal bit for
+    bit.  Returns (the kernel call, max |kernel - plain| over the
+    gradients)."""
+    from repro_torch.kernels.ref import ssd_scan_bwd_blocked_ref, \
+        ssd_scan_bwd_ref
+    from repro_torch.kernels.ssd_scan import ssd_scan_bwd_cuda, \
+        ssd_scan_cuda
+    _, fin, dacs, states = ssd_scan_cuda(*args, chunk=chunk, init_state=s0,
+                                         return_scratch=True)
+    run = lambda: ssd_scan_bwd_cuda(*args, dacs, states, fin, dy, dfin,
+                                    chunk=chunk)
+    got, again = run(), run()
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(got, again)),
+          f"ssd_scan_bwd {label}: two calls differ")
+    kw = dict(dfinal=dfin, init_state=s0)
+    worst, rel = 0.0, {}
+    for what, ref in (("plain", ssd_scan_bwd_ref(*args, chunk, dy, **kw)),
+                      ("blocked", ssd_scan_bwd_blocked_ref(*args, chunk, dy,
+                                                           **kw))):
+        for name, a, r in zip(SSD_BWD_NAMES, got, ref):
+            if r is None:
+                continue
+            check(a.dtype == r.dtype and bool(torch.isfinite(a).all()),
+                  f"ssd_scan_bwd {label} {name}: {a.dtype} vs {r.dtype}")
+            err = (a.float() - r.float()).abs().max().item()
+            scale = r.float().abs().max().item()
+            check(err <= SSD_BWD_TOL[key] * scale,
+                  f"ssd_scan_bwd {label} {name}: max |kernel - {what}| "
+                  f"{err} > {SSD_BWD_TOL[key]} x {scale}")
+            rel[f"{what} {name}"] = err / max(scale, 1e-30)
+            if what == "plain":
+                worst = max(worst, err)
+        del ref
+    print(f"[ssd-bwd-kernel] ssd_scan_bwd {label}: call == call bit for "
+          f"bit; normwise |kernel - plain| / |kernel - blocked| (tol "
+          f"{SSD_BWD_TOL[key]}): " + ", ".join(
+              f"{n} {rel[f'plain {n}']:.2e}/{rel[f'blocked {n}']:.2e}"
+              for n in SSD_BWD_NAMES if f"plain {n}" in rel))
+    return run, worst
+
+
+def ssd_bwd_kernel_phase(torch, smi):
+    """``[ssd-bwd-kernel]``: ``ssd_scan_bwd`` against its plain version
+    and its blocked one on ``test_torch_ssd_bwd.py``'s shapes (f32 and
+    bf16, an initial state, a final-state cotangent) and on mamba2-1.3b's
+    training layer (strided bf16, no initial state, as the model calls
+    it); there its device time, the plain version's, the passes' and the
+    bound.  Returns (the main shape's max |kernel - plain|, its row)."""
+    from repro_torch.kernels.ref import ssd_scan_bwd_ref
+    gen = torch.Generator().manual_seed(11)
+    # (B, S, H, P, N, chunk, G): tests/test_kernels.py's four, G = 2 and
+    # G = 3 with ragged chunks, a 300-step chunk of mamba2's widths
+    for B, S, H, P, N, Q, G in [
+            (1, 32, 4, 8, 16, 8, 1), (2, 48, 8, 16, 32, 16, 1),
+            (1, 40, 2, 8, 16, 16, 1), (2, 64, 8, 16, 16, 32, 1),
+            (2, 50, 8, 16, 32, 16, 2), (1, 37, 6, 8, 16, 16, 3),
+            (1, 300, 4, 64, 128, 256, 1)]:
+        for dtype, key in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+            args, s0, dy, dfin = ssd_bwd_case(torch, gen, B, S, H, P, N, G,
+                                              dtype, init=True)
+            ssd_bwd_compare(torch, f"B{B}_S{S}_H{H}_P{P}_N{N}_Q{Q}_G{G}_"
+                            f"{key}", args, s0, dy, dfin, Q, key)
+    B, S, H, P, N, Q, G = SSD_BWD_MAIN
+    args, s0, dy, _ = ssd_bwd_case(torch, gen, B, S, H, P, N, G,
+                                   torch.bfloat16, init=False, strided=True)
+    label = "mamba2-1.3b training layer"
+    kern, err = ssd_bwd_compare(torch, label, args, None, dy, None, Q,
+                                "bf16")
+    plain = lambda: ssd_scan_bwd_ref(*args, Q, dy)
+    # multiply-adds these inputs need: per chunk the lower triangle of
+    # C.B per group; of dy.x, the scores times dy (dx), times C (dB) and
+    # times B (dC) per head; the state's four products per head (the
+    # local sums, dS B, dS^T x, S^T dy)
+    tri = sum(L * (L + 1) // 2 for L in
+              (min(Q, S - c0) for c0 in range(0, S, Q)))
+    macs = B * (G * tri * N + H * tri * (2 * P + 2 * N) + 4 * H * S * P * N)
+    elt = args[0].element_size()
+    nc = -(-S // Q)
+    # read: x, B, C, dy, dt, A and the forward's dacs, states and final
+    # state; written: dx, dB, dC, ddt, dA, dinit
+    nbytes = (3 * B * S * H * P * elt + 4 * B * S * G * N * elt
+              + 2 * B * S * H * 4 + 2 * H * 4 + B * H * nc * Q * 4
+              + B * H * nc * P * N * 4 + 2 * B * H * P * N * 4)
+    t_ops = 3 * 2 * macs / TF32_FLOP_PER_S
+    t_cuda_cores = 2 * macs / F32_FLOP_PER_S
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    row = {"ms": device_ms(torch, kern, 3, 5),
+           "plain_ms": eager_ms(torch, plain, 3),
+           "library_ms": None,          # no one PyTorch call computes it
+           "bound_ms": max(t_ops, t_bytes) * 1e3,
+           "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+    passes = kernel_times(torch, kern, 3)
+    print(f"[ssd-bwd-kernel] ssd_scan_bwd {label} B={B} S={S} H={H} P={P} "
+          f"N={N} G={G} chunk={Q} bf16 strides x {args[0].stride()}: "
+          f"{2 * macs / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB; kernel "
+          f"{row['ms']:.4f} ms (graph replay), plain {row['plain_ms']:.4f} "
+          f"ms, bound {row['bound_ms']:.4f} ms (3xTF32 operations at "
+          f"{TF32_FLOP_PER_S / 1e12:.0f} TFLOP/s; {t_bytes * 1e3:.4f} ms by "
+          f"bytes; {t_cuda_cores * 1e3:.4f} ms on the CUDA cores at "
+          f"{F32_FLOP_PER_S / 1e12:.0f} TFLOP/s, where its products run) on "
+          f"{smi}")
+    print(f"[ssd-bwd-kernel] ssd_scan_bwd {label} passes, device us per "
+          f"call: {({k: round(v, 1) for k, v in passes.items()} or 'not measured')}")
+    saved = B * H * nc * (Q + P * N) * 4 + B * H * P * N * 4
+    print(f"[ssd-bwd-kernel] the forward's saved scratch at this shape: "
+          f"dacs, states and the final state, {saved / 1e6:.1f} MB a layer")
+    return err, row
+
+
+def train_ssm_phase(torch, ops, smi) -> None:
+    """``[train-ssm]``: mamba2-1.3b whole through
+    ``repro_torch.launch.train.main``: losses and gradient norms finite,
+    ``ssd_scan`` (forward and remat recompute) and ``ssd_scan_bwd``
+    launches every step, step ms, the last step's device time by class,
+    the peak memory; then a crash after a checkpoint and ``--resume``,
+    whose final state equals the uninterrupted run's bit for bit."""
+    import shutil
+    from repro_torch.checkpoint import latest_step
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.fault import SimulatedFailure
+    from repro_torch.launch import train as T
+    from repro_torch.models.params import flat_tree
+    t = TRAIN_SSM
+    cfg = get_config(t["arch"])
+    r = train_reckon(torch, cfg, t["batch"], t["seq"])
+    print(f"[train-ssm] {cfg.name} whole: {cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, {r['params'] / 1e9:.2f} B params; reckoned "
+          + ", ".join(f"{k} {gib(v)}" for k, v in r.items() if k != "params"))
+    base = ["--arch", t["arch"], "--batch", str(t["batch"]),
+            "--seq", str(t["seq"]), "--steps", str(t["steps"]),
+            "--lr", str(t["lr"]), "--log-every", "1"]
+    ckpt = ROOT / "build" / "train_ssm_ckpt"
+    rec = {"loss": [], "gnorm": [], "s": [], "launches": []}
+    prof, finals, seen = {}, {}, {}
+    profile_at = profile_last_step(t["steps"], prof)
+
+    def keep(tag):
+        def on_step(step, state, metrics, dt, sup):
+            seen.setdefault(tag, step)
+            if tag == "uninterrupted":
+                rec["loss"].append(float(metrics["loss"]))
+                rec["gnorm"].append(float(metrics["grad_norm"]))
+                rec["s"].append(dt)
+                rec["launches"].append(ops.launches())
+                profile_at(step)
+            if step == t["steps"] - 1:   # the state on the host
+                finals[tag] = {k: v.detach().cpu() for k, v in
+                               flat_tree(state).items()}
+        return on_step
+
+    def run(tag, *extra, crash=False):
+        t0 = time.perf_counter()
+        try:
+            rc = T.main(base + list(extra), on_step=keep(tag))
+            check(not crash and rc == 0, f"train-ssm {tag}: rc {rc}")
+        except SimulatedFailure:
+            check(crash, f"train-ssm {tag}: crashed")
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"[train-ssm] run {tag}: {time.perf_counter() - t0:.1f} s")
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    run("uninterrupted", "--ckpt-every", "0")
+    peak = torch.cuda.max_memory_allocated()
+    check(all(math.isfinite(x) for x in rec["loss"] + rec["gnorm"]),
+          f"train-ssm losses {rec['loss']}, grad norms {rec['gnorm']}")
+    per = [{k: b.get(k, 0) - a.get(k, 0) for k in b}
+           for a, b in zip([{}] + rec["launches"], rec["launches"])]
+    for p in per[1:]:
+        check(p.get("ssd_scan") == 2 * cfg.n_layers
+              and p.get("ssd_scan_bwd") == cfg.n_layers
+              and not p.get("flash_attention"),
+              f"train-ssm: launches a step {p}")
+    ms = statistics.median(rec["s"][1:]) * 1e3
+    share, by = step_by_class(prof)
+    print(f"[train-ssm] losses {rec['loss']}, grad norms {rec['gnorm']}")
+    print(f"[train-ssm] step ms (median of steps 2-{t['steps']}) {ms:.1f}, "
+          f"{t['batch'] * t['seq'] / ms * 1e3:.0f} tokens/s, device busy "
+          f"{share} (the profiled last step), launches a step {per[-1]}; "
+          f"peak {gib(peak)} allocated; on {smi}")
+    if by:
+        print(f"[train-ssm] device time by class, ms/step: {by}")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    extra = ["--ckpt-every", str(t["every"]), "--ckpt-dir", str(ckpt),
+             "--keep-last", "1"]
+    run("crash", *extra, "--fail-at-step", str(t["crash"]), crash=True)
+    check(latest_step(str(ckpt)) == t["every"],
+          f"train-ssm: latest checkpoint {latest_step(str(ckpt))}")
+    run("resume", *extra, "--resume")
+    check(seen["resume"] == t["every"],
+          f"train-ssm: resumed at {seen['resume']}")
+    ref, got = finals["uninterrupted"], finals["resume"]
+    bad = [k for k in ref if not torch.equal(ref[k], got[k])]
+    check(not bad, f"train-ssm: {len(bad)} of {len(ref)} leaves differ from "
+                   f"the uninterrupted run: {bad[:6]}")
+    print(f"[train-ssm] checkpoint at step {t['every']}, crash at step "
+          f"{t['crash']}, resume: all {len(ref)} leaves (params, master, m, "
+          f"v, step) equal the uninterrupted run's bit for bit")
+    finals.clear()
+    shutil.rmtree(ckpt, ignore_errors=True)
+
+
+def train_hybrid_phase(torch, ops, smi) -> None:
+    """``[train-hybrid]``: jamba-v0.1-52b at every published width, cut to
+    layers 0-1 (``TRAIN_HYBRID``): the Mamba layers' scans through
+    ``ssd_scan`` and ``ssd_scan_bwd`` beside the MoE FFN, losses and
+    gradient norms finite, step ms, peak memory."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as T
+    t = TRAIN_HYBRID
+    full = get_config(t["arch"])
+    cfg = T.cut_layers(full, t["layers"])
+    r = train_reckon(torch, cfg, t["batch"], t["seq"])
+    kinds = [f"{s.kind}+{s.ffn}" for s in cfg.pattern]
+    print(f"[train-hybrid] {cfg.name} at every published width, layers "
+          f"0-{t['layers'] - 1} of {full.n_layers} ({', '.join(kinds)}), "
+          f"{r['params'] / 1e9:.2f} B params; reckoned "
+          + ", ".join(f"{k} {gib(v)}" for k, v in r.items() if k != "params")
+          + f": {gib(sum(v for k, v in r.items() if k != 'params'))} of the "
+          f"card's 80 GB")
+    mamba = sum(s.kind == "mamba" for s in cfg.pattern)
+    rec = []
+
+    def on_step(step, state, metrics, dt, sup):
+        rec.append(dict(loss=float(metrics["loss"]), dt=dt,
+                        gnorm=float(metrics["grad_norm"]),
+                        n=ops.launches()))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rc = T.main(["--arch", t["arch"], "--layers", str(t["layers"]),
+                 "--batch", str(t["batch"]), "--seq", str(t["seq"]),
+                 "--steps", str(t["steps"]), "--lr", str(t["lr"]),
+                 "--ckpt-every", "0", "--log-every", "1"], on_step=on_step)
+    check(rc == 0, f"train-hybrid: rc {rc}")
+    peak = torch.cuda.max_memory_allocated()
+    check(all(math.isfinite(x["loss"]) and math.isfinite(x["gnorm"])
+              for x in rec), f"train-hybrid: {rec}")
+    per = [{k: b["n"].get(k, 0) - a.get(k, 0) for k in b["n"]}
+           for a, b in zip([{}] + [x["n"] for x in rec], rec)]
+    for p in per[1:]:
+        check(p.get("ssd_scan") == 2 * mamba
+              and p.get("ssd_scan_bwd") == mamba,
+              f"train-hybrid: launches a step {p}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[train-hybrid] losses {[round(x['loss'], 4) for x in rec]}, grad"
+          f" norms {[round(x['gnorm'], 3) for x in rec]}; step ms (median) "
+          f"{statistics.median(x['dt'] for x in rec[1:]) * 1e3:.0f}; "
+          f"launches a step {per[-1]}; peak {gib(peak)} allocated on {smi}")
 
 
 def main() -> int:
@@ -3184,6 +3527,14 @@ def main() -> int:
               ("flash_attention", "flash_attention_bwd"))
     main_path("train-moe", lambda: train_moe_phase(torch, ops, smi),
               ("flash_attention", "flash_attention_bwd"))
+    err["ssd_scan_bwd"], timing["ssd_scan_bwd"] = ssd_bwd_kernel_phase(
+        torch, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    main_path("train-ssm", lambda: train_ssm_phase(torch, ops, smi),
+              ("ssd_scan", "ssd_scan_bwd"))
+    main_path("train-hybrid", lambda: train_hybrid_phase(torch, ops, smi),
+              ("ssd_scan", "ssd_scan_bwd"))
     kernels = []
     for name, (src, replaces) in KERNELS.items():
         kernels.append(dict(name=name, route="cuda", source=src,

@@ -19,6 +19,7 @@ way.
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple
 
 import numpy as np
@@ -63,37 +64,45 @@ class MoEFastPathPass(SpecializationPass):
         return SiteSpec(impl="moe_fastpath", hot_keys=keys)
 
 
+@functools.lru_cache(maxsize=64)
+def _remap(hot_experts: Tuple[int, ...], E: int,
+           dev: torch.device) -> torch.Tensor:
+    """Global expert id -> hot slot (or -1), on ``dev``: built and copied
+    to the device once per hot set and device, not per call."""
+    host = np.full((E,), -1, np.int64)
+    host[list(hot_experts)] = np.arange(len(hot_experts))
+    return torch.as_tensor(host).to(dev)
+
+
 def moe_ffn_hotpath(params, x2d: torch.Tensor, cfg: ModelConfig,
                     hot_experts: Tuple[int, ...], act: str = "silu"):
     """Specialized MoE FFN: when every token's top-k experts are hot,
     only the hot experts' groups run (weights indexed as views of the
     expert stacks); otherwise the full dispatch runs.  Returns
-    (y, metrics) like ``moe_ffn_local``."""
+    (y, metrics) like ``moe_ffn_local``.  The device work before the
+    branch is the generic path's: the routing and one count per expert,
+    read to the host once; the predicate (every (token, choice) pair on a
+    hot expert) and the hot groups' sizes are taken from those counts on
+    the host."""
     moe = cfg.moe
     E, K = moe.num_experts, moe.top_k
-    H = len(hot_experts)
     dev = x2d.device
     gates, ids, logits = route(params["w_router"], x2d, K,
                                params.get("b_router"))
-    # remap: global expert id -> hot slot (or -1)
-    remap = np.full((E,), -1, np.int64)
-    remap[list(hot_experts)] = np.arange(H)
-    hot_ids = torch.as_tensor(remap).to(dev)[ids.long()]      # (T,K)
-    all_hot = (hot_ids >= 0).all()
     flat = ids.reshape(-1).long()
-    safe = hot_ids.reshape(-1).clamp_min(0)
-    counts = torch.bincount(flat, minlength=E)
-    # the one device-to-host read of the layer: predicate + group sizes
-    host = torch.cat([all_hot.view(1).long(),
-                      torch.bincount(safe, minlength=H), counts]).tolist()
-    if host[0]:
-        y = _dispatch(params, x2d, gates, safe, host[1:1 + H],
-                      hot_experts, K, act)
+    counts = torch.zeros(E, dtype=torch.long, device=dev).scatter_add_(
+        0, flat, torch.ones_like(flat))
+    # the one device-to-host read of the layer, as the generic path's
+    sizes = counts.tolist()
+    hot_sizes = [sizes[e] for e in hot_experts]
+    all_hot = sum(hot_sizes) == flat.numel()
+    if all_hot:
+        slots = _remap(hot_experts, E, dev)[flat]
+        y = _dispatch(params, x2d, gates, slots, hot_sizes, hot_experts, K,
+                      act)
     else:
-        y = _dispatch(params, x2d, gates, flat, host[1 + H:], range(E),
-                      K, act)
+        y = _dispatch(params, x2d, gates, flat, sizes, range(E), K, act)
     aux = load_balance_loss(logits, ids, E)
-    return y, {"aux_loss": aux,
-               "dropped": torch.zeros((), device=dev),
+    return y, {"aux_loss": aux, "dropped": 0.0,
                "expert_counts": counts.to(torch.int32),
-               "fastpath_hit": all_hot.to(torch.int32)}
+               "fastpath_hit": int(all_hot)}

@@ -6,6 +6,11 @@ is no fallback), a CPU tensor takes the plain PyTorch version from
 ``ref.py`` (bitwise the same semantics).  ``force="kernel"`` asserts the
 kernel path and raises on CPU tensors.
 
+Under autograd on the card, ``flash_attention`` and ``ssd_scan`` go
+through ``FlashAttentionFn`` and ``SsdScanFn``, whose backwards are the
+hand-written ``flash_attention_bwd`` and ``ssd_scan_bwd`` kernels; so a
+model trains on the card through the same kernels it serves with.
+
 ``launches()`` / ``reset_launches()`` read and zero the per-kernel
 launch counts, so a run can show that its main path went through the
 kernels.
@@ -19,7 +24,7 @@ import torch
 from . import ref as _ref
 from .flash_attention import FlashAttentionFn, flash_attention_cuda
 from .hot_gather import LAUNCHES, hot_gather_cuda
-from .ssd_scan import ssd_scan_cuda
+from .ssd_scan import SsdScanFn, ssd_scan_cuda
 
 
 def _use_kernel(t: torch.Tensor, force: Optional[str]) -> bool:
@@ -69,17 +74,16 @@ def ssd_scan(x, dt, A, Bm, Cm, *, chunk: int, init_state=None,
              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Mamba2 SSD chunked scan: ``(y, final_state)``.  On the card always
     the CUDA kernel, which raises on a shape or dtype it does not take
-    (the reference's dispatcher silently takes its oracle instead), and
-    which has no backward: with grad enabled and an input that requires
-    it, the card raises ``NotImplementedError`` (ROADMAP item 10b); the
-    host differentiates the plain version."""
+    (the reference's dispatcher silently takes its oracle instead).  With
+    grad enabled and an input that requires it, the kernel goes through
+    ``SsdScanFn``, whose backward is the ``ssd_scan_bwd`` kernel; every
+    other call is the plain launch.  On the host autograd runs through the
+    plain version."""
     if _use_kernel(x, force):
         if torch.is_grad_enabled() and any(
                 t is not None and t.requires_grad
                 for t in (x, dt, A, Bm, Cm, init_state)):
-            raise NotImplementedError(
-                "ssd_scan has no backward kernel yet: training a Mamba "
-                "layer on the card waits for ROADMAP Queue 1 item 10b")
+            return SsdScanFn.apply(x, dt, A, Bm, Cm, init_state, chunk)
         return ssd_scan_cuda(x, dt, A, Bm, Cm, chunk=chunk,
                              init_state=init_state)
     return _ref.ssd_scan_ref(x, dt, A, Bm, Cm, chunk, init_state=init_state)

@@ -313,6 +313,138 @@ def ssd_scan_blocked_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     return y.to(x.dtype), s
 
 
+def ssd_scan_bwd_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                     Bm: torch.Tensor, Cm: torch.Tensor, chunk: int,
+                     dy: torch.Tensor, dfinal: Optional[torch.Tensor] = None,
+                     init_state: Optional[torch.Tensor] = None):
+    """``(dx, ddt, dA, dB, dC, dinit)``: autograd through
+    :func:`ssd_scan_ref` with cotangents ``dy`` for y and ``dfinal`` for
+    the final state (None: unused) — the plain version of the
+    ``ssd_scan_bwd`` kernel (the reference differentiates its
+    ``ssd_scan_ref`` the same way).  ``dinit`` is None without an
+    ``init_state``."""
+    with torch.enable_grad():
+        ins = [t.detach().requires_grad_(True)
+               for t in (x, dt, A, Bm, Cm)]
+        s0 = (None if init_state is None
+              else init_state.detach().requires_grad_(True))
+        y, fin = ssd_scan_ref(*ins, chunk, init_state=s0)
+        outs, cots = [y], [dy]
+        if dfinal is not None:
+            outs.append(fin)
+            cots.append(dfinal)
+        wrt = ins + ([] if s0 is None else [s0])
+        grads = torch.autograd.grad(outs, wrt, cots, allow_unused=True)
+    grads = [torch.zeros_like(t) if g is None else g
+             for g, t in zip(grads, wrt)]
+    return (*grads[:5], grads[5] if s0 is not None else None)
+
+
+def ssd_scan_bwd_blocked_ref(x: torch.Tensor, dt: torch.Tensor,
+                             A: torch.Tensor, Bm: torch.Tensor,
+                             Cm: torch.Tensor, chunk: int, dy: torch.Tensor,
+                             dfinal: Optional[torch.Tensor] = None,
+                             init_state: Optional[torch.Tensor] = None):
+    """What the ``ssd_scan_bwd`` CUDA kernel computes, in plain PyTorch:
+    the function of :func:`ssd_scan_bwd_ref` in the kernel's passes and
+    sums, f32 throughout (the kernel's products run on the CUDA cores).
+    Per chunk c with ``cs`` the running sum of ``dt A``, ``tot`` its last
+    value, S_c the state entering the chunk (recomputed here; the kernel
+    reads the forward's) and dS_c its gradient:
+
+    1. ``local_c = sum_i exp(cs_i) dy_i (x) C_i``, per chunk in parallel.
+    2. The state pass, backwards over chunks from ``dfinal``: chunk c
+       takes ``dS_{c+1}`` (the gradient of the state it leaves), then
+       ``dS_c = exp(tot_c) dS_{c+1} + local_c``; ``dinit = dS_0``; and
+       ``<dS_{c+1}, S_{c+1}>``, the gradient of ``tot_c``.
+    3. Per chunk, with ``L_ij = exp(cs_i - cs_j)`` for j <= i (masked
+       before the exp) and ``w_j = exp(tot - cs_j) dt_j``: by source step
+       j, ``dx_j / dt_j = sum_i C_i.B_j L_ij dy_i + exp(tot - cs_j) dS B_j``
+       and ``dB_j = sum_i (dy_i.x_j) L_ij dt_j C_i + w_j dS^T x_j``; by
+       row i, ``dC_i = sum_j (dy_i.x_j) L_ij dt_j B_j + exp(cs_i) S^T
+       dy_i``; each gives its share of ``d cs``.
+    4. ``d da`` is the reverse running sum of ``d cs``; ``ddt = x.dx/dt
+       + A d da``, ``dA = sum d da dt``; dB and dC are summed over the
+       heads of each group in head order.
+
+    Padded steps of a ragged last chunk read as dt = x = B = C = dy = 0.
+    Only the tests use it."""
+    Bsz, S, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    Q, rep = chunk, H // G
+    f32 = torch.float32
+    nc = -(-S // Q)
+    pad = nc * Q - S
+    grp = torch.arange(H, device=x.device) // rep
+
+    def heads(t, width):       # (B, S, ., width) -> (B, nc, ., Q, width)
+        t = F.pad(t.to(f32), (0, 0, 0, 0, 0, pad))
+        return t.reshape(Bsz, nc, Q, t.shape[2], width).permute(0, 1, 3, 2,
+                                                                 4)
+    xh, dyh = heads(x, P), heads(dy, P)                      # (B,nc,H,Q,P)
+    Bh, Ch = heads(Bm, N)[:, :, grp], heads(Cm, N)[:, :, grp]
+    dth = F.pad(dt.to(f32), (0, 0, 0, pad)).reshape(
+        Bsz, nc, Q, H).permute(0, 1, 3, 2)                   # (B,nc,H,Q)
+    Af = A.to(f32)
+    cs = torch.cumsum(dth * Af[:, None], dim=-1)
+    tot = cs[..., -1]                                        # (B,nc,H)
+    w = torch.exp(tot[..., None] - cs) * dth
+
+    # the forward's states: entering each chunk, and the final one
+    inc = (xh * w[..., None]).transpose(-1, -2) @ Bh         # (B,nc,H,P,N)
+    s = (torch.zeros((Bsz, H, P, N), dtype=f32, device=x.device)
+         if init_state is None else init_state.to(f32))
+    entering = []
+    for c in range(nc):
+        entering.append(s)
+        s = s * torch.exp(tot[:, c])[..., None, None] + inc[:, c]
+    states, final = torch.stack(entering, dim=1), s
+
+    # pass 1
+    local = (dyh * torch.exp(cs)[..., None]).transpose(-1, -2) @ Ch
+    # pass 2
+    d = (torch.zeros_like(final) if dfinal is None else dfinal.to(f32))
+    dso, dtot = [None] * nc, [None] * nc
+    for c in reversed(range(nc)):
+        nxt = states[:, c + 1] if c + 1 < nc else final
+        dso[c] = d
+        dtot[c] = (d * nxt).sum(dim=(-1, -2))
+        d = d * torch.exp(tot[:, c])[..., None, None] + local[:, c]
+    dS, dtot = torch.stack(dso, dim=1), torch.stack(dtot, dim=1)
+
+    # pass 3
+    tri = torch.ones((Q, Q), dtype=torch.bool, device=x.device).tril()
+    seg = torch.where(tri, cs[..., :, None] - cs[..., None, :], 0.0)
+    L = torch.where(tri, torch.exp(seg), 0.0)                # [.., i, j]
+    cb = Ch @ Bh.transpose(-1, -2)
+    dyx = dyh @ xh.transpose(-1, -2)
+    t1 = cb * L
+    t2 = dyx * L * dth[..., None, :]
+    e = t2 * cb
+    v = Bh @ dS.transpose(-1, -2)                            # (B,nc,H,Q,P)
+    dxu = t1.transpose(-1, -2) @ dyh + torch.exp(tot[..., None] - cs)[
+        ..., None] * v
+    dB = t2.transpose(-1, -2) @ Ch + w[..., None] * (xh @ dS)
+    dcs = -e.sum(dim=-2) - w * (xh * v).sum(dim=-1)
+    dCi = torch.exp(cs)[..., None] * (dyh @ states)
+    dC = t2 @ Bh + dCi
+    dcs = dcs + e.sum(dim=-1) + (Ch * dCi).sum(dim=-1)
+    # pass 4
+    dcs[..., -1] += dtot
+    dda = torch.flip(torch.cumsum(torch.flip(dcs, [-1]), dim=-1), [-1])
+    ddt = (xh * dxu).sum(dim=-1) + dda * Af[:, None]
+    dA = (dda * dth).sum(dim=(0, 1, 3))
+
+    def steps(t):              # (B, nc, ., Q, w) -> (B, S, ., w)
+        return t.permute(0, 1, 3, 2, 4).reshape(Bsz, nc * Q, t.shape[2],
+                                                t.shape[4])[:, :S]
+    dx = steps(dth[..., None] * dxu).to(x.dtype)
+    ddt = ddt.permute(0, 1, 3, 2).reshape(Bsz, nc * Q, H)[:, :S]
+    dB = steps(dB).reshape(Bsz, S, G, rep, N).sum(dim=3).to(Bm.dtype)
+    dC = steps(dC).reshape(Bsz, S, G, rep, N).sum(dim=3).to(Cm.dtype)
+    return dx, ddt, dA, dB, dC, (None if init_state is None else d)
+
+
 def ssd_decode_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                    Bm: torch.Tensor, Cm: torch.Tensor, state: torch.Tensor
                    ) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -6,7 +6,8 @@ the card must be there: nothing falls back to the CPU).  The path is
 ``TrainSupervisor.step`` -> ``make_train_step`` -> ``Model.loss`` ->
 ``lm_forward`` (remat on; every attention call through the
 ``flash_attention`` kernel forward and its ``flash_attention_bwd``
-backward on the card) -> AdamW in place, with atomic and async
+backward on the card, every Mamba layer's scan through ``ssd_scan`` and
+its ``ssd_scan_bwd`` backward) -> AdamW in place, with atomic and async
 checkpoints, failure injection with resume, straggler monitoring, and
 the hot-expert respecialization of the supervisor.
 
@@ -24,6 +25,8 @@ Fault taxonomy (``distributed/fault.py``):
 
 Examples:
     python -m repro_torch.launch.train --arch starcoder2-3b --batch 4 \\
+        --seq 2048 --steps 6 --ckpt-every 0
+    python -m repro_torch.launch.train --arch mamba2-1.3b --batch 4 \\
         --seq 2048 --steps 6 --ckpt-every 0
     python -m repro_torch.launch.train --arch phi3.5-moe-42b-a6.6b --smoke \\
         --steps 40 --fail-at-step 25 --device cpu   # crash, then --resume
@@ -53,6 +56,17 @@ ELASTIC = ("--device-loss-at-step / --grow-back-after: the elastic mesh is "
            "not ported (ROADMAP Queue 1 item 12)")
 
 
+def cut_layers(cfg, layers: int):
+    """``cfg`` cut to its first ``layers`` layers at every width: a
+    multiple of the block pattern's period, or fewer layers than one
+    period, which cuts the pattern to them (jamba's layers 0-1: Mamba with
+    a dense FFN, then Mamba with the MoE FFN)."""
+    if cfg.block_pattern and layers < len(cfg.block_pattern):
+        return cfg.replace(n_layers=layers,
+                           block_pattern=cfg.block_pattern[:layers])
+    return cfg.replace(n_layers=layers)
+
+
 def build_state(model: Model, seed: int, device="cuda") -> dict:
     """``{"params": trainable bf16 params drawn from seed, "opt": AdamW
     state}`` on ``device``."""
@@ -66,8 +80,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--smoke", action="store_true",
                     help="reduced config (CPU-sized)")
     ap.add_argument("--layers", type=int, default=0,
-                    help="cut the config to this many layers (0 = all), "
-                    "every width as published")
+                    help="cut the config to its first this many layers "
+                    "(0 = all), every width as published (cut_layers)")
     ap.add_argument("--steps", type=int, default=50)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=64)
@@ -114,7 +128,7 @@ def main(argv=None, on_step=None) -> int:
     if args.smoke:
         cfg = cfg.smoke()
     if args.layers:
-        cfg = cfg.replace(n_layers=args.layers)
+        cfg = cut_layers(cfg, args.layers)
     model = Model(cfg)
 
     state = build_state(model, args.seed, device)

@@ -79,9 +79,10 @@ from .plan import TrainPlan, TrainProfile
 
 ELASTIC = ("the elastic mesh (device loss, grow-back, reshard) is not "
            "ported: ROADMAP Queue 1 item 12")
-# the CUDA libraries a train step launches (a Mamba layer's ssd_scan has
-# no backward yet, and its training raises: kernels/ops.py)
-TRAIN_LIBRARIES = ("flash_attention", "flash_attention_bwd")
+# the CUDA libraries a train step launches: attention's forward and
+# backward, a Mamba layer's ssd_scan and its backward
+TRAIN_LIBRARIES = ("flash_attention", "flash_attention_bwd", "ssd_scan",
+                   "ssd_scan_bwd")
 
 
 @dataclass

@@ -288,6 +288,145 @@ def test_ssd_scan_kernel_rejects_what_it_does_not_take(cuda):
                      Bm, Cm, chunk=8)
 
 
+# ssd_scan_bwd against its plain version (autograd through ssd_scan_ref on
+# the same inputs), normwise: max |kernel - plain| <= tol * max |plain|.
+# f32: the two sum in other orders (measured up to 4.9e-5 of the largest
+# entry on these shapes, dA the worst); bf16: dx, dB and dC are rounded
+# to 8 bits on both sides, a tie broken the other way ~4e-3 of an entry.
+SSD_BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+SSD_BWD_NAMES = ("dx", "ddt", "dA", "dB", "dC", "dinit")
+
+
+def _ssd_bwd_case(B, S, H, P, N, G, dtype, device, seed=0, init=True):
+    """Inputs, the forward's scratch and the cotangents of both outputs."""
+    from repro_torch.kernels import ssd_scan as ssd_mod
+    x, dt, A, Bm, Cm, s0 = _ssd_inputs(B, S, H, P, N, G, dtype, device,
+                                       seed=seed, init=init)
+    g = torch.Generator().manual_seed(seed + 1)
+    dy = torch.randn(B, S, H, P, generator=g).to(device=device, dtype=dtype)
+    dfin = torch.randn(B, H, P, N, generator=g).to(device)
+    return ssd_mod, (x, dt, A, Bm, Cm), s0, dy, dfin
+
+
+def _ssd_bwd(ssd_mod, args, s0, dy, dfin, chunk):
+    y, fin, dacs, states = ssd_mod.ssd_scan_cuda(
+        *args, chunk=chunk, init_state=s0, return_scratch=True)
+    return ssd_mod.ssd_scan_bwd_cuda(*args, dacs, states, fin, dy, dfin,
+                                     chunk=chunk)
+
+
+def _assert_ssd_bwd_close(got, ref, dtype, init):
+    for name, a, r in zip(SSD_BWD_NAMES, got, ref):
+        if name == "dinit" and not init:
+            continue
+        assert a.dtype == r.dtype and a.shape == r.shape, name
+        assert torch.isfinite(a).all(), name
+        err = _normwise(a, r)
+        assert err <= SSD_BWD_TOL[dtype] * float(r.float().abs().max()), \
+            (name, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,H,P,N,chunk,G", SSD_SHAPES)
+def test_ssd_scan_bwd_kernel_equals_plain(cuda, B, S, H, P, N, chunk, G,
+                                          dtype):
+    """Every gradient against the plain version and the blocked one (the
+    kernel's passes in plain PyTorch), with an initial state and a
+    cotangent of the final state; one launch counted."""
+    ssd_mod, args, s0, dy, dfin = _ssd_bwd_case(B, S, H, P, N, G, dtype,
+                                                cuda)
+    before = ops.launches().get("ssd_scan_bwd", 0)
+    got = _ssd_bwd(ssd_mod, args, s0, dy, dfin, chunk)
+    torch.cuda.synchronize()
+    assert ops.launches()["ssd_scan_bwd"] == before + 1
+    kw = dict(dfinal=dfin, init_state=s0)
+    _assert_ssd_bwd_close(got, TR.ssd_scan_bwd_ref(*args, chunk, dy, **kw),
+                          dtype, True)
+    _assert_ssd_bwd_close(
+        got, TR.ssd_scan_bwd_blocked_ref(*args, chunk, dy, **kw), dtype,
+        True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_scan_bwd_kernel_repeats_its_bits(cuda, dtype):
+    """No atomics: 16 heads a group summed into dB and dC, a ragged last
+    chunk, no final-state cotangent; two calls give the same bits."""
+    ssd_mod, args, s0, dy, _ = _ssd_bwd_case(2, 600, 32, 64, 128, 2, dtype,
+                                             cuda, seed=6, init=False)
+    a = _ssd_bwd(ssd_mod, args, s0, dy, None, 256)
+    b = _ssd_bwd(ssd_mod, args, s0, dy, None, 256)
+    assert all(torch.equal(u, v) for u, v in zip(a, b))
+    ref = TR.ssd_scan_bwd_ref(*args, 256, dy)
+    _assert_ssd_bwd_close(a, ref, dtype, False)
+
+
+@pytest.mark.cuda
+def test_ssd_scan_bwd_kernel_reads_strided_projections(cuda):
+    """x, B and C as slices of one projection, as the Mamba2 block saves
+    them: the gradients equal those of contiguous copies bit for bit."""
+    ssd_mod, (x, dt, A, Bm, Cm), s0, dy, dfin = _ssd_bwd_case(
+        2, 70, 4, 8, 16, 1, torch.float32, cuda, seed=7)
+    xBC = torch.cat([x.flatten(2), Bm.flatten(2), Cm.flatten(2)], dim=-1)
+    xs = xBC[..., :32].reshape(x.shape)
+    Bs = xBC[..., 32:48].reshape(Bm.shape)
+    Cs = xBC[..., 48:].reshape(Cm.shape)
+    assert not xs.is_contiguous()
+    a = _ssd_bwd(ssd_mod, (xs, dt, A, Bs, Cs), s0, dy, dfin, 16)
+    b = _ssd_bwd(ssd_mod, (x, dt, A, Bm, Cm), s0, dy, dfin, 16)
+    assert all(torch.equal(u, v) for u, v in zip(a, b))
+
+
+@pytest.mark.cuda
+def test_ssd_scan_bwd_kernel_rejects_what_it_does_not_take(cuda):
+    ssd_mod, args, s0, dy, dfin = _ssd_bwd_case(1, 32, 4, 8, 16, 1,
+                                                torch.float32, cuda)
+    x, dt, A, Bm, Cm = args
+    y, fin, dacs, states = ssd_mod.ssd_scan_cuda(*args, chunk=8,
+                                                 return_scratch=True)
+    bwd = ssd_mod.ssd_scan_bwd_cuda
+    with pytest.raises(ValueError):             # dy not in x's dtype
+        bwd(*args, dacs, states, fin, dy.bfloat16(), dfin, chunk=8)
+    with pytest.raises(ValueError):             # dy of another shape
+        bwd(*args, dacs, states, fin, dy[:, :16], dfin, chunk=8)
+    with pytest.raises(ValueError):             # scratch of another chunk
+        bwd(*args, dacs, states, fin, dy, dfin, chunk=16)
+    with pytest.raises(ValueError):             # dfinal not float32
+        bwd(*args, dacs, states, fin, dy, dfin.double(), chunk=8)
+    with pytest.raises(TypeError):              # half precision
+        bwd(x.half(), dt, A, Bm.half(), Cm.half(), dacs, states, fin,
+            dy.half(), dfin, chunk=8)
+    with pytest.raises(ValueError):             # P beyond the tiles
+        big = torch.zeros(1, 32, 4, 128, device=cuda)
+        bwd(big, dt, A, Bm, Cm, dacs, states, fin, big, dfin, chunk=8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("init", [False, True], ids=["zero", "init"])
+def test_ssd_scan_autograd_launches_the_backward_kernel(cuda, init):
+    """With grad, ``ops.ssd_scan`` runs through ``SsdScanFn``: the forward
+    and the backward kernel, the gradients those of a direct
+    ``ssd_scan_bwd_cuda`` call bit for bit; ``dinit`` only for an initial
+    state that requires grad.  Without grad, the plain forward launch."""
+    ssd_mod, args, s0, dy, dfin = _ssd_bwd_case(2, 100, 8, 16, 32, 2,
+                                                torch.bfloat16, cuda,
+                                                seed=8, init=init)
+    ops.reset_launches()
+    with torch.no_grad():
+        ops.ssd_scan(*args, chunk=32, init_state=s0)
+    assert ops.launches() == {"ssd_scan": 1}
+    leaves = [t.clone().requires_grad_(True) for t in args]
+    s0g = None if s0 is None else s0.clone().requires_grad_(True)
+    y, fin = ops.ssd_scan(*leaves, chunk=32, init_state=s0g)
+    torch.autograd.backward((y, fin), (dy, dfin))
+    assert ops.launches() == {"ssd_scan": 2, "ssd_scan_bwd": 1}
+    want = _ssd_bwd(ssd_mod, args, s0, dy, dfin, 32)
+    for t, w in zip(leaves + [s0g], want):
+        if t is not None:
+            assert torch.equal(t.grad, w)
+
+
 def test_ssd_scan_force_kernel_on_cpu_tensors_raises():
     x, dt, A, Bm, Cm, _ = _ssd_inputs(1, 16, 2, 4, 8, 1, torch.float32,
                                       "cpu")
@@ -1504,16 +1643,38 @@ def test_flash_attention_autograd_takes_the_backward_kernel(cuda):
 
 
 @pytest.mark.cuda
-def test_mamba_training_on_the_card_raises(cuda):
+def test_mamba_training_on_the_card_goes_through_the_kernels(cuda):
+    """mamba2's loss and every gradient in f32 on the card (each layer's
+    scan through ``SsdScanFn``: the ``ssd_scan`` kernel forward and again
+    in the remat recompute, ``ssd_scan_bwd`` backward) against the
+    host's (the plain version), from the same params and batch, at
+    ``test_torch_train.py``'s ``GRAD_TOL``."""
+    arch = "mamba2-1.3b"
     from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, TokenPipeline
     from repro_torch.models.model import Model
-    from repro_torch.models.params import trainable
-    cfg = get_config("mamba2-1.3b").smoke()
+    from repro_torch.models.params import flat_tree, trainable
+    cfg = get_config(arch).smoke()
     model = Model(cfg)
-    params = trainable(model.init(0, cuda))
-    tok = torch.zeros((1, 16), dtype=torch.int32, device=cuda)
-    with pytest.raises(NotImplementedError, match="10b"):
-        model.loss(params, {"tokens": tok, "labels": tok})
+    host = trainable(model.init(0, "cpu").float())
+    card = trainable(model.init(0, "cpu").float().to(cuda))
+    dcfg = DataConfig(vocab=cfg.vocab, seq=80, global_batch=2, seed=0)
+    bh = TokenPipeline(dcfg, "cpu").next_batch()
+    bc = TokenPipeline(dcfg, cuda).next_batch()
+    mamba = cfg.n_periods * sum(spec.kind == "mamba"
+                                for spec in cfg.pattern)
+    ops.reset_launches()
+    lh, _ = model.loss(host, bh)
+    lc, _ = model.loss(card, bc)
+    lh.backward()
+    lc.backward()
+    n = ops.launches()
+    assert n["ssd_scan_bwd"] == mamba and n["ssd_scan"] == 2 * mamba, n
+    assert abs(float(lc) - float(lh)) <= 1e-5 * abs(float(lh))
+    for (name, ph), pc in zip(flat_tree(host).items(),
+                              flat_tree(card).values()):
+        gh, gc = ph.grad, pc.grad.cpu()
+        assert _normwise(gc, gh) <= 1e-4 * float(gh.abs().max()), name
 
 
 @pytest.mark.cuda

@@ -9,16 +9,23 @@ scale, on the CPU, with the reference's weights carried across by
   the hot set from ``meshctx.use_moe_hot``, the port takes it as an
   argument), pixtral-12b (media positions cut from the logits),
   deepseek-v2 (MLA's blocked loop, out of place under autograd),
-  gemma2-9b (window, both softcaps, out of place under autograd).  The
-  loss within ``LOSS_RTOL`` relative, each gradient leaf within
-  ``GRAD_TOL`` times its largest entry (normwise: the same arithmetic,
-  its sums in other orders; gemma2 at ``GEMMA2_GRAD_TOL``, its own f32
-  noise);
+  gemma2-9b (window, both softcaps, out of place under autograd),
+  mamba2-1.3b (every layer through ``ssd_scan``'s plain version, against
+  the reference's ``jax.value_and_grad`` through its ``ssd_scan_ref``),
+  jamba-v0.1-52b (Mamba, attention and MoE layers together) and
+  seamless-m4t-medium (the encoder-decoder branch, ``encoder_forward``
+  rematerialized a layer at a time; the reference's encoder scan runs
+  only in bf16, so its f32 loss is composed from its own layers, and the
+  port's encoder carry is set to f32 for the case).  The loss within
+  ``LOSS_RTOL`` relative, each gradient leaf within ``GRAD_TOL`` times
+  its largest entry (normwise: the same arithmetic, its sums in other
+  orders; gemma2, jamba and seamless at their own f32 noise);
 - ``adamw_update`` fed the same numpy gradients: master, m and v within
   ``ADAM_RTOL`` relative after one update (and 10x that after two more),
   and ``schedule``;
 - the twin of ``test_substrate.py``'s microbatch test, at its
-  tolerances; ``remat`` on and off give the same bits; the port's
+  tolerances; ``remat`` on and off give the same bits (a dense, a MoE,
+  a Mamba and an encoder-decoder stack); the port's
   ``TokenPipeline`` gives the reference's batches bit for bit, and its
   Zipf skew (the twin of ``test_substrate.py::test_pipeline_zipf_skew``);
 - the twins of ``test_substrate.py``'s CLI tests (crash and resume, the
@@ -39,7 +46,11 @@ from repro.configs import get_config as j_get_config
 from repro.data import DataConfig as JDataConfig
 from repro.data import TokenPipeline as JTokenPipeline
 from repro.distributed.meshctx import use_moe_hot
+from repro.models import encdec as JE
+from repro.models import layers as JL
+from repro.models import transformer as JT
 from repro.models.model import Model as JModel
+from repro.models.model import cross_entropy as j_cross_entropy
 from repro.models.params import unzip
 from repro.optim import AdamWConfig as JAdamWConfig
 from repro.optim import adamw_update as j_adamw_update
@@ -49,6 +60,7 @@ from repro_torch.configs import get_config
 from repro_torch.data import DataConfig, TokenPipeline
 from repro_torch.launch.steps import make_train_step
 from repro_torch.launch.train import build_state
+from repro_torch.models import encdec as TE
 from repro_torch.models.model import Model, params_from_numpy
 from repro_torch.models.params import flat_tree, trainable
 from repro_torch.optim import AdamWConfig, adamw_update, init_opt_state, \
@@ -93,14 +105,47 @@ def _reference(arch):
     return jm, jp, Model(get_config(arch).smoke()), tp
 
 
+S_ENC = 16     # an encoder-decoder batch's frames
+
+
 def _batch(cfg, seed=0, media=False):
+    """Tokens and labels; an encoder-decoder config's frames (rounded to
+    bf16, which both encoders cast them to first); with ``media`` the
+    media embeddings."""
     rng = np.random.default_rng(seed)
     toks = rng.integers(0, cfg.vocab, (B, S + 1)).astype(np.int32)
     b = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
     if media:
         b["media"] = rng.standard_normal(
             (B, cfg.num_media_tokens, cfg.d_model)).astype(np.float32)
+    if cfg.encdec:
+        frames = rng.standard_normal((B, S_ENC, cfg.d_model))
+        b["frames"] = np.asarray(jnp.asarray(frames, jnp.bfloat16),
+                                 np.float32)
     return b
+
+
+def _encdec_loss_f32(jm, batch):
+    """The reference's f32 loss of an encoder-decoder config, composed
+    from its own ``layer_forward`` / ``rmsnorm`` / ``lm_forward`` /
+    ``cross_entropy`` in the order its ``encdec_forward`` and ``loss``
+    run them: its encoder's ``lax.scan`` carries the frames cast to bf16
+    and refuses f32 weights (``TypeError``), so ``jm.loss`` runs only in
+    bf16, where the gradient is the bf16 rounding's noise."""
+    cfg = jm.cfg
+
+    def loss(p):
+        x = batch["frames"]
+        pos = jnp.arange(x.shape[1], dtype=jnp.int32)
+        for i in range(cfg.n_enc_layers):
+            layer = jax.tree.map(lambda a: a[i], p["encoder"]["blocks"])
+            x = JT.layer_forward(layer, cfg, JE.ENC_SPEC, x, pos,
+                                 causal=False)[0]
+        enc = JL.rmsnorm(p["encoder"]["final_norm"], x, cfg.rms_eps)
+        logits = JT.lm_forward(p["decoder"], cfg, batch["tokens"],
+                               enc_out=enc)[0]
+        return j_cross_entropy(logits, batch["labels"], n_valid=cfg.vocab)
+    return loss
 
 
 def _close(got, ref, tol, what):
@@ -117,6 +162,15 @@ def _close(got, ref, tol, what):
 # inputs the reference's own f32 gradient lies up to 2.2e-4 of a leaf's max
 # from the f64 gradient of the same weights (the port's up to 1.3e-4)
 GEMMA2_GRAD_TOL = 5e-4
+# jamba's (Mamba, attention and top-2 MoE layers) likewise: the reference's
+# f32 gradient lies up to 6.5e-4 of a leaf's max from its f64 gradient, the
+# port's up to 9.3e-4, and the two up to 9.0e-4 from each other
+JAMBA_GRAD_TOL = 2e-3
+# seamless's (near-argmax cross-attention at random weights amplifies a
+# last-bit difference ~10x): the reference's composed f32 gradient lies up
+# to 4.8e-4 from its f64 one, the port's up to 5.7e-4, the two up to 1.8e-4
+# from each other
+ENCDEC_GRAD_TOL = 5e-4
 
 
 @pytest.mark.parametrize("arch,hot,media,tol", [
@@ -127,10 +181,14 @@ GEMMA2_GRAD_TOL = 5e-4
     ("pixtral-12b", None, True, GRAD_TOL),
     ("deepseek-v2-236b", None, False, GRAD_TOL),
     ("gemma2-9b", None, False, GEMMA2_GRAD_TOL),
+    ("mamba2-1.3b", None, False, GRAD_TOL),
+    ("jamba-v0.1-52b", None, False, JAMBA_GRAD_TOL),
+    ("seamless-m4t-medium", None, False, ENCDEC_GRAD_TOL),
 ], ids=["starcoder2", "phi3.5-moe", "phi3.5-moe-hot-hit",
         "phi3.5-moe-hot-miss", "pixtral-media", "deepseek-v2-mla",
-        "gemma2-softcaps"])
-def test_loss_and_grads_match_the_reference(arch, hot, media, tol):
+        "gemma2-softcaps", "mamba2-ssd", "jamba-hybrid", "seamless-encdec"])
+def test_loss_and_grads_match_the_reference(arch, hot, media, tol,
+                                            monkeypatch):
     jm, jp, tm, tp = _reference(arch)
     nb = _batch(jm.cfg, media=media)
     jb = {k: jnp.asarray(v) for k, v in nb.items()}
@@ -138,6 +196,11 @@ def test_loss_and_grads_match_the_reference(arch, hot, media, tol):
 
     def jloss(p):
         return jm.loss(p, jb)[0]
+    if jm.cfg.encdec:
+        # f32 on both sides (``_encdec_loss_f32``): the port's encoder
+        # checks its weights against its carry's dtype, here f32
+        jloss = _encdec_loss_f32(jm, jb)
+        monkeypatch.setattr(TE, "CARRY_DTYPE", torch.float32)
     with use_moe_hot(hot):
         jl, jg = jax.jit(jax.value_and_grad(jloss))(jp)
     tl, _ = tm.loss(tp, tb, hot_experts=hot)
@@ -278,7 +341,8 @@ def test_microbatch_grad_accumulation_matches_full_batch():
                                    rtol=0.1, atol=1e-3)
 
 
-@pytest.mark.parametrize("arch", ["starcoder2-3b", "phi3.5-moe-42b-a6.6b"])
+@pytest.mark.parametrize("arch", ["starcoder2-3b", "phi3.5-moe-42b-a6.6b",
+                                  "mamba2-1.3b", "seamless-m4t-medium"])
 def test_remat_equals_no_remat_bit_for_bit(arch):
     cfg = get_config(arch).smoke()
     model = Model(cfg)
