@@ -25,7 +25,10 @@
    per ``flash_attention`` path in the built library's SASS
    (``cuobjdump -sass``): the wgmma prefill must hold both; so must
    ``flash_attention_bwd``'s wgmma dk / dv and dq kernels, whose
-   registers and spills (``-Xptxas -v``) it prints beside them.
+   registers and spills (``-Xptxas -v``) it prints beside them; and the
+   ``HMMA`` (``mma.sync``) count, registers and spills of
+   ``ssd_scan_bwd``'s tensor-core kernels, whose triangle kernels
+   (``bwd_cols``, ``bwd_rows``) must hold ``HMMA``.
 3. Serving phase at full width (the widths of
    ``src/repro/configs/phi3p5_moe.py``; 2 layers instead of 32, because
    f32 params at 32 layers do not fit one card): generic steps, a
@@ -271,9 +274,12 @@
    ``ssd_scan_ref``) and the blocked one on ``test_torch_ssd_bwd.py``'s
    shapes (f32 and bf16, an initial state, a final-state cotangent) and
    on mamba2-1.3b's training layer (``SSD_BWD_MAIN``: strided bf16, as
-   the model calls it), each gradient within ``SSD_BWD_TOL``, two calls
-   equal bit for bit; there its time, the plain version's, its passes and
-   its bound (3xTF32 operations, beside the CUDA cores' figure).
+   the model calls it), each gradient within ``SSD_BWD_TOL`` of its
+   dtype, two calls equal bit for bit; there its time, the plain
+   version's, its passes and its bound (operations: bf16 x bf16 products
+   at the bf16 rate, f32 x bf16 ones as two TF32 products, beside the
+   CUDA cores' figure); and dA at chunk 1024 against float64
+   (``SSD_BWD_LONG``), beside the plain f32 version's own distance.
 19. Train-SSM phase (``[train-ssm]``): mamba2-1.3b whole (``TRAIN_SSM``)
    through ``repro_torch.launch.train.main``: finite losses and gradient
    norms, 96 ``ssd_scan`` (forward and remat recompute) and 48
@@ -349,11 +355,13 @@ KERNELS = {                     # name -> (source, TPU kernel it replaces)
 SSD_TOL = {"f32": 2e-5, "bf16": 2e-2, "state": 1e-3, "f32_normwise": 1e-4}
 # ssd_scan_bwd against its plain version (autograd through ssd_scan_ref on
 # the same inputs) and its blocked one, normwise per gradient (dx, ddt,
-# dA, dB, dC, dinit): max|kernel - plain| <= tol * max|plain|.  f32: the
-# sums run in other orders (up to 4.9e-5 of the largest entry on the
-# test shapes, dA the worst: its sum over every step cancels); bf16: dx,
-# dB and dC are rounded to 8 bits on both sides, and a tie broken the
-# other way is ~4e-3 of an entry.
+# dA, dB, dC, dinit): max|kernel - plain| <= tol * max|plain|, by the
+# gradient's own dtype.  f32: the sums run in other orders (up to 4.9e-5
+# of the largest entry on the test shapes, dA the worst: its sum over
+# every step cancels); ddt, dA and dinit are f32 in a bf16 call too, and
+# are held to f32's limit there.  bf16: dx, dB and dC are rounded to 8
+# bits on both sides, and a tie broken the other way is ~4e-3 of an
+# entry.
 SSD_BWD_TOL = {"f32": 1e-4, "bf16": 1e-2}
 
 
@@ -548,13 +556,18 @@ FA_PATHS = {"flash_decode": "split_k_decode",
 BWD_KERNELS = {"bwd_dkdv_wgmma": "wgmma dk/dv", "bwd_dq_wgmma": "wgmma dq",
                "bwd_reduce": "wgmma reduce", "bwd_delta": "delta",
                "bwd_dkdv": "cuda_cores dk/dv", "bwd_dq": "cuda_cores dq"}
+# ssd_scan_bwd's tensor-core kernels (csrc/ssd_scan_bwd.cu); the triangle
+# kernels bwd_cols and bwd_rows must hold HMMA (mma.sync)
+SSD_BWD_KERNELS = {"bwd_local": "bwd_local", "bwd_cols": "bwd_cols",
+                   "bwd_rows": "bwd_rows"}
+SASS_OPS = ("HGMMA", "UTMALDG", "HMMA")
 
 
 def sass_counts(build, name: str = "flash_attention",
                 paths: dict = FA_PATHS) -> dict:
-    """HGMMA (wgmma) and UTMALDG (TMA load) instructions per kernel path
-    (the first key of ``paths`` in a function's name) in the SASS of
-    ``csrc/<name>.cu``'s built library."""
+    """HGMMA (wgmma), UTMALDG (TMA load) and HMMA (mma.sync) instructions
+    per kernel path (the first key of ``paths`` in a function's name) in
+    the SASS of ``csrc/<name>.cu``'s built library."""
     tool = Path(build._nvcc()).with_name("cuobjdump")
     sass = subprocess.run([str(tool), "-sass",
                            str(build.library_path(name))],
@@ -567,11 +580,11 @@ def sass_counts(build, name: str = "flash_attention",
             path = next((v for k, v in paths.items()
                          if k in fn.group(1)), None)
             if path:
-                counts.setdefault(path, {"HGMMA": 0, "UTMALDG": 0,
-                                         "functions": 0})["functions"] += 1
+                counts.setdefault(path, dict.fromkeys(SASS_OPS, 0) | {
+                    "functions": 0})["functions"] += 1
             continue
         if path:
-            for op in ("HGMMA", "UTMALDG"):
+            for op in SASS_OPS:
                 counts[path][op] += len(re.findall(rf"\b{op}\b", line))
     return counts
 
@@ -594,6 +607,26 @@ def ptxas_usage(log: str, pattern: str) -> dict:
         if m and entry and re.search(pattern, entry):
             usage[entry] = (int(m.group(1)),) + spills
     return usage
+
+
+def ssd_bwd_sass(build) -> None:
+    """``[sass]`` lines of ``ssd_scan_bwd``: HMMA (``mma.sync``) count,
+    registers and spills of its tensor-core kernels; fails unless the
+    triangle kernels ``bwd_cols`` and ``bwd_rows`` hold HMMA."""
+    ssd = sass_counts(build, "ssd_scan_bwd", SSD_BWD_KERNELS)
+    usage = ptxas_usage(build.build_info["ssd_scan_bwd"][1],
+                        r"bwd_(local|cols|rows)")
+    for path, c in sorted(ssd.items()):
+        regs = ", ".join(
+            f"{'bf16' if 'bfloat16' in entry else 'f32'} {r} registers, "
+            f"spill stores {st} B, spill loads {ld} B"
+            for entry, (r, st, ld) in sorted(usage.items()) if path in entry
+        ) or "registers not measured (a reused library has no ptxas log)"
+        print(f"[sass] ssd_scan_bwd {path}: {c['HMMA']} HMMA in "
+              f"{c['functions']} functions; {regs}")
+    for path in ("bwd_cols", "bwd_rows"):
+        check(ssd.get(path, {}).get("HMMA", 0) > 0,
+              f"ssd_scan_bwd's {path} SASS holds no HMMA: {ssd}")
 
 
 def kernel_phase(torch, hot_gather_cuda, hot_gather_ref) -> float:
@@ -3009,6 +3042,11 @@ def train_moe_phase(torch, ops, smi) -> None:
 # N 128, chunk 256, G 1, x / B / C slices of one bf16 projection
 SSD_BWD_MAIN = (4, 2048, 64, 64, 128, 256, 1)
 SSD_BWD_NAMES = ("dx", "ddt", "dA", "dB", "dC", "dinit")
+# dA at chunk 1024 against float64: test_torch_cuda.py's long-chunk case
+# and its seeds, made as that test makes them; its limit there
+SSD_BWD_LONG = (1, 1100, 2, 16, 32, 1024, 1)
+SSD_BWD_DA_SEEDS = range(9, 15)
+SSD_BWD_DA_F64_TOL = 3e-4
 # mamba2-1.3b whole: 48 layers, 1.34 B params, 19 GB of training state;
 # the crash at step 4 after a checkpoint at step 3 resumes into steps 3-5
 TRAIN_SSM = dict(arch="mamba2-1.3b", batch=4, seq=2048, steps=6, every=3,
@@ -3040,13 +3078,13 @@ def ssd_bwd_case(torch, gen, B, S, H, P, N, G, dtype, init: bool,
 def ssd_bwd_compare(torch, label, args, s0, dy, dfin, chunk, key):
     """The kernel (after the forward kernel, whose scratch it reads)
     against the plain backward and the blocked one on one input, each
-    gradient normwise within ``SSD_BWD_TOL[key]``; two calls equal bit for
-    bit.  Returns (the kernel call, max |kernel - plain| over the
-    gradients)."""
+    gradient normwise within ``SSD_BWD_TOL`` of its dtype (``key`` for dx,
+    dB and dC; "f32" for ddt, dA and dinit); two calls equal bit for bit.
+    Returns (the kernel call, max |kernel - plain| over the gradients)."""
     from repro_torch.kernels.ref import ssd_scan_bwd_blocked_ref, \
         ssd_scan_bwd_ref
-    from repro_torch.kernels.ssd_scan import ssd_scan_bwd_cuda, \
-        ssd_scan_cuda
+    from repro_torch.kernels.ssd_scan import head_block, \
+        ssd_scan_bwd_cuda, ssd_scan_cuda
     _, fin, dacs, states = ssd_scan_cuda(*args, chunk=chunk, init_state=s0,
                                          return_scratch=True)
     run = lambda: ssd_scan_bwd_cuda(*args, dacs, states, fin, dy, dfin,
@@ -3056,10 +3094,11 @@ def ssd_bwd_compare(torch, label, args, s0, dy, dfin, chunk, key):
     check(all(torch.equal(a, b) for a, b in zip(got, again)),
           f"ssd_scan_bwd {label}: two calls differ")
     kw = dict(dfinal=dfin, init_state=s0)
+    hblk = head_block(args[0].shape[2] // args[3].shape[2])
     worst, rel = 0.0, {}
     for what, ref in (("plain", ssd_scan_bwd_ref(*args, chunk, dy, **kw)),
-                      ("blocked", ssd_scan_bwd_blocked_ref(*args, chunk, dy,
-                                                           **kw))):
+                      ("blocked", ssd_scan_bwd_blocked_ref(
+                          *args, chunk, dy, **kw, hblk=hblk))):
         for name, a, r in zip(SSD_BWD_NAMES, got, ref):
             if r is None:
                 continue
@@ -3067,19 +3106,70 @@ def ssd_bwd_compare(torch, label, args, s0, dy, dfin, chunk, key):
                   f"ssd_scan_bwd {label} {name}: {a.dtype} vs {r.dtype}")
             err = (a.float() - r.float()).abs().max().item()
             scale = r.float().abs().max().item()
-            check(err <= SSD_BWD_TOL[key] * scale,
+            tol = SSD_BWD_TOL["f32" if a.dtype == torch.float32 else key]
+            check(err <= tol * scale,
                   f"ssd_scan_bwd {label} {name}: max |kernel - {what}| "
-                  f"{err} > {SSD_BWD_TOL[key]} x {scale}")
+                  f"{err} > {tol} x {scale}")
             rel[f"{what} {name}"] = err / max(scale, 1e-30)
             if what == "plain":
                 worst = max(worst, err)
         del ref
     print(f"[ssd-bwd-kernel] ssd_scan_bwd {label}: call == call bit for "
           f"bit; normwise |kernel - plain| / |kernel - blocked| (tol "
-          f"{SSD_BWD_TOL[key]}): " + ", ".join(
+          f"{SSD_BWD_TOL[key]} for dx, dB, dC; {SSD_BWD_TOL['f32']} for "
+          f"ddt, dA, dinit): " + ", ".join(
               f"{n} {rel[f'plain {n}']:.2e}/{rel[f'blocked {n}']:.2e}"
               for n in SSD_BWD_NAMES if f"plain {n}" in rel))
     return run, worst
+
+
+def ssd_bwd_da_against_f64(torch) -> None:
+    """dA at chunk 1024 on ``SSD_BWD_DA_SEEDS``, the kernel's and the
+    plain f32 version's distance from a float64 evaluation of the plain
+    version (normwise, of max|dA|): the kernel within
+    ``SSD_BWD_DA_F64_TOL``, as ``test_torch_cuda.py`` holds it."""
+    import numpy as np
+    from repro_torch.kernels.ref import ssd_scan_bwd_ref
+    from repro_torch.kernels.ssd_scan import ssd_scan_bwd_cuda, \
+        ssd_scan_cuda
+    B, S, H, P, N, Q, G = SSD_BWD_LONG
+    for dtype, key in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        kern, plain = [], []
+        for seed in SSD_BWD_DA_SEEDS:
+            rng = np.random.default_rng(seed)
+            f = lambda *s: torch.from_numpy(
+                rng.standard_normal(s).astype(np.float32))
+            x = f(B, S, H, P).to("cuda", dtype)
+            dt = torch.nn.functional.softplus(f(B, S, H)).cuda()
+            A = -torch.exp(f(H) * 0.5).cuda()
+            Bm = (f(B, S, G, N) * 0.3).to("cuda", dtype)
+            Cm = (f(B, S, G, N) * 0.3).to("cuda", dtype)
+            s0 = (f(B, H, P, N) * 0.1).cuda()
+            g = torch.Generator().manual_seed(seed + 1)
+            dy = torch.randn(B, S, H, P, generator=g).to("cuda", dtype)
+            dfin = torch.randn(B, H, P, N, generator=g).cuda()
+            args = (x, dt, A, Bm, Cm)
+            _, fin, dacs, states = ssd_scan_cuda(
+                *args, chunk=Q, init_state=s0, return_scratch=True)
+            got = ssd_scan_bwd_cuda(*args, dacs, states, fin, dy, dfin,
+                                    chunk=Q)[2]
+            ref = ssd_scan_bwd_ref(*args, Q, dy, dfinal=dfin,
+                                   init_state=s0)[2]
+            d = lambda t: t.double()
+            exact = ssd_scan_bwd_ref(*map(d, args), Q, d(dy),
+                                     dfinal=d(dfin), init_state=d(s0))[2]
+            off = lambda t: float((t.double() - exact).abs().max()
+                                  / exact.abs().max())
+            kern.append(off(got))
+            plain.append(off(ref))
+        print(f"[ssd-bwd-kernel] dA at chunk {Q} {key} (B={B} S={S} H={H} "
+              f"P={P} N={N}), seeds {SSD_BWD_DA_SEEDS.start}-"
+              f"{SSD_BWD_DA_SEEDS.stop - 1}, normwise from float64: kernel "
+              + ", ".join(f"{v:.2e}" for v in kern) + "; plain f32 "
+              + ", ".join(f"{v:.2e}" for v in plain)
+              + f" (limit {SSD_BWD_DA_F64_TOL})")
+        check(max(kern) <= SSD_BWD_DA_F64_TOL,
+              f"ssd_scan_bwd dA at chunk {Q} {key}: {kern} from float64")
 
 
 def ssd_bwd_kernel_phase(torch, smi):
@@ -3088,7 +3178,8 @@ def ssd_bwd_kernel_phase(torch, smi):
     bf16, an initial state, a final-state cotangent) and on mamba2-1.3b's
     training layer (strided bf16, no initial state, as the model calls
     it); there its device time, the plain version's, the passes' and the
-    bound.  Returns (the main shape's max |kernel - plain|, its row)."""
+    bound; dA at chunk 1024 against float64.  Returns (the main shape's
+    max |kernel - plain|, its row)."""
     from repro_torch.kernels.ref import ssd_scan_bwd_ref
     gen = torch.Generator().manual_seed(11)
     # (B, S, H, P, N, chunk, G): tests/test_kernels.py's four, G = 2 and
@@ -3103,6 +3194,7 @@ def ssd_bwd_kernel_phase(torch, smi):
                                               dtype, init=True)
             ssd_bwd_compare(torch, f"B{B}_S{S}_H{H}_P{P}_N{N}_Q{Q}_G{G}_"
                             f"{key}", args, s0, dy, dfin, Q, key)
+    ssd_bwd_da_against_f64(torch)
     B, S, H, P, N, Q, G = SSD_BWD_MAIN
     args, s0, dy, _ = ssd_bwd_case(torch, gen, B, S, H, P, N, G,
                                    torch.bfloat16, init=False, strided=True)
@@ -3111,12 +3203,15 @@ def ssd_bwd_kernel_phase(torch, smi):
                                 "bf16")
     plain = lambda: ssd_scan_bwd_ref(*args, Q, dy)
     # multiply-adds these inputs need: per chunk the lower triangle of
-    # C.B per group; of dy.x, the scores times dy (dx), times C (dB) and
-    # times B (dC) per head; the state's four products per head (the
-    # local sums, dS B, dS^T x, S^T dy)
+    # C.B per group and of dy.x per head, both operands x's type; the
+    # scores (f32) times dy (dx), times C (dB) and times B (dC) per head;
+    # the state's four products per head, an f32 operand against one of
+    # x's type (the local sums, dS B, dS^T x, S^T dy)
     tri = sum(L * (L + 1) // 2 for L in
               (min(Q, S - c0) for c0 in range(0, S, Q)))
-    macs = B * (G * tri * N + H * tri * (2 * P + 2 * N) + 4 * H * S * P * N)
+    same = B * (G * tri * N + H * tri * P)
+    mixed = B * (H * tri * (P + 2 * N) + 4 * H * S * P * N)
+    macs = same + mixed
     elt = args[0].element_size()
     nc = -(-S // Q)
     # read: x, B, C, dy, dt, A and the forward's dacs, states and final
@@ -3124,7 +3219,12 @@ def ssd_bwd_kernel_phase(torch, smi):
     nbytes = (3 * B * S * H * P * elt + 4 * B * S * G * N * elt
               + 2 * B * S * H * 4 + 2 * H * 4 + B * H * nc * Q * 4
               + B * H * nc * P * N * 4 + 2 * B * H * P * N * 4)
-    t_ops = 3 * 2 * macs / TF32_FLOP_PER_S
+    # least time on the tensor cores for the same work to the same
+    # accuracy: a bf16 x bf16 product at the bf16 rate (exact in f32); an
+    # f32 operand against a bf16 one as two TF32 products (its hi and lo
+    # halves; the bf16 side is exact in TF32); the main shape is bf16
+    t_ops = (2 * same / BF16_FLOP_PER_S
+             + 2 * 2 * mixed / TF32_FLOP_PER_S)
     t_cuda_cores = 2 * macs / F32_FLOP_PER_S
     t_bytes = nbytes / HBM_BYTES_PER_S
     row = {"ms": device_ms(torch, kern, 3, 5),
@@ -3137,13 +3237,17 @@ def ssd_bwd_kernel_phase(torch, smi):
           f"N={N} G={G} chunk={Q} bf16 strides x {args[0].stride()}: "
           f"{2 * macs / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB; kernel "
           f"{row['ms']:.4f} ms (graph replay), plain {row['plain_ms']:.4f} "
-          f"ms, bound {row['bound_ms']:.4f} ms (3xTF32 operations at "
+          f"ms, bound {row['bound_ms']:.4f} ms (operations: "
+          f"{2 * same / 1e9:.1f} GFLOP bf16 x bf16 at "
+          f"{BF16_FLOP_PER_S / 1e12:.0f} TFLOP/s, {2 * mixed / 1e9:.1f} "
+          f"GFLOP f32 x bf16 as two TF32 products at "
           f"{TF32_FLOP_PER_S / 1e12:.0f} TFLOP/s; {t_bytes * 1e3:.4f} ms by "
           f"bytes; {t_cuda_cores * 1e3:.4f} ms on the CUDA cores at "
-          f"{F32_FLOP_PER_S / 1e12:.0f} TFLOP/s, where its products run) on "
-          f"{smi}")
+          f"{F32_FLOP_PER_S / 1e12:.0f} TFLOP/s) on {smi}")
     print(f"[ssd-bwd-kernel] ssd_scan_bwd {label} passes, device us per "
-          f"call: {({k: round(v, 1) for k, v in passes.items()} or 'not measured')}")
+          f"call: " + (str({k: round(v, 1) for k, v in passes.items()})
+                       if passes else "not measured (the profile came back "
+                       "empty)"))
     saved = B * H * nc * (Q + P * N) * 4 + B * H * P * N * 4
     print(f"[ssd-bwd-kernel] the forward's saved scratch at this shape: "
           f"dacs, states and the final state, {saved / 1e6:.1f} MB a layer")
@@ -3345,6 +3449,7 @@ def main() -> int:
         print(f"[sass] flash_attention_bwd {name.group(0) if name else entry}"
               f": {regs} registers at launch, spill stores {st} B, spill "
               f"loads {ld} B")
+    ssd_bwd_sass(build)
 
     err = {"hot_gather": kernel_phase(torch, hot_gather_cuda,
                                       hot_gather_ref),

@@ -170,7 +170,9 @@ def ssd_scan_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     negative decays; Bm/Cm: (B, S, G, N), head ``h`` reading group
     ``h // (H // G)``; init_state: (B, H, P, N) or None (the zero state,
     bitwise the same as explicit zeros).  Returns y (B, S, H, P) in
-    ``x.dtype`` and the final state (B, H, P, N) in float32.
+    ``x.dtype`` and the final state (B, H, P, N) in float32.  It computes
+    in float32, or in float64 where x is float64 (an evaluation to hold
+    f32 rounding against).
     """
     Bsz, S, H, P = x.shape
     G, N = Bm.shape[2], Bm.shape[3]
@@ -186,7 +188,7 @@ def ssd_scan_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         Cm = F.pad(Cm, (0, 0, 0, 0, 0, pad))
         S += pad
     rep = H // G
-    f32 = torch.float32
+    f32 = torch.promote_types(x.dtype, torch.float32)
     tri = torch.ones((Q, Q), dtype=torch.bool,
                      device=x.device).tril()[None, :, :, None]
     state = (torch.zeros((Bsz, H, P, N), dtype=f32, device=x.device)
@@ -344,45 +346,60 @@ def ssd_scan_bwd_blocked_ref(x: torch.Tensor, dt: torch.Tensor,
                              A: torch.Tensor, Bm: torch.Tensor,
                              Cm: torch.Tensor, chunk: int, dy: torch.Tensor,
                              dfinal: Optional[torch.Tensor] = None,
-                             init_state: Optional[torch.Tensor] = None):
+                             init_state: Optional[torch.Tensor] = None, *,
+                             hblk: int = 1, tf32_terms: int = 3):
     """What the ``ssd_scan_bwd`` CUDA kernel computes, in plain PyTorch:
     the function of :func:`ssd_scan_bwd_ref` in the kernel's passes and
-    sums, f32 throughout (the kernel's products run on the CUDA cores).
-    Per chunk c with ``cs`` the running sum of ``dt A``, ``tot`` its last
-    value, S_c the state entering the chunk (recomputed here; the kernel
-    reads the forward's) and dS_c its gradient:
+    sums, with its tensor-core arithmetic (:func:`matmul_tf32` for every
+    product: ``tf32_terms=3`` splits each f32 operand into TF32 halves;
+    a bf16 operand is exact in TF32, its low half zero, so its term
+    vanishes; ``tf32_terms=1`` is plain TF32).  Per chunk c with ``cs``
+    the running sum of ``dt A``, ``tot`` its last value, S_c the state
+    entering the chunk (recomputed here as the forward kernel computes
+    it; the kernel reads the forward's) and dS_c its gradient:
 
-    1. ``local_c = sum_i exp(cs_i) dy_i (x) C_i``, per chunk in parallel.
+    1. ``local_c = (exp(cs) dy)^T C``, per chunk in parallel.
     2. The state pass, backwards over chunks from ``dfinal``: chunk c
        takes ``dS_{c+1}`` (the gradient of the state it leaves), then
        ``dS_c = exp(tot_c) dS_{c+1} + local_c``; ``dinit = dS_0``; and
        ``<dS_{c+1}, S_{c+1}>``, the gradient of ``tot_c``.
-    3. Per chunk, with ``L_ij = exp(cs_i - cs_j)`` for j <= i (masked
-       before the exp) and ``w_j = exp(tot - cs_j) dt_j``: by source step
-       j, ``dx_j / dt_j = sum_i C_i.B_j L_ij dy_i + exp(tot - cs_j) dS B_j``
-       and ``dB_j = sum_i (dy_i.x_j) L_ij dt_j C_i + w_j dS^T x_j``; by
-       row i, ``dC_i = sum_j (dy_i.x_j) L_ij dt_j B_j + exp(cs_i) S^T
-       dy_i``; each gives its share of ``d cs``.
+    3. Per chunk, ``C . B^T`` once per group (the kernel forms it once
+       per block of heads that share the group, which gives the same
+       values); per head ``dy . x^T``, and with ``L_ij = exp(cs_i -
+       cs_j)`` for j <= i (masked before the exp) and ``w_j = exp(tot -
+       cs_j) dt_j`` the scores ``t1 = (C . B^T) L`` and ``t2 = (dy . x^T)
+       L dt_j``; ``dx / dt = t1^T dy + exp(tot - cs) B dS^T``, the head's
+       ``dB = w x dS + t2^T C`` and ``dC = exp(cs) dy S + t2 B``; each
+       gives its share of ``d cs``.
     4. ``d da`` is the reverse running sum of ``d cs``; ``ddt = x.dx/dt
-       + A d da``, ``dA = sum d da dt``; dB and dC are summed over the
-       heads of each group in head order.
+       + A d da``, ``dA = sum d da dt``; dB and dC are summed over each
+       block of ``hblk`` heads in head order (as the kernel does in
+       registers), then over the blocks of a group in order.  ``hblk``
+       divides H/G; the kernel's is ``ssd_scan.head_block(H // G)``.
 
     Padded steps of a ragged last chunk read as dt = x = B = C = dy = 0.
     Only the tests use it."""
     Bsz, S, H, P = x.shape
     G, N = Bm.shape[2], Bm.shape[3]
     Q, rep = chunk, H // G
+    if rep % hblk:
+        raise ValueError(f"hblk={hblk} does not divide H/G={rep}")
     f32 = torch.float32
     nc = -(-S // Q)
     pad = nc * Q - S
     grp = torch.arange(H, device=x.device) // rep
+    exact = x.dtype != f32             # bf16 operands: exact in TF32
 
-    def heads(t, width):       # (B, S, ., width) -> (B, nc, ., Q, width)
+    def mm(a, b, both_exact=False):
+        return matmul_tf32(a, b, 1 if both_exact else tf32_terms)
+
+    def rows(t, width):        # (B, S, ., width) -> (B, nc, ., Q, width)
         t = F.pad(t.to(f32), (0, 0, 0, 0, 0, pad))
         return t.reshape(Bsz, nc, Q, t.shape[2], width).permute(0, 1, 3, 2,
                                                                  4)
-    xh, dyh = heads(x, P), heads(dy, P)                      # (B,nc,H,Q,P)
-    Bh, Ch = heads(Bm, N)[:, :, grp], heads(Cm, N)[:, :, grp]
+    xh, dyh = rows(x, P), rows(dy, P)                        # (B,nc,H,Q,P)
+    Bg, Cg = rows(Bm, N), rows(Cm, N)                        # (B,nc,G,Q,N)
+    Bh, Ch = Bg[:, :, grp], Cg[:, :, grp]
     dth = F.pad(dt.to(f32), (0, 0, 0, pad)).reshape(
         Bsz, nc, Q, H).permute(0, 1, 3, 2)                   # (B,nc,H,Q)
     Af = A.to(f32)
@@ -391,7 +408,7 @@ def ssd_scan_bwd_blocked_ref(x: torch.Tensor, dt: torch.Tensor,
     w = torch.exp(tot[..., None] - cs) * dth
 
     # the forward's states: entering each chunk, and the final one
-    inc = (xh * w[..., None]).transpose(-1, -2) @ Bh         # (B,nc,H,P,N)
+    inc = mm((xh * w[..., None]).transpose(-1, -2), Bh)      # (B,nc,H,P,N)
     s = (torch.zeros((Bsz, H, P, N), dtype=f32, device=x.device)
          if init_state is None else init_state.to(f32))
     entering = []
@@ -401,7 +418,7 @@ def ssd_scan_bwd_blocked_ref(x: torch.Tensor, dt: torch.Tensor,
     states, final = torch.stack(entering, dim=1), s
 
     # pass 1
-    local = (dyh * torch.exp(cs)[..., None]).transpose(-1, -2) @ Ch
+    local = mm((dyh * torch.exp(cs)[..., None]).transpose(-1, -2), Ch)
     # pass 2
     d = (torch.zeros_like(final) if dfinal is None else dfinal.to(f32))
     dso, dtot = [None] * nc, [None] * nc
@@ -416,18 +433,18 @@ def ssd_scan_bwd_blocked_ref(x: torch.Tensor, dt: torch.Tensor,
     tri = torch.ones((Q, Q), dtype=torch.bool, device=x.device).tril()
     seg = torch.where(tri, cs[..., :, None] - cs[..., None, :], 0.0)
     L = torch.where(tri, torch.exp(seg), 0.0)                # [.., i, j]
-    cb = Ch @ Bh.transpose(-1, -2)
-    dyx = dyh @ xh.transpose(-1, -2)
+    cb = mm(Cg, Bg.transpose(-1, -2), exact)[:, :, grp]      # once a group
+    dyx = mm(dyh, xh.transpose(-1, -2), exact)
     t1 = cb * L
     t2 = dyx * L * dth[..., None, :]
     e = t2 * cb
-    v = Bh @ dS.transpose(-1, -2)                            # (B,nc,H,Q,P)
-    dxu = t1.transpose(-1, -2) @ dyh + torch.exp(tot[..., None] - cs)[
-        ..., None] * v
-    dB = t2.transpose(-1, -2) @ Ch + w[..., None] * (xh @ dS)
+    v = mm(Bh, dS.transpose(-1, -2))                         # (B,nc,H,Q,P)
+    dxu = (mm(t1.transpose(-1, -2), dyh)
+           + torch.exp(tot[..., None] - cs)[..., None] * v)
+    dB = w[..., None] * mm(xh, dS) + mm(t2.transpose(-1, -2), Ch)
     dcs = -e.sum(dim=-2) - w * (xh * v).sum(dim=-1)
-    dCi = torch.exp(cs)[..., None] * (dyh @ states)
-    dC = t2 @ Bh + dCi
+    dCi = torch.exp(cs)[..., None] * mm(dyh, states)
+    dC = dCi + mm(t2, Bh)
     dcs = dcs + e.sum(dim=-1) + (Ch * dCi).sum(dim=-1)
     # pass 4
     dcs[..., -1] += dtot
@@ -438,10 +455,20 @@ def ssd_scan_bwd_blocked_ref(x: torch.Tensor, dt: torch.Tensor,
     def steps(t):              # (B, nc, ., Q, w) -> (B, S, ., w)
         return t.permute(0, 1, 3, 2, 4).reshape(Bsz, nc * Q, t.shape[2],
                                                 t.shape[4])[:, :S]
+
+    def by_group(t):           # (B, S, H, N): head blocks, then blocks
+        t = t.reshape(Bsz, S, G, rep // hblk, hblk, N)
+        blocks = t[:, :, :, :, 0]
+        for k in range(1, hblk):
+            blocks = blocks + t[:, :, :, :, k]
+        out = blocks[:, :, :, 0]
+        for k in range(1, rep // hblk):
+            out = out + blocks[:, :, :, k]
+        return out
     dx = steps(dth[..., None] * dxu).to(x.dtype)
     ddt = ddt.permute(0, 1, 3, 2).reshape(Bsz, nc * Q, H)[:, :S]
-    dB = steps(dB).reshape(Bsz, S, G, rep, N).sum(dim=3).to(Bm.dtype)
-    dC = steps(dC).reshape(Bsz, S, G, rep, N).sum(dim=3).to(Cm.dtype)
+    dB = by_group(steps(dB)).to(Bm.dtype)
+    dC = by_group(steps(dC)).to(Cm.dtype)
     return dx, ddt, dA, dB, dC, (None if init_state is None else d)
 
 

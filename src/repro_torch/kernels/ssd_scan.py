@@ -167,12 +167,21 @@ def _check(x, dt, A, Bm, Cm, chunk: int) -> None:
         raise ValueError("ssd_scan: A is not contiguous")
 
 
+def head_block(rep: int) -> int:
+    """The heads a block of ``ssd_scan_bwd``'s triangle covers for ``rep``
+    heads a group: the largest divisor of ``rep`` up to 8, the rule by
+    which ``ssd_scan.cu`` blocks the forward's heads.  The wrapper passes
+    it to the kernel and sizes the dB / dC share scratch with it, one
+    share per head block."""
+    return next(k for k in range(8, 0, -1) if rep % k == 0)
+
+
 def _bwd_lib() -> ctypes.CDLL:
     lib = build.load("ssd_scan_bwd")
     fn = lib.ssd_scan_bwd_launch
     if fn.argtypes is None:
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [p] * 21 + [i] * 7 + [ll] * 8 + [i, p]
+        fn.argtypes = [p] * 21 + [i] * 8 + [ll] * 8 + [i, p]
         fn.restype = ctypes.c_int
         lib.ssd_scan_bwd_error_string.argtypes = [ctypes.c_int]
         lib.ssd_scan_bwd_error_string.restype = ctypes.c_char_p
@@ -230,9 +239,12 @@ def ssd_scan_bwd_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
             dinit.copy_(dfinal)
         return dx, ddt, dA, dB, dC, dinit
     nblk = -(-(P * N) // 256)
+    hblk = head_block(H // G)
+    nhb = H // hblk
     e = lambda *shape: torch.empty(shape, dtype=f32, device=dev)
     scratch = (e(Bsz, H, nc, P, N), e(Bsz, H, nblk, nc),
-               e(3, Bsz, H, nc, chunk), e(2, Bsz, S, H, N), e(Bsz, H, nc))
+               e(3, Bsz, H, nc, chunk), e(2, Bsz, S, nhb, N),
+               e(Bsz, H, nc))
     lib = _bwd_lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -244,7 +256,7 @@ def ssd_scan_bwd_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
             dx.data_ptr(), ddt.data_ptr(), dA.data_ptr(), dB.data_ptr(),
             dC.data_ptr(), dinit.data_ptr(),
             *(t.data_ptr() for t in scratch),
-            Bsz, S, H, P, G, N, chunk,
+            Bsz, S, H, P, G, N, chunk, hblk,
             x_sb, x_ss, dt_sb, dt_ss, b_sb, b_ss, c_sb, c_ss,
             0 if x.dtype == torch.float32 else 1, stream)
     if err != 0:

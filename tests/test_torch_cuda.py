@@ -315,15 +315,25 @@ def _ssd_bwd(ssd_mod, args, s0, dy, dfin, chunk):
                                      chunk=chunk)
 
 
-def _assert_ssd_bwd_close(got, ref, dtype, init):
+def _assert_ssd_bwd_close(got, ref, init, skip=()):
+    """Each gradient normwise within SSD_BWD_TOL of its own dtype: dx, dB
+    and dC in x's, ddt, dA and dinit f32 in a bf16 call too."""
     for name, a, r in zip(SSD_BWD_NAMES, got, ref):
-        if name == "dinit" and not init:
+        if (name == "dinit" and not init) or name in skip:
             continue
         assert a.dtype == r.dtype and a.shape == r.shape, name
         assert torch.isfinite(a).all(), name
         err = _normwise(a, r)
-        assert err <= SSD_BWD_TOL[dtype] * float(r.float().abs().max()), \
+        assert err <= SSD_BWD_TOL[a.dtype] * float(r.float().abs().max()), \
             (name, err)
+
+
+def _ssd_bwd_blocked(args, chunk, dy, **kw):
+    """The blocked version, its dB / dC summed by the kernel's head
+    blocks."""
+    from repro_torch.kernels.ssd_scan import head_block
+    hblk = head_block(args[0].shape[2] // args[3].shape[2])
+    return TR.ssd_scan_bwd_blocked_ref(*args, chunk, dy, **kw, hblk=hblk)
 
 
 @pytest.mark.cuda
@@ -342,10 +352,8 @@ def test_ssd_scan_bwd_kernel_equals_plain(cuda, B, S, H, P, N, chunk, G,
     assert ops.launches()["ssd_scan_bwd"] == before + 1
     kw = dict(dfinal=dfin, init_state=s0)
     _assert_ssd_bwd_close(got, TR.ssd_scan_bwd_ref(*args, chunk, dy, **kw),
-                          dtype, True)
-    _assert_ssd_bwd_close(
-        got, TR.ssd_scan_bwd_blocked_ref(*args, chunk, dy, **kw), dtype,
-        True)
+                          True)
+    _assert_ssd_bwd_close(got, _ssd_bwd_blocked(args, chunk, dy, **kw), True)
 
 
 @pytest.mark.cuda
@@ -359,7 +367,70 @@ def test_ssd_scan_bwd_kernel_repeats_its_bits(cuda, dtype):
     b = _ssd_bwd(ssd_mod, args, s0, dy, None, 256)
     assert all(torch.equal(u, v) for u, v in zip(a, b))
     ref = TR.ssd_scan_bwd_ref(*args, 256, dy)
-    _assert_ssd_bwd_close(a, ref, dtype, False)
+    _assert_ssd_bwd_close(a, ref, False)
+
+
+# head blocks (B, S, H, P, N, chunk, G): hblk 1 (one head a group), 2
+# (H 6, G 3), 8 (H 16: two blocks a group) and mamba2's widths (P 64, N
+# 128, chunk 256, 8 heads), then chunks past the 256 steps of C.B^T a
+# strip keeps (formed again per head there); every S ragged
+SSD_BWD_HEAD_BLOCKS = [(2, 200, 4, 32, 64, 64, 4), (1, 150, 6, 16, 32, 64, 3),
+                       (1, 300, 16, 64, 128, 128, 1),
+                       (1, 600, 8, 64, 128, 256, 1)]
+SSD_BWD_LONG_CHUNKS = [(1, 700, 4, 32, 64, 512, 2),
+                       (1, 1100, 2, 16, 32, 1024, 1)]
+# dA at chunk 1024 (f32 in both dtypes), held against a float64
+# evaluation instead, on seeds 9-14: dA sums d da dt over every step, d da
+# a reverse running sum over the chunk of score sums that cancel, so any
+# f32 evaluation's rounding grows with the chunk.  Of max|dA| from
+# float64 there, read on an H100 over both dtypes: the plain f32 version
+# 7.2e-6 to 2.49e-4, the kernel 1.7e-5 to 2.65e-4; at chunk 512 both stay
+# under 6.1e-5 and every gradient is held to SSD_BWD_TOL.
+SSD_BWD_DA_F64_TOL = 3e-4
+SSD_BWD_DA_SEEDS = range(9, 15)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,H,P,N,chunk,G",
+                         SSD_BWD_HEAD_BLOCKS + SSD_BWD_LONG_CHUNKS)
+def test_ssd_scan_bwd_kernel_head_blocks_and_long_chunks(cuda, B, S, H, P,
+                                                         N, chunk, G, dtype):
+    """The twin of the forward's head-block test: every gradient within
+    SSD_BWD_TOL of the plain version and of the blocked one, and two calls
+    equal bit for bit.  At chunk 1024 dA is held against float64 on six
+    seeds, where the plain f32 version's own distance leaves
+    SSD_BWD_TOL."""
+    ssd_mod, args, s0, dy, dfin = _ssd_bwd_case(B, S, H, P, N, G, dtype,
+                                                cuda, seed=9)
+    got = _ssd_bwd(ssd_mod, args, s0, dy, dfin, chunk)
+    again = _ssd_bwd(ssd_mod, args, s0, dy, dfin, chunk)
+    assert all(torch.equal(u, v) for u, v in zip(got, again))
+    kw = dict(dfinal=dfin, init_state=s0)
+    skip = ("dA",) if chunk > 512 else ()
+    _assert_ssd_bwd_close(got, TR.ssd_scan_bwd_ref(*args, chunk, dy, **kw),
+                          True, skip)
+    _assert_ssd_bwd_close(got, _ssd_bwd_blocked(args, chunk, dy, **kw), True,
+                          skip)
+    if not skip:
+        return
+    plain_worst = 0.0
+    for seed in SSD_BWD_DA_SEEDS:
+        ssd_mod, args, s0, dy, dfin = _ssd_bwd_case(B, S, H, P, N, G, dtype,
+                                                    cuda, seed=seed)
+        dA = _ssd_bwd(ssd_mod, args, s0, dy, dfin, chunk)[2]
+        plain = TR.ssd_scan_bwd_ref(*args, chunk, dy, dfinal=dfin,
+                                    init_state=s0)[2]
+        d = lambda t: t.double()
+        exact = TR.ssd_scan_bwd_ref(*map(d, args), chunk, d(dy),
+                                    dfinal=d(dfin), init_state=d(s0))[2]
+        off = lambda t: float((t.double() - exact).abs().max()
+                              / exact.abs().max())
+        assert off(dA) <= SSD_BWD_DA_F64_TOL, (seed, off(dA), off(plain))
+        plain_worst = max(plain_worst, off(plain))
+    # the conditioning: an f32 evaluation of the function itself leaves
+    # SSD_BWD_TOL of float64 here
+    assert plain_worst > SSD_BWD_TOL[torch.float32], plain_worst
 
 
 @pytest.mark.cuda
