@@ -70,6 +70,15 @@
    recovery, every window replayed on the oracle bit for bit.
 3d. ``launch.serve.run_serve`` at the same widths (fuse 4, inflight 2)
    and ``launch.serve.main`` at its default config, on the card.
+3e. Mesh-serve phase (``[mesh-serve]``): the serving plane over the same
+   params on a 4-entry ``("data",)`` mesh of cuda:0 beside a
+   single-device runtime: 12 skewed steps, a recompile; the plan and hot
+   experts must equal the single device's, specialized must equal
+   generic bit for bit on the mesh, the mesh's logits must lie within
+   ``MESH_TOL`` of the single device's (normwise), and ``hot_gather``
+   must launch once per data shard (4x the single device); ms/step of
+   both, then a control update (deopt, every replica refreshed) and a
+   device loss (state handed to one device, recovery).
 4. Arch-zoo phase at the full width of mamba2-1.3b
    (``src/repro/configs/mamba2_1p3b.py``; its plane's one distinct block,
    as the plane compresses depth; seq 1024 = 4 chunks, batch 4): generic
@@ -219,6 +228,17 @@
    its layer 0's own bf16 inputs (H 128 at B 2) against its plain
    version, timed and against its bound.
 
+13b. Mesh-model phase (``[mesh-model]``): ``MESH_MODELS`` on a (data 2,
+   model 2) debug mesh of cuda:0 — phi3.5-MoE at every width, 8 of 32
+   layers, and deepseek-v2's first 2 of 60, bf16, B 2 x 4096 prefill and
+   32 (8) greedy decode steps: experts through ``moe_ffn_sharded``,
+   decode attention through the sequence-parallel branch (GQA: one
+   ``flash_attention`` launch per KV shard with visible slots, with its
+   logsumexp; MLA: plain PyTorch).  The last decode step's KV-shard
+   calls are held to ``flash_attention_ref`` on the same tensors, the
+   output within ``FA_TOL["path_normwise"]`` and the logsumexp within
+   ``FA_LSE_TOL`` + ``FA_LSE_REL`` |lse|.  Each layer is then held to the same layer on one
+   device, teacher-forced, within ``MESH_LAYER_TOL``.
 14. Train-kernel phase (``[train-kernel]``): ``flash_attention_bwd``
    (``csrc/flash_attention_bwd.cu``) against the plain backward
    (autograd through ``flash_attention_ref``) on ``BWD_SHAPES``: the
@@ -1767,17 +1787,33 @@ def time_ssd_scan(torch, ssd_scan_cuda, ssd_scan_ref, args, kw,
                          chunk, init, SSD_TOL[tol],
                          normwise=tol == "f32_normwise")
     # multiply-adds these inputs need: the lower triangle of C.B per
-    # group, of the scores times x per head, C.state and the state update
+    # group (both operands x's type), of the scores (f32) times x per
+    # head, C.state and the state update (an f32 operand against one of
+    # x's type)
     tri = sum(L * (L + 1) // 2 for L in
               (min(chunk, S - c0) for c0 in range(0, S, chunk)))
-    macs = B * (G * tri * N + H * tri * P + 2 * H * S * P * N)
+    same = B * G * tri * N
+    mixed = B * (H * tri * P + 2 * H * S * P * N)
+    macs = same + mixed
     elt = x.element_size()
     nbytes = (2 * x.numel() * elt + dt.numel() * 4 + A.numel() * 4
               + (Bm.numel() + Cm.numel()) * elt
               + (2 if init is not None else 1) * B * H * P * N * 4)
-    # the same work to the same tolerance on the tensor cores: three TF32
-    # products (3xTF32) for each f32 one; on the CUDA cores beside it
-    t_ops = 3 * 2 * macs / TF32_FLOP_PER_S
+    # the least time on the tensor cores for the same work to the same
+    # accuracy, each product by its operands' types: bf16 x bf16 at the
+    # bf16 rate (exact in f32), f32 x bf16 as two TF32 products (the f32
+    # side's hi and lo halves), f32 x f32 as three (3xTF32); on the CUDA
+    # cores beside it
+    if x.dtype == torch.bfloat16:
+        t_ops = (2 * same / BF16_FLOP_PER_S
+                 + 2 * 2 * mixed / TF32_FLOP_PER_S)
+        ops_by = (f"{2 * same / 1e9:.2f} GFLOP bf16 x bf16 at "
+                  f"{BF16_FLOP_PER_S / 1e12:.0f} TFLOP/s, "
+                  f"{2 * mixed / 1e9:.2f} GFLOP f32 x bf16 as two TF32 "
+                  f"products")
+    else:
+        t_ops = 3 * 2 * macs / TF32_FLOP_PER_S
+        ops_by = "3xTF32 operations"
     t_cuda_cores = 2 * macs / F32_FLOP_PER_S
     t_bytes = nbytes / HBM_BYTES_PER_S
     from repro_torch.kernels import ops
@@ -1798,9 +1834,9 @@ def time_ssd_scan(torch, ssd_scan_cuda, ssd_scan_ref, args, kw,
     passes = kernel_times(torch, kern, calls)
     print(f"[time] ssd_scan {label} passes, device us per call: "
           f"{ {k: round(v, 1) for k, v in passes.items()} or 'not measured'}")
-    print(f"[time] ssd_scan {label} bound: {t_ops * 1e3:.4f} ms by 3xTF32 "
-          f"operations "
-          f"at {TF32_FLOP_PER_S / 1e12:.0f} TFLOP/s, {t_bytes * 1e3:.4f} ms "
+    print(f"[time] ssd_scan {label} bound: {t_ops * 1e3:.4f} ms by {ops_by} "
+          f"at {TF32_FLOP_PER_S / 1e12:.0f} TFLOP/s TF32, "
+          f"{t_bytes * 1e3:.4f} ms "
           f"by bytes; {t_cuda_cores * 1e3:.4f} ms on the CUDA cores at "
           f"{F32_FLOP_PER_S / 1e12:.0f} TFLOP/s")
     print(f"[time] ssd_scan {label} B={B} S={S} H={H} P={P} N={N} G={G} "
@@ -1818,6 +1854,13 @@ def time_ssd_scan(torch, ssd_scan_cuda, ssd_scan_ref, args, kw,
 # 2e-2 * max|plain|: both round p to bf16 before p . v, but against
 # running maxima taken over other key blocks (64 against 512).
 FA_TOL = {"f32": 2e-5, "bf16": 2e-2, "path_normwise": 2e-2}
+# its logsumexp (``return_lse=True``, log2 units) against the plain one:
+# the card tests' LSE_TOL absolute (the sums run in another order, and
+# ex2.approx errs by ~2^-22 relative), plus FA_LSE_REL of |lse|, 4 to 8
+# f32 units in the last place: random weights give logits of ~1,100 nats
+# (|lse| ~1,600, where f32's spacing is 1.2e-4), and there two f32
+# evaluations land units apart
+FA_LSE_TOL, FA_LSE_REL = 1e-4, 2.0 ** -21
 BF16_FLOP_PER_S = 989e12        # H100 SXM, dense bf16 tensor cores
 # gemma2-9b decode logits at position p against row p of a prefill of the
 # same tokens, normwise (max|decode - prefill| <= tol * max|prefill|).
@@ -3397,6 +3440,363 @@ def train_hybrid_phase(torch, ops, smi) -> None:
           f"launches a step {per[-1]}; peak {gib(peak)} allocated on {smi}")
 
 
+# ---------------------------------------------------------------------------
+# the mesh on one card: a 4-entry ("data",) serving mesh over cuda:0, and
+# the expert-parallel MoE and sequence-parallel decode on a (2, 2) one
+# ---------------------------------------------------------------------------
+
+MESH_TOL = 1e-4            # mesh vs single-device serving logits, normwise
+MESH_LAYER_TOL = 0.02      # mesh vs single-device model layer, normwise
+# phi3.5-MoE at every published width cut to 8 of 32 layers, and
+# deepseek-v2 cut to its first 2 of 60 (the dense prefix layer and one
+# MoE layer of 160 experts), for time: depth is what the (2, 2) mesh's
+# branches do not depend on.  The expert-parallel MoE drops what a
+# shard's capacity cannot hold (GShard), where one device is dropless:
+# at capacity factor 2 (the configs' 1.25 otherwise) the phase must
+# drop nothing, so that both compute the same function
+MESH_MODELS = (dict(arch="phi3.5-moe-42b-a6.6b", layers=8, batch=2,
+                    prompt=4096, decode=32, seed=0, capacity=2.0),
+               dict(arch="deepseek-v2-236b", layers=2, batch=2,
+                    prompt=4096, decode=8, seed=0, capacity=2.0))
+
+
+def mesh_serve_phase(torch, ops, cfg, params, smi) -> int:
+    """The serving plane at the ``[serve]`` phase's widths (its params)
+    on a 4-entry ``("data",)`` mesh over cuda:0, beside a single-device
+    runtime on the same params and batches: 12 skewed steps, a
+    recompile, the plan and hot experts equal, specialized == generic
+    bit for bit on the mesh, the mesh's output against the single
+    device's, ms/step of each, then the control-update and device-loss
+    arcs.  Returns the mesh runtime's serving ``hot_gather`` launches
+    (the main path: its steps alone)."""
+    from repro_torch.core import EngineConfig, MorpheusRuntime, SketchConfig
+    from repro_torch.distributed.compat import Replicated
+    from repro_torch.distributed.meshctx import Mesh
+    from repro_torch.serving import build_tables, make_serve_step, \
+        make_synthetic_batch
+    from repro_torch.testing.fingerprint import plan_fingerprint
+    import numpy as np
+
+    def batch(seed, **kw):
+        return make_synthetic_batch(cfg, seed=seed, device="cuda", **kw)
+
+    # rings that keep every key of a few steps: four shards' rings
+    # together retain more keys than one ring of the same size, so with
+    # the [serve] phase's 128 the two planes could read other candidate
+    # sets (instrument.merge_shards); the counts are equal either way
+    def make(mesh):
+        return MorpheusRuntime(
+            make_serve_step(cfg), build_tables(cfg), params, batch(0),
+            cfg=EngineConfig(
+                sketch=SketchConfig(sample_every=4, max_hot=32,
+                                    hot_coverage=0.8, candidates=2048),
+                features={"vision_enabled": False, "track_sessions": True},
+                moe_router_table="router", mesh=mesh, device="cuda"))
+
+    mesh = Mesh(["cuda:0"] * 4, ("data",))
+    rt, one = make(mesh), make(None)
+    served = 0
+
+    def served_step(b):
+        nonlocal served
+        n0 = ops.launches().get("hot_gather", 0)
+        out = rt.step(b)
+        served += ops.launches().get("hot_gather", 0) - n0
+        return out
+
+    def dist(a, b):
+        return ((a - b).abs().max() / b.abs().max()).item()
+
+    try:
+        worst = 0.0
+        for i in range(12):
+            b = batch(3000 + i, locality="high")
+            worst = max(worst, dist(served_step(b), one.step(b)))
+        rt.recompile(block=True)
+        one.recompile(block=True)
+        sites = {sid: sp.impl for sid, sp in rt.plan.sites}
+        print(f"[mesh-serve] {mesh}: plan {sites} hot_experts="
+              f"{rt.hot_experts()}; single device: hot_experts="
+              f"{one.hot_experts()}")
+        check(plan_fingerprint(rt.plan) == plan_fingerprint(one.plan)
+              and rt.plan.version == one.plan.version,
+              "the mesh planned another signature than one device")
+        check(rt.hot_experts() == one.hot_experts() is not None,
+              "the mesh's hot experts differ from one device's")
+        check(sites.get("vocab_embed#0") == "hot_cache",
+              f"the mesh plan has no hot_cache: {sites}")
+        b = batch(4242, locality="high")
+        out_g = rt.run_generic(b)
+        n0 = ops.launches().get("hot_gather", 0)
+        out_s = served_step(b)
+        per_step = ops.launches().get("hot_gather", 0) - n0
+        n0 = ops.launches().get("hot_gather", 0)
+        out_1 = one.step(b)
+        per_step_1 = ops.launches().get("hot_gather", 0) - n0
+        check(torch.equal(out_s, out_g),
+              "mesh specialized output != mesh generic output")
+        worst = max(worst, dist(out_s, out_1))
+        print(f"[mesh-serve] specialized == generic bit for bit on the "
+              f"mesh; mesh vs single device, normwise, max over 13 steps "
+              f"{worst:.3e} (tol {MESH_TOL}); hot_gather launches a step: "
+              f"mesh {per_step}, single device {per_step_1}")
+        check(worst <= MESH_TOL, f"mesh output {worst} from one device's")
+        check(per_step == 4 * per_step_1 > 0,
+              f"hot_gather launches a step: mesh {per_step}, one device "
+              f"{per_step_1}")
+
+        def ms(step, seed0):
+            ts = []
+            for i in range(8):
+                bb = batch(seed0 + i)
+                t = time.perf_counter()
+                step(bb)
+                torch.cuda.synchronize()
+                ts.append(time.perf_counter() - t)
+            return statistics.median(ts) * 1e3
+        print(f"[mesh-serve] specialized ms/step (batch 8 x seq {cfg.seq}, "
+              f"median of 8): mesh of 4 {ms(served_step, 5000):.3f}, "
+              f"single device {ms(one.step, 5000):.3f} on {smi}")
+
+        # control update: deopt, then every replica refreshed
+        temps = torch.linspace(0.5, 1.5, cfg.n_classes).numpy()
+        for r in (rt, one):
+            r.control_update("req_class", {"temperature": temps})
+        d0 = rt.stats.deopt_steps
+        out_d = served_step(b)
+        one.step(b)
+        check(rt.stats.deopt_steps == d0 + 1 and torch.equal(
+            out_d, rt.run_generic(b)), "mesh control update did not deopt")
+        rt.recompile(block=True)
+        one.recompile(block=True)
+        t = rt.state.tables["req_class"]["temperature"]
+        check(isinstance(t, Replicated) and all(
+            torch.equal(c.cpu(), torch.from_numpy(temps))
+            for c in t.copies.values()), "a replica missed the update")
+        check(torch.equal(served_step(b), rt.run_generic(b)),
+              "re-specialized mesh output != generic")
+        one.step(b)
+        print(f"[mesh-serve] control update: deopt, then "
+              f"{len(t.copies)} replica(s) refreshed and re-specialized")
+
+        # device loss: the live state handed to one device byte for byte
+        same = all(torch.equal(torch.as_tensor(np.asarray(v)).cuda(),
+                               one.state.tables["sessions"][f])
+                   for f, v in rt.state.tables["sessions"].items())
+        rt.simulate_device_loss("lost a shard")
+        check(rt.mesh is None and rt.degraded, "device loss kept the mesh")
+        out_l = rt.step(b)
+        if same:
+            check(torch.equal(out_l, one.run_generic(b)),
+                  "after the device loss the plane serves other bits than "
+                  "a single-device plane on the same state")
+        info = rt.recompile(block=True)
+        check(info.get("recovered") is True and not rt.degraded,
+              f"no recovery after the device loss: {info}")
+        print(f"[mesh-serve] device loss: mesh dropped, sessions table "
+              f"{'equal to' if same else 'NOT byte-equal to'} the single "
+              f"device's, degraded output == one device's generic, "
+              f"recovered by the next recompile")
+        return served
+    finally:
+        rt.close()
+        one.close()
+
+
+def seq_parallel_decode_check(torch, tag, flash_attention, calls) -> None:
+    """Each kept KV-shard call of the sequence-parallel decode, again
+    through the kernel (not counted with the main path's launches) and
+    through ``flash_attention_ref``: the output within
+    ``FA_TOL["path_normwise"]`` of max |plain|, and the logsumexp, whose
+    ``exp2(lse - max)`` weights the shards, within ``FA_LSE_TOL`` +
+    ``FA_LSE_REL`` |plain|.  Both logsumexps' distances from a float64
+    one are printed beside it."""
+    from repro_torch.kernels.ref import LOG2E, NEG_INF, flash_attention_ref
+    e_out = e_lse = lse_max = d64 = p64 = 0.0
+    shapes = set()
+    for q, k, v, kw in calls:
+        check(not kw["causal"] and kw["window"] is None,
+              f"{tag}: a KV-shard call masks its keys ({kw})")
+        out, lse = flash_attention(q, k, v, **kw)
+        ro, rl = flash_attention_ref(q, k, v, **kw)
+        e = ((out.float() - ro.float()).abs().max()
+             / ro.float().abs().max()).item()
+        check(e <= FA_TOL["path_normwise"],
+              f"{tag}: a KV shard's flash_attention output is {e:.3e} of "
+              f"max|plain| from plain (tol {FA_TOL['path_normwise']})")
+        check(torch.equal(lse == NEG_INF, rl == NEG_INF),
+              f"{tag}: a KV shard's logsumexp masks other rows than plain")
+        d = (lse - rl).abs()
+        check(bool((d <= FA_LSE_TOL + FA_LSE_REL * rl.abs()).all()),
+              f"{tag}: a KV shard's logsumexp is {d.max().item():.3e} from "
+              f"plain (tol {FA_LSE_TOL} + {FA_LSE_REL:.3g} |lse|, log2 "
+              f"units; max |lse| {rl.abs().max().item():.2f})")
+        H, Hkv = q.shape[2], k.shape[2]
+        s64 = torch.einsum("bqhd,bkhd->bhqk", q.double(), k.double(
+        ).repeat_interleave(H // Hkv, dim=2)) / math.sqrt(q.shape[3])
+        if kw["logit_softcap"]:
+            c = kw["logit_softcap"]
+            s64 = c * torch.tanh(s64 / c)
+        l64 = torch.logsumexp(s64, -1) * LOG2E
+        e_out, e_lse = max(e_out, e), max(e_lse, d.max().item())
+        d64 = max(d64, (lse.double() - l64).abs().max().item())
+        p64 = max(p64, (rl.double() - l64).abs().max().item())
+        lse_max = max(lse_max, rl.abs().max().item())
+        shapes.add((tuple(q.shape), tuple(k.shape)))
+    print(f"{tag}: the last decode step's {len(calls)} KV-shard "
+          f"flash_attention calls (q, k shapes {sorted(shapes)}) against "
+          f"plain: output {e_out:.3e} of max|plain| (tol "
+          f"{FA_TOL['path_normwise']}), logsumexp {e_lse:.3e} (tol "
+          f"{FA_LSE_TOL} + {FA_LSE_REL:.3g} |lse|; max |lse| "
+          f"{lse_max:.2f}, log2 units); from a float64 logsumexp: kernel "
+          f"{d64:.3e}, plain {p64:.3e}")
+
+
+def mesh_model_phase(torch, ops, spec, smi) -> int:
+    """One model at full width, depth cut, bf16, on a (data 2, model 2)
+    debug mesh over cuda:0: a prefill of B x S and greedy decode steps
+    (the main path: experts through ``moe_ffn_sharded``, decode attention
+    through the sequence-parallel branch, so a GQA model launches
+    ``flash_attention`` per KV shard), then each layer held to the same
+    layer on one device, teacher-forced: fed the single device's input,
+    over clones of one cache, at the prefill and at every decode step,
+    within ``MESH_LAYER_TOL`` normwise over the tokens both route alike
+    (at most ``FLIP_MAX`` may not).  Returns the main path's
+    ``flash_attention`` launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.meshctx import MeshPolicy, use_policy
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models.config import LayerSpec
+    from repro_torch.models.layers import embed
+    from repro_torch.models.model import Model
+    from repro_torch.models.params import index_tree
+    from repro_torch.models.transformer import init_layer_cache, \
+        layer_forward
+
+    import dataclasses
+    whole = get_config(spec["arch"])
+    cfg = whole.replace(n_layers=spec["layers"], moe=dataclasses.replace(
+        whole.moe, capacity_factor=spec["capacity"]))
+    B, S, N = spec["batch"], spec["prompt"], spec["decode"]
+    tag = f"[mesh-model] {spec['arch']}"
+    pol = MeshPolicy(mesh=make_debug_mesh(2, 2, device="cuda"))
+    model = Model(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    params = model.init(spec["seed"], device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(spec["seed"])
+    tokens = torch.randint(0, cfg.vocab, (B, S + N), generator=gen,
+                           device="cuda", dtype=torch.int32)
+    cap = S + N
+    print(f"{tag}: {cfg.n_layers} of {whole.n_layers} layers (depth cut "
+          f"for time, every width as published), bf16, B {B} x {S} "
+          f"prefill + {N} greedy decode steps on {pol.mesh}, MoE "
+          f"capacity factor {spec['capacity']}")
+
+    # the main path: prefill and greedy decode on the mesh.  The last
+    # decode step's per-KV-shard flash_attention calls (their q and cache
+    # slices) are kept, to hold the kernel to its plain version below
+    real_fa, shard_calls = ops.flash_attention, []
+
+    def keep_shard_call(q, k, v, **kw):
+        if kw.get("return_lse"):
+            shard_calls.append((q.clone(), k.clone(), v.clone(), kw))
+        return real_fa(q, k, v, **kw)
+
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        with use_policy(pol):
+            cache = model.init_cache(B, cap, device="cuda")
+            logits, cache = model.prefill(params, cache,
+                                          {"tokens": tokens[:, :S]})
+            tok = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
+            for j in range(N):
+                if j == N - 1:
+                    ops.flash_attention = keep_shard_call
+                logits, cache = model.decode_step(params, cache, tok, S + j)
+                tok = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
+    finally:
+        ops.flash_attention = real_fa
+    torch.cuda.synchronize()
+    served = ops.launches().get("flash_attention", 0)
+    check(bool(torch.isfinite(logits.float()).all()),
+          f"{tag}: non-finite logits on the mesh")
+    check(served > 0 or cfg.mla is not None,
+          f"{tag}: flash_attention never launched on the mesh")
+    print(f"{tag}: main path {time.perf_counter() - t0:.1f} s, "
+          f"flash_attention launches {served}, peak "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB on {smi}")
+    del cache, logits
+    check(bool(shard_calls) or cfg.mla is not None,
+          f"{tag}: the sequence-parallel decode made no return_lse call")
+    if shard_calls:
+        seq_parallel_decode_check(torch, tag, real_fa, shard_calls)
+    del shard_calls
+
+    # teacher-forced, layer by layer: the mesh layer against the single
+    # device's on the single device's input, over clones of one cache.
+    # A token whose top-k experts differ between the two (a near tie of
+    # router logits computed over other row counts) is left out of the
+    # distance and counted; at most FLIP_MAX of them may
+    dense = LayerSpec(kind="attn", ffn="dense")
+    walk = [(params[f"prefix{i}"], dense) for i in range(cfg.first_k_dense)]
+    walk += [(index_tree(params["blocks"][f"pos{pos}"], i), sp)
+             for i in range(cfg.n_periods)
+             for pos, sp in enumerate(cfg.pattern)]
+    stats = {"dropped": 0.0, "flips": 0, "routed": 0}
+
+    def pair(lp, sp, xin, start, c1, cm):
+        r1, rm = [], []
+        with route_tap(r1):
+            y1, _, _ = layer_forward(lp, cfg, sp, xin, start, c1,
+                                     aux_loss=False)
+        with route_tap(rm):
+            ym, _, m = layer_forward(lp, cfg, sp, xin, start, cm,
+                                     aux_loss=False, policy=pol)
+        stats["dropped"] += float(m["dropped"])
+        rows = (ym - y1).abs().amax(-1).reshape(-1).float()
+        if r1:
+            T = rows.numel()
+            ids = (torch.cat(rm) if sum(t.shape[0] for t in rm) == T
+                   else rm[0])
+            flip = (r1[0].sort(-1).values != ids.sort(-1).values).any(-1)
+            rows = rows.masked_fill(flip, 0.0)
+            stats["flips"] += int(flip.sum())
+            stats["routed"] += T
+        return y1, (rows.max() / y1.abs().max()).item()
+
+    errs = []
+    with torch.no_grad():
+        x = embed(params["embed"], tokens)
+        for lp, sp in walk:
+            c1 = init_layer_cache(cfg, sp, B, cap, "cuda")
+            cm = init_layer_cache(cfg, sp, B, cap, "cuda")
+            y1, e = pair(lp, sp, x[:, :S], 0, c1, cm)
+            row, outs = [e], [y1]
+            for j in range(N):
+                d1, e = pair(lp, sp, x[:, S + j:S + j + 1], S + j, c1, cm)
+                row.append(e)
+                outs.append(d1)
+            errs.append(row)
+            x = torch.cat(outs, dim=1)
+            del c1, cm
+    prefill = [round(r[0], 5) for r in errs]
+    decode = [round(max(r[1:]), 5) for r in errs]
+    dropped, flips, routed = (stats["dropped"], stats["flips"],
+                              stats["routed"])
+    print(f"{tag}: teacher-forced mesh vs single device, normwise, by "
+          f"layer: prefill {prefill}, decode (max over {N} steps) {decode}"
+          f" (tol {MESH_LAYER_TOL}); tokens routed otherwise {flips} of "
+          f"{routed} (tol {FLIP_MAX:.0%}); capacity drops {dropped:.0f}")
+    check(dropped == 0, f"{tag}: the mesh dropped {dropped:.0f} entries")
+    check(flips <= FLIP_MAX * max(routed, 1),
+          f"{tag}: {flips} of {routed} tokens routed otherwise")
+    check(max(max(r) for r in errs) <= MESH_LAYER_TOL,
+          f"{tag}: a mesh layer is {max(max(r) for r in errs)} from one "
+          f"device's (tol {MESH_LAYER_TOL})")
+    return served
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3485,6 +3885,14 @@ def main() -> int:
               lambda: chaos_frontend_arc(torch, serve_cfg, serve_params,
                                          capacity), ("hot_gather",))
     serve_cli_phase(torch, ops, serve_cfg)
+    # the mesh's serving main path: its hot_gather launches alone
+    ops.reset_launches()
+    t = time.perf_counter()
+    n = mesh_serve_phase(torch, ops, serve_cfg, serve_params, smi)
+    print(f"[mesh-serve] phase {time.perf_counter() - t:.1f} s, "
+          f"hot_gather launches on the mesh's serving steps {n}")
+    check(n > 0, "hot_gather never launched in the mesh-serve phase")
+    launches["hot_gather"] += n
     del serve_params
     gc.collect()
     torch.cuda.empty_cache()
@@ -3622,7 +4030,15 @@ def main() -> int:
     del captured, args, kw
     gc.collect()
     torch.cuda.empty_cache()
-    # training, after jamba's params are gone
+    # the model-level mesh branches, after jamba's params are gone
+    t = time.perf_counter()
+    for spec in MESH_MODELS:
+        launches["flash_attention"] += mesh_model_phase(torch, ops, spec,
+                                                        smi)
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(f"[mesh-model] phase {time.perf_counter() - t:.1f} s")
+    # training, after the mesh models' params are gone
     err["flash_attention_bwd"], timing["flash_attention_bwd"] = \
         train_kernel_phase(torch, smi)
     main_path("train-dense", lambda: train_dense_phase(torch, ops, smi),

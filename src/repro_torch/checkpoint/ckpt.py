@@ -30,7 +30,7 @@ tensors in place** (cast to each leaf's dtype, on its device) and
 returns that tree: the reference builds new arrays, but the trainer's
 state is most of a card, and a second copy of it would not fit.
 Restoring onto a resized mesh (the reference's ``shardings``) waits for
-ROADMAP Queue 1 item 12.
+ROADMAP Queue 1 item 12b.
 """
 from __future__ import annotations
 

@@ -2,9 +2,8 @@
 
 The ten config modules are data copied from ``repro.configs``.  The
 reference's ``configs/shapes.py`` (the dry-run and training shape
-specs) is not ported yet: it serves the dry-run path and the sharded
-training shapes, which wait for the mesh slice (ROADMAP Queue 1 item
-12).
+specs) is not ported yet: it serves the dry-run half of the mesh
+(ROADMAP Queue 1 item 12c).
 """
 from __future__ import annotations
 

@@ -15,12 +15,21 @@ the plan and fold instrumentation in when the plan is the instrumented
 variant.  Flags are keyed by flag *name*, so the same feature consulted
 at two call sites is one control-plane fact.
 
-Single device only: the reference's sharded recording waits for the
-mesh slice of the port.
+On a device mesh (``EngineConfig.mesh``) the engine runs the step once
+per data shard, each with a ctx over the shard's slice of the batch, its
+own sketch and its device's copy of the tables: recording is then the
+plain :func:`~repro_torch.core.instrument.record` into the shard's own
+sketch, with no cross-device traffic.  Such a ctx is given a ``writes``
+log: its data-plane writes apply to its own copy *and* are logged, so
+the engine can apply every shard's writes, in shard order, to every
+replica of the table after the step.  A ctx over a batch that does not
+split evenly runs once over the whole batch with ``mesh`` set, and
+records through :func:`~repro_torch.core.instrument.record_sharded`,
+which cuts the keys into the shards' slices, as the reference's does.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -49,17 +58,37 @@ class DataPlaneCtx:
     :class:`PlaneState`; ``lookup``/``update`` replace entries of its
     dicts (never the input tensors), and :meth:`outputs` returns the
     step's new state.  ``consts`` are the executable's device
-    constants (``specialize.plan_constants``)."""
+    constants (``specialize.plan_constants``).  ``mesh`` /
+    ``instr_axes`` select the sharded recording for sharded sketches;
+    ``writes`` (a list) logs every :meth:`update` as ``(table, idx,
+    values)``."""
 
     def __init__(self, plan, state: PlaneState,
                  sketch_cfg: instrument.SketchConfig,
-                 consts: Optional[Dict] = None):
+                 consts: Optional[Dict] = None, mesh=None,
+                 instr_axes: Tuple[str, ...] = ("data",),
+                 writes: Optional[List] = None):
         self.plan = plan
         self.tables = dict(state.tables)
         self.instr = dict(state.instr)
         self.guards = dict(state.guards)
         self.sketch_cfg = sketch_cfg
         self.consts = consts
+        self.mesh = mesh
+        self.instr_axes = instr_axes
+        self.writes = writes
+
+    # ---- instrumentation ----------------------------------------------------
+    def _record(self, site_id: str, idx: torch.Tensor) -> None:
+        """Fold this lookup's keys into the site's sketch — per shard
+        when the sketch is sharded, else the one sketch."""
+        st = self.instr[site_id]
+        if self.mesh is not None and instrument.n_shards(st) is not None:
+            self.instr[site_id] = instrument.record_sharded(
+                st, idx, self.sketch_cfg, self.mesh, self.instr_axes)
+        else:
+            self.instr[site_id] = instrument.record(st, idx,
+                                                    self.sketch_cfg)
 
     # ---- data-plane API ---------------------------------------------------
     def lookup(self, name: str, idx: torch.Tensor,
@@ -72,8 +101,7 @@ class DataPlaneCtx:
         site_id = T._register(name, "lookup", fields or ())
         if (self.plan is not None and self.plan.instrumented
                 and site_id in self.instr):
-            self.instr[site_id] = instrument.record(
-                self.instr[site_id], idx, self.sketch_cfg)
+            self._record(site_id, idx)
         return dispatch_lookup(self.plan, site_id, name, self.tables,
                                idx, fields, self.guards, self.consts)
 
@@ -89,8 +117,7 @@ class DataPlaneCtx:
             return None
         if (self.plan is not None and self.plan.instrumented
                 and site_id in self.instr):
-            self.instr[site_id] = instrument.record(
-                self.instr[site_id], idx, self.sketch_cfg)
+            self._record(site_id, idx)
         return dispatch_lookup(self.plan, site_id, name, self.tables,
                                idx, fields, self.guards, self.consts)
 
@@ -104,9 +131,12 @@ class DataPlaneCtx:
         the old contents."""
         T._register(name, "update")
         state = dict(self.tables[name])
+        values = {k: v.to(state[k].dtype) for k, v in values.items()}
+        if self.writes is not None:
+            self.writes.append((name, idx, values))
         for k, v in values.items():
             t = state[k]
-            v = last_write_values(idx, v.to(t.dtype), t.shape[0])
+            v = last_write_values(idx, v, t.shape[0])
             state[k] = t.index_put((idx.long(),), v)
         self.tables[name] = state
         if name in self.guards:

@@ -51,8 +51,19 @@ the degrade at the next revalidation or swap.  A chaos hook
 the step's try block before the executable, and armed compile faults
 fail recompile cycles right after planning.
 
-Not ported yet (see ROADMAP.md): mesh placement, and with it the mesh
-branch of :meth:`MorpheusRuntime.simulate_device_loss` (Queue 1 item 12).
+Sharded serving (``EngineConfig(mesh=)``): the same runtime spans a
+:class:`~repro_torch.distributed.meshctx.Mesh` driven by this one
+process, so its threads, seqlock and controller stay one object, as in
+the reference.  Params, tables and guards are replicated (one copy per
+distinct device), each data shard keeps its own sketch, and a placed
+batch is split on its leading dim over the shards (a fused window on its
+per-step dim), or kept whole on the home device when it does not divide.
+The engine's executable runs the step per shard (``core/engine.py``).
+At plan time the shards' sketches are merged on the device
+(:func:`~repro_torch.core.instrument.merge_on_device`), so the pass
+registry sees one global traffic snapshot, the plan one device would
+build.  :meth:`MorpheusRuntime.simulate_device_loss` on a mesh hands the
+live state over to one device byte for byte and drops the mesh.
 """
 from __future__ import annotations
 
@@ -70,6 +81,9 @@ import numpy as np
 import torch
 
 from . import instrument
+from ..distributed import compat
+from ..distributed.compat import Sharded
+from ..distributed.sharding import plane_batch_shardings
 from ..distributed.fault import SimulatedCompileFailure, SimulatedDeviceLoss
 from .controller import ControllerConfig, MorpheusController
 from .engine import EngineConfig, MorpheusEngine
@@ -82,18 +96,26 @@ from .state import PlaneState
 from .tables import TableSet
 
 
-def _device_put(batch: Dict[str, Any], device: torch.device
+def _device_put(batch: Dict[str, Any], device: torch.device,
+                split: Optional[Dict[str, Tuple[int, Sequence]]] = None
                 ) -> Dict[str, torch.Tensor]:
     """Move every leaf of one batch to ``device`` (numpy leaves are
-    copied into tensors).  Every batch placement the runtime performs
-    goes through this one function, so tests can count them.  A pageable
-    host tensor is staged by the copy itself, so the caller may drop it
-    as soon as this returns."""
+    copied into tensors); a leaf named in ``split`` (field -> (dim,
+    devices)) is cut into blocks along ``dim`` instead, block i on the
+    i-th device.  Every batch placement the runtime performs goes through
+    this one function, so tests can count them.  A pageable host tensor
+    is staged by the copy itself, so the caller may drop it as soon as
+    this returns."""
     out = {}
     for k, v in batch.items():
-        t = v if isinstance(v, torch.Tensor) else torch.from_numpy(
-            np.array(v))
-        out[k] = t.to(device, non_blocking=True)
+        t = (compat.to_home(v, device) if isinstance(v, Sharded)
+             else v if isinstance(v, torch.Tensor)
+             else torch.from_numpy(np.array(v)))
+        if split and k in split:
+            dim, devices = split[k]
+            out[k] = compat.split(t, devices, dim)
+        else:
+            out[k] = t.to(device, non_blocking=True)
     return out
 
 
@@ -302,6 +324,8 @@ class MorpheusRuntime:
                  plane_id: Optional[str] = None):
         self.engine = MorpheusEngine(user_step, tables, cfg)
         self.device = self.engine.device
+        self.mesh = self.engine.mesh
+        self._batch_sh_cache: Dict[Any, Dict] = {}
         self.tables = tables
         self.enable = enable
         self.stats = RuntimeStats()
@@ -322,7 +346,7 @@ class MorpheusRuntime:
             self._finalizer = weakref.finalize(
                 self, controller.unregister, self.plane_id)
 
-        self.params = params
+        self.params = self.engine.place_params(params)
         example_batch = self._place_batch(example_batch)
         self.analysis = self.engine.analyze(params, example_batch)
         self.state: PlaneState = self.engine.init_state()
@@ -400,19 +424,51 @@ class MorpheusRuntime:
         self._backbuf.publish(self.state.instr)
 
     # ---- batch placement -----------------------------------------------
-    def _place_batch(self, batch, count: Optional[dict] = None):
-        """Place a request batch (or a stacked window) on the runtime's
-        device; numpy leaves are copied into tensors.  A batch whose
-        leaves are all tensors on the device is returned as is, so a
-        placed batch is never placed again.  ``count`` receives a
-        ``transfers`` delta: one per batch placed, whatever its number of
-        fields."""
-        if all(isinstance(v, torch.Tensor) and v.device == self.device
-               for v in batch.values()):
+    def _batch_split(self, batch, stacked: bool):
+        """The (cached) split of a batch structure over the mesh: field
+        -> (dim, shard devices) for the leaves whose batch dim divides
+        (``distributed.sharding.plane_batch_shardings``)."""
+        key = (batch_key(batch), stacked)
+        sp = self._batch_sh_cache.get(key)
+        if sp is None:
+            specs = plane_batch_shardings(batch, self.mesh,
+                                          self.engine.cfg.instr_axes,
+                                          stacked=stacked)
+            devs = self.engine.shard_devices
+            sp = {k: (len(s) - 1, devs) for k, s in specs.items() if s}
+            self._batch_sh_cache[key] = sp
+        return sp
+
+    def _resident(self, batch, split) -> bool:
+        """True when every leaf already lies where this placement puts
+        it: a split leaf as blocks on the shard devices, any other as a
+        tensor on the (home) device."""
+        for k, v in batch.items():
+            if k in split:
+                dim, devs = split[k]
+                if not (isinstance(v, Sharded) and v.dim == dim
+                        and v.devices == tuple(devs)):
+                    return False
+            elif not (isinstance(v, torch.Tensor)
+                      and v.device == self.device):
+                return False
+        return True
+
+    def _place_batch(self, batch, *, stacked: bool = False,
+                     count: Optional[dict] = None):
+        """Place a request batch (or, ``stacked``, a fused window) on the
+        runtime's device, or split it over the mesh's data shards; numpy
+        leaves are copied into tensors.  A batch already placed so is
+        returned as is, so a placed batch is never placed again.
+        ``count`` receives a ``transfers`` delta: one per batch placed,
+        whatever its number of fields."""
+        split = (self._batch_split(batch, stacked)
+                 if self.mesh is not None else {})
+        if self._resident(batch, split):
             return batch
         if count is not None:
             count["transfers"] = count.get("transfers", 0) + 1
-        return _device_put(batch, self.device)
+        return _device_put(batch, self.device, split)
 
     def place_batch(self, batch, *, fused: bool = False):
         """Place ``batch`` on the device ahead of dispatch.  With
@@ -423,7 +479,7 @@ class MorpheusRuntime:
         if fused and isinstance(batch, (list, tuple)):
             batch = stack_batches(batch)
         count: dict = {}
-        placed = self._place_batch(batch, count=count)
+        placed = self._place_batch(batch, stacked=fused, count=count)
         if count:
             self.stats.bump(batch_transfers=count["transfers"])
         return placed
@@ -660,11 +716,13 @@ class MorpheusRuntime:
             # output keeps its (K, ...) shape.  Only for the example
             # batch's structure: a frontend pad bucket takes the fused
             # machinery, which builds and caches per structure.
-            single = {f: torch.as_tensor(v)[0] for f, v in stacked.items()}
+            single = {f: (v.select(0) if isinstance(v, Sharded)
+                          else torch.as_tensor(v)[0])
+                      for f, v in stacked.items()}
             if batch_key(single) == self._example_bkey:
                 return self.step(single)[None]
         cnt: dict = {}
-        stacked = self._place_batch(stacked, count=cnt)
+        stacked = self._place_batch(stacked, stacked=True, count=cnt)
         with self._cond:
             # the window ordinal drives the sampling cadence: two
             # concurrent callers never share (and both sample) one
@@ -732,7 +790,7 @@ class MorpheusRuntime:
             if k is None:
                 raise TypeError("warm_fused(stacked_batch) needs k=")
             stacked = batches
-        stacked = self._place_batch(stacked)
+        stacked = self._place_batch(stacked, stacked=True)
         self._register_fused_shape(batch_key(stacked), k, stacked)
         isites = self._active_isites
         plan = self._active[0]
@@ -810,9 +868,16 @@ class MorpheusRuntime:
     # ---- instrumentation readout -------------------------------------
     def _host_instr_snapshot(self) -> Dict[str, Dict[str, Any]]:
         """Host copy of the sketches, read from the double-buffered
-        *back* buffer with no runtime lock held."""
+        *back* buffer with no runtime lock held.  On a mesh the shards'
+        sketches are merged on the device first, so the pass registry
+        sees one global traffic snapshot whatever the topology."""
+        instr = self._backbuf.read()
+        if self.mesh is not None:
+            instr = {sid: (instrument.merge_on_device(st, self.mesh)
+                           if instrument.n_shards(st) is not None else st)
+                     for sid, st in instr.items()}
         return {sid: {k: v.cpu().numpy() for k, v in st.items()}
-                for sid, st in self._backbuf.read().items()}
+                for sid, st in instr.items()}
 
     # ---- control plane -------------------------------------------------
     @property
@@ -842,7 +907,8 @@ class MorpheusRuntime:
         copy so the next dispatch serves the new contents."""
         self.tables.control_update(name, fields, n_valid)
         tables = dict(self.state.tables)
-        tables[name] = self.tables[name].device_arrays(self.device)
+        tables.update(self.engine.place_tables(
+            {name: self.tables[name].device_arrays(self.device)}))
         self.state = self.state.replace(tables=tables)
 
     def _apply_update(self, name, fields, n_valid):
@@ -909,12 +975,63 @@ FailureInjector`): its ``check(step)`` runs inside every step's or
             pass        # the fault path must survive a closed controller
 
     def simulate_device_loss(self, reason: str = "device-loss") -> None:
-        """Fault path for a lost device.  The port places a plane on one
-        device, so there is no mesh to shrink: this is the plain degrade
-        (the reference's single-device branch).  The mesh branch, which
-        hands live state over to a shrunk mesh, waits for ROADMAP.md
-        Queue 1 item 12."""
-        self.degrade_to_generic(reason)
+        """Fault path for a lost device: shrink the plane to one device.
+        Without a mesh there is nothing to shrink: the plain degrade.  On
+        a mesh, under one write-side quiesce and serialized against
+        recompile cycles (so no cycle swaps old-mesh code back in): the
+        LIVE state — RW tables included, whose truth is on the device —
+        is pulled to the host byte for byte and placed on the mesh's home
+        device, the shards' sketches merged into one; the mesh is
+        dropped, the executable-cache namespace rotated (cache keys do
+        not carry the mesh, and old-placement executables must never
+        serve the shrunk plane), a single-device generic pair is built
+        and swapped in, and the plane degraded."""
+        if self.mesh is None:
+            self.degrade_to_generic(reason)
+            return
+        with self._recompile_mutex:
+            with self._write():
+                home = self.device
+
+                def moved(v):       # host copy, byte for byte, then home
+                    return torch.from_numpy(np.array(np.asarray(v))).to(
+                        home)
+
+                st = self.state
+                self.state = PlaneState(
+                    {n: {f: moved(v) for f, v in t.items()}
+                     for n, t in st.tables.items()},
+                    {s: {k: moved(v)
+                         for k, v in instrument.merge_shards(x).items()}
+                     for s, x in st.instr.items()},
+                    {n: moved(g) for n, g in st.guards.items()})
+                self.params = compat.local(self.params, 0, home)
+                self._example_batch = {
+                    k: compat.to_home(v, home)
+                    for k, v in self._example_batch.items()}
+                self.engine.set_mesh(None)
+                self.mesh = None
+                self._batch_sh_cache = {}
+                self._cache_ns = f"{self._cache_ns}@shrunk"
+                isites = tuple(sorted(self.state.instr.keys()))
+                # build the new placement's generic pair inline: the
+                # plane has nothing safe to serve until it lands
+                gen_exec, gen_instr = self._get_many(
+                    [self.generic_plan,
+                     self._instr_twin(self.generic_plan, isites)],
+                    self._example_batch, isites)
+                self.generic_instr_exec = gen_instr
+                self._active = (self.generic_plan, gen_exec, gen_instr,
+                                gen_exec)
+                self._active_isites = isites
+                self._backbuf.publish(self.state.instr)
+                self._degraded = True
+                self._degrade_reason = str(reason)
+        self.stats.bump(faults=1)
+        try:
+            self.controller.on_plane_fault(self, reason)
+        except Exception:
+            pass
 
     def _on_step_fault(self, exc: Exception) -> None:
         """A step or window raised: route the plane into degraded mode.

@@ -1,0 +1,226 @@
+"""The port's ``shard_map`` and collectives, for one controlling process.
+
+Ported from ``repro.distributed.compat``, whose ``shard_map`` shim runs a
+body once per device under XLA, with collectives as stage boundaries
+inside it.  Here one Python process drives every coordinate of a
+:class:`~repro_torch.distributed.meshctx.Mesh`:
+
+* :class:`Sharded` is a value split along one dimension over the mesh:
+  one tensor per coordinate, each on its coordinate's device.
+* :class:`Replicated` is a value placed once per *distinct* device; on a
+  repeated-device mesh it is one tensor.
+* :func:`shard_map` loops a body over the shards of a split (the mesh
+  coordinates that vary only along its axes, in shard order), handing
+  each its index and device, and returns the per-shard results for the
+  caller to combine.
+* :func:`psum`, :func:`pmax`, :func:`all_gather` and :func:`all_to_all`
+  combine per-coordinate tensors: each copies its inputs to the target
+  device and reduces them **in shard order**, with no float atomics and
+  no process group, so a call gives the same bits every time.  A body
+  that needs a collective mid-way is written as two stages around it.
+
+Copies between distinct devices go through ``Tensor.to``; nothing here
+assumes the devices differ.
+"""
+from __future__ import annotations
+
+from typing import Any, Callable, Dict, List, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from .meshctx import Mesh
+
+
+class Sharded:
+    """A value split along dimension ``dim`` into ``len(shards)`` blocks,
+    block i on its own device.  ``shape`` is the whole value's; numpy
+    reads (``np.asarray``) concatenate the blocks on the host."""
+    __slots__ = ("shards", "dim")
+
+    def __init__(self, shards: Sequence[torch.Tensor], dim: int = 0):
+        self.shards = tuple(shards)
+        self.dim = dim
+
+    @property
+    def shape(self) -> torch.Size:
+        s = list(self.shards[0].shape)
+        s[self.dim] = sum(int(t.shape[self.dim]) for t in self.shards)
+        return torch.Size(s)
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.shards[0].dtype
+
+    @property
+    def ndim(self) -> int:
+        return len(self.shards[0].shape)
+
+    @property
+    def devices(self) -> Tuple[torch.device, ...]:
+        return tuple(t.device for t in self.shards)
+
+    def gather(self, device) -> torch.Tensor:
+        """The whole value on ``device`` (blocks concatenated in order)."""
+        return torch.cat([t.to(device) for t in self.shards], self.dim)
+
+    def select(self, j: int) -> "Sharded":
+        """Index ``j`` of dimension 0, which must not be the split one
+        (a fused window's step axis)."""
+        if self.dim == 0:
+            raise ValueError("Sharded.select indexes an unsplit leading dim")
+        return Sharded([t[j] for t in self.shards], self.dim - 1)
+
+    def __array__(self, dtype=None, copy=None):
+        a = np.concatenate([t.detach().cpu().numpy() for t in self.shards],
+                           axis=self.dim)
+        return a if dtype is None else a.astype(dtype)
+
+    def __repr__(self) -> str:
+        return (f"Sharded(shape={tuple(self.shape)}, dim={self.dim}, "
+                f"devices={[str(d) for d in self.devices]})")
+
+
+class Replicated:
+    """One copy of a value per distinct device (insertion order = the
+    mesh's).  ``value`` is the first copy; numpy reads read it."""
+    __slots__ = ("copies",)
+
+    def __init__(self, copies: Dict[torch.device, torch.Tensor]):
+        self.copies = dict(copies)
+
+    @property
+    def value(self) -> torch.Tensor:
+        return next(iter(self.copies.values()))
+
+    def on(self, device) -> torch.Tensor:
+        return self.copies[torch.device(device)]
+
+    @property
+    def shape(self) -> torch.Size:
+        return self.value.shape
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.value.dtype
+
+    @property
+    def ndim(self) -> int:
+        return self.value.dim()
+
+    def __array__(self, dtype=None, copy=None):
+        a = self.value.detach().cpu().numpy()
+        return a if dtype is None else a.astype(dtype)
+
+    def __repr__(self) -> str:
+        return (f"Replicated(shape={tuple(self.shape)}, devices="
+                f"{[str(d) for d in self.copies]})")
+
+
+# ---------------------------------------------------------------------------
+# placement
+# ---------------------------------------------------------------------------
+
+def split(x, devices: Sequence[torch.device], dim: int = 0) -> Sharded:
+    """``x`` (a tensor, or numpy) cut into ``len(devices)`` equal blocks
+    along ``dim``, block i copied to ``devices[i]``."""
+    x = x if isinstance(x, torch.Tensor) else torch.from_numpy(np.array(x))
+    n = len(devices)
+    if x.shape[dim] % n:
+        raise ValueError(f"split: dim {dim} of {tuple(x.shape)} does not "
+                         f"divide into {n} shards")
+    return Sharded([b.to(d, non_blocking=True)
+                    for b, d in zip(x.chunk(n, dim), devices)], dim)
+
+
+def replicate(x: torch.Tensor, devices: Sequence[torch.device]
+              ) -> Replicated:
+    """``x`` placed once per distinct device of ``devices`` (a copy only
+    where ``x`` does not already lie)."""
+    return Replicated({d: x.to(d) for d in dict.fromkeys(devices)})
+
+
+def local(x, i: int, device) -> Any:
+    """Coordinate ``i``'s view of ``x`` on ``device``: its block of a
+    :class:`Sharded`, its device's copy of a :class:`Replicated`, or a
+    plain tensor moved there (a no-op where it lies already)."""
+    if isinstance(x, Sharded):
+        return x.shards[i]
+    if isinstance(x, Replicated):
+        return x.on(device)
+    if isinstance(x, torch.Tensor):
+        return x.to(device)
+    return x
+
+
+def to_home(x, device) -> Any:
+    """``x`` as one tensor on ``device`` (a :class:`Sharded` gathered, a
+    :class:`Replicated` read from its first copy)."""
+    if isinstance(x, Sharded):
+        return x.gather(device)
+    if isinstance(x, Replicated):
+        return x.value.to(device)
+    if isinstance(x, torch.Tensor):
+        return x.to(device)
+    return x
+
+
+# ---------------------------------------------------------------------------
+# collectives (fixed shard order)
+# ---------------------------------------------------------------------------
+
+def psum(xs: Sequence[torch.Tensor], device=None) -> torch.Tensor:
+    """``xs[0] + xs[1] + ...`` on ``device`` (default ``xs[0]``'s), summed
+    left to right."""
+    device = xs[0].device if device is None else device
+    out = xs[0].to(device)
+    for x in xs[1:]:
+        out = out + x.to(device)
+    return out
+
+
+def pmax(xs: Sequence[torch.Tensor], device=None) -> torch.Tensor:
+    device = xs[0].device if device is None else device
+    out = xs[0].to(device)
+    for x in xs[1:]:
+        out = torch.maximum(out, x.to(device))
+    return out
+
+
+def all_gather(xs: Sequence[torch.Tensor], dim: int = 0,
+               device=None) -> torch.Tensor:
+    """The blocks concatenated along ``dim`` in shard order."""
+    device = xs[0].device if device is None else device
+    return torch.cat([x.to(device) for x in xs], dim)
+
+
+def all_to_all(xs: Sequence[torch.Tensor], split_dim: int = 0,
+               concat_dim: int = 0) -> List[torch.Tensor]:
+    """Shard i cuts its tensor into ``len(xs)`` blocks along
+    ``split_dim`` and sends block j to shard j; shard j concatenates what
+    it receives along ``concat_dim`` in sender order, on its own device
+    (``jax.lax.all_to_all(tiled=True)``)."""
+    n = len(xs)
+    blocks = [x.chunk(n, split_dim) for x in xs]
+    return [torch.cat([blocks[i][j].to(xs[j].device) for i in range(n)],
+                      concat_dim) for j in range(n)]
+
+
+# ---------------------------------------------------------------------------
+# shard_map
+# ---------------------------------------------------------------------------
+
+def shard_map(f: Callable, mesh: Mesh, axes: Sequence[str]) -> List[Any]:
+    """``f(i, device)`` once per shard ``i`` of a value split over
+    ``axes`` (the coordinates of ``Mesh.shard_coords``, in shard order),
+    on that coordinate's device; returns the per-shard results for the
+    caller's collectives."""
+    return [f(i, mesh.device_at(c))
+            for i, c in enumerate(mesh.shard_coords(axes))]
+
+
+def abstract_mesh(axis_sizes: Sequence[int],
+                  axis_names: Sequence[str]) -> Mesh:
+    """A device-free mesh (shape and names only): the sharding rules'
+    input, as the reference's ``AbstractMesh``."""
+    return Mesh(None, axis_names, axis_sizes)

@@ -15,7 +15,7 @@ paths are exercised end to end:
     after ``patience`` suspect steps the mitigation callback fires.
 
 Not ported yet: ``elastic_reshard`` (restore a checkpoint onto a new
-mesh) needs a mesh, which waits for ROADMAP.md Queue 1 item 12.
+mesh) needs a mesh, which waits for ROADMAP.md Queue 1 item 12b.
 """
 from __future__ import annotations
 

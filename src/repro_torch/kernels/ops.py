@@ -41,8 +41,8 @@ def _use_kernel(t: torch.Tensor, force: Optional[str]) -> bool:
 
 def flash_attention(q, k, v, *, causal: bool = True,
                     window: Optional[int] = None, logit_softcap: float = 0.0,
-                    block: int = 512,
-                    force: Optional[str] = None) -> torch.Tensor:
+                    block: int = 512, force: Optional[str] = None,
+                    return_lse: bool = False):
     """Attention over the implicit positions ``arange(Sq)`` /
     ``arange(Sk)``.  On the card always the CUDA kernel, which raises on
     a shape, dtype or stride it does not take (``block`` sizes only the
@@ -50,8 +50,21 @@ def flash_attention(q, k, v, *, causal: bool = True,
     requires it, the kernel goes through ``FlashAttentionFn``, whose
     backward is the ``flash_attention_bwd`` kernel; every other call is
     the plain launch.  On the host autograd runs through the plain
-    version."""
+    version.
+
+    ``return_lse=True`` returns ``(out, lse)``: lse is each row's
+    logsumexp, f32 (B, H, Sq) in log2 units, ``NEG_INF`` for a row that
+    sees no key — what the kernel writes beside its output (the output is
+    the same bits either way), and on the host the plain
+    ``attend_blocked``'s from its own running max and sum.  Partials over
+    disjoint key ranges combine with weights ``exp2(lse - max)`` (the
+    sequence-parallel decode).  No autograd on this form."""
     if _use_kernel(q, force):
+        if return_lse:
+            return flash_attention_cuda(q, k, v, causal=causal,
+                                        window=window,
+                                        logit_softcap=logit_softcap,
+                                        return_lse=True)
         if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                         or v.requires_grad):
             return FlashAttentionFn.apply(q, k, v, causal, window,
@@ -59,7 +72,8 @@ def flash_attention(q, k, v, *, causal: bool = True,
         return flash_attention_cuda(q, k, v, causal=causal, window=window,
                                     logit_softcap=logit_softcap)
     return _ref.flash_attention_ref(q, k, v, causal=causal, window=window,
-                                    logit_softcap=logit_softcap, block=block)
+                                    logit_softcap=logit_softcap, block=block,
+                                    return_lse=return_lse)
 
 
 def hot_gather(table, hot_rows, hot_ids, idx, *,

@@ -20,11 +20,12 @@ NEG_INF = -1e30
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, causal: bool = True, window: Optional[int] = None,
                         logit_softcap: float = 0.0,
-                        block: int = 512) -> torch.Tensor:
+                        block: int = 512, return_lse: bool = False):
     """The blocked attention ``models.attention.attend_blocked`` over
     the implicit positions ``arange(Sq)`` and ``arange(Sk)`` (so causal
     masking is top-left aligned).  q: (B, Sq, H, D); k, v: (B, Sk, Hkv,
-    D) -> (B, Sq, H, D) in q's dtype."""
+    D) -> (B, Sq, H, D) in q's dtype, and with ``return_lse`` the rows'
+    log2-unit logsumexp (B, H, Sq), f32, from the same running sums."""
     from ..models.attention import attend_blocked
     Sq, Sk = q.shape[1], k.shape[1]
     return attend_blocked(
@@ -32,7 +33,7 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         q_pos=torch.arange(Sq, dtype=torch.int32, device=q.device),
         kv_pos=torch.arange(Sk, dtype=torch.int32, device=q.device),
         causal=causal, window=window, logit_softcap=logit_softcap,
-        block=block)
+        block=block, return_lse=return_lse)
 
 
 def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,

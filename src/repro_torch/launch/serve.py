@@ -28,10 +28,15 @@ runtimes on distinct table sets from one process: shared executable
 cache, one bounded recompile worker pool, per-plane sampling duty
 cycles.
 
-``--mesh auto`` (the default) resolves to no mesh when one device is
-visible, as the reference does on a one-device host; with more than one
-card visible it raises, since mesh placement waits for ROADMAP.md Queue 1
-item 12.  ``--xla-cache-dir`` has no PyTorch meaning and raises, as
+``--mesh auto`` (the default) spans every visible card with a
+``("data",)`` mesh (:func:`~repro_torch.distributed.meshctx.\
+data_plane_mesh`): batches and sketches split over the cards, tables
+replicated, one process driving them all.  On one card, or on the host,
+it resolves to no mesh, as the reference does on a one-device host;
+``--mesh none`` forces one device.  The functions also take a prebuilt
+:class:`~repro_torch.distributed.meshctx.Mesh` (a repeated-device debug
+mesh, for one).  ``stats["n_devices"]`` is the mesh's size.
+``--xla-cache-dir`` has no PyTorch meaning and raises, as
 ``EngineConfig(xla_cache_dir=...)`` does.
 """
 from __future__ import annotations
@@ -40,6 +45,7 @@ import argparse
 import sys
 import time
 from collections import deque
+from typing import Optional
 
 import numpy as np
 import torch
@@ -48,6 +54,7 @@ from .. import resolve_device
 from ..core import ControllerConfig, EngineConfig, MorpheusController, \
     MorpheusRuntime, SketchConfig, StreamingHistogram, plan_batch_shape
 from ..distributed.fault import StragglerMonitor
+from ..distributed.meshctx import Mesh, data_plane_mesh
 from ..serving import ServeConfig, build_fleet, build_params, \
     build_tables, make_request_batch, make_request_rows, \
     make_request_windows, make_serve_step, make_synthetic_batch
@@ -55,23 +62,19 @@ from ..serving.frontend import FrontendConfig, OpenLoopDriver, \
     ServingFrontend, bursty_onoff_gaps, poisson_gaps
 
 
-def _resolve_mesh(mesh, device) -> None:
-    """The port places every plane on one device: ``"none"`` and a
-    one-device ``"auto"`` resolve to no mesh; anything else raises."""
+def _resolve_mesh(mesh, device) -> Optional[Mesh]:
+    """``"none"`` -> no mesh; ``"auto"`` -> a ``("data",)`` mesh over
+    the visible cards of ``device``'s type, or no mesh when there is one
+    (or on the host); a :class:`Mesh` is taken as it is."""
+    if isinstance(mesh, Mesh):
+        return mesh
     if mesh == "none":
         return None
     if mesh == "auto":
         dev = resolve_device(device)
-        if dev.type == "cuda" and torch.cuda.device_count() > 1:
-            raise NotImplementedError(
-                f"--mesh auto with {torch.cuda.device_count()} visible "
-                f"cards: mesh placement waits for the sharding slice of "
-                f"the port (ROADMAP.md Queue 1 item 12); pass mesh='none' "
-                f"or make one card visible")
-        return None
-    raise NotImplementedError(
-        f"mesh={mesh!r}: mesh placement waits for the sharding slice of "
-        f"the port (ROADMAP.md Queue 1 item 12)")
+        return data_plane_mesh(device=dev.type)
+    raise TypeError(f"mesh must be 'auto', 'none' or a Mesh, got "
+                    f"{mesh!r}")
 
 
 def _skewed_params(cfg: ServeConfig, seed: int, skew_router: bool,
@@ -163,23 +166,25 @@ def run_serve(steps=200, locality="high", morpheus=True,
               quiet=False, serve_cfg=None, features=None, mesh="auto",
               xla_cache_dir=None, fuse=1, inflight=1, device="cuda"):
     """Drive the serving data plane for ``steps`` batches on ``device``
-    and return ``(stats, runtime)``.  ``mesh`` is "auto" or "none" (see
-    the module docstring).  ``fuse=K`` serves K-step fused windows
-    through ``runtime.step_many``; ``inflight=N`` keeps up to N
-    dispatched units in flight instead of waiting per step."""
+    and return ``(stats, runtime)``.  ``mesh`` is "auto", "none" or a
+    :class:`Mesh` (see the module docstring).  ``fuse=K`` serves K-step
+    fused windows through ``runtime.step_many``; ``inflight=N`` keeps
+    up to N dispatched units in flight instead of waiting per step."""
     cfg = serve_cfg or ServeConfig()
-    _resolve_mesh(mesh, device)
+    mesh = _resolve_mesh(mesh, device)
+    if mesh is not None:
+        device = mesh.home
     params = _skewed_params(cfg, 0, skew_router, device)
     tables = build_tables(cfg)
     step_fn = make_serve_step(cfg)
-    n_dev = 1
+    n_dev = mesh.size if mesh is not None else 1
     ecfg = EngineConfig(
         sketch=SketchConfig(sample_every=4, max_hot=4, hot_coverage=0.8),
         features=features or {"vision_enabled": False,
                               "track_sessions": True},
         moe_router_table="router",
         xla_cache_dir=xla_cache_dir,
-        device=device)
+        device=device, mesh=mesh)
     rt = MorpheusRuntime(step_fn, tables, params,
                          make_synthetic_batch(cfg, 0, batch_size,
                                               device=device),
@@ -265,7 +270,9 @@ def run_controller_serve(planes=2, steps=200, locality="high",
     plane's sampling duty cycle adapts independently.  Returns
     ``(stats, controller, runtimes)``."""
     cfg = serve_cfg or ServeConfig()
-    _resolve_mesh(mesh, device)
+    mesh = _resolve_mesh(mesh, device)
+    if mesh is not None:
+        device = mesh.home
     params = _skewed_params(cfg, 0, skew_router, device)
     controller = MorpheusController(ControllerConfig(workers=workers))
     ecfg_kw = dict(
@@ -276,7 +283,7 @@ def run_controller_serve(planes=2, steps=200, locality="high",
         # is built once, not N times
         cache_ns="serve-fleet",
         xla_cache_dir=xla_cache_dir,
-        device=device)
+        device=device, mesh=mesh)
     rts = []
     try:
         for p, (step_fn, tables) in enumerate(build_fleet(cfg, planes)):
@@ -339,7 +346,7 @@ def run_controller_serve(planes=2, steps=200, locality="high",
     cstats = controller.stats()
     stats = {
         "planes": planes,
-        "n_devices": 1,
+        "n_devices": mesh.size if mesh is not None else 1,
         "steps": served,
         "fuse": fuse,
         "inflight": inflight,
@@ -414,13 +421,15 @@ def run_frontend_serve(planes=1, requests=600, rate=150.0,
     Returns ``(stats, controller, runtimes, frontends)`` — ``stats``
     carries per-plane AND fleet-level SLO attainment."""
     cfg = serve_cfg or ServeConfig()
-    _resolve_mesh(mesh, device)
+    mesh = _resolve_mesh(mesh, device)
+    if mesh is not None:
+        device = mesh.home
     params = _skewed_params(cfg, seed, skew_router, device)
     controller = MorpheusController(ControllerConfig(workers=workers))
     ecfg_kw = dict(
         sketch=SketchConfig(sample_every=4, max_hot=4, hot_coverage=0.8),
         moe_router_table="router", cache_ns="serve-fleet",
-        xla_cache_dir=xla_cache_dir, device=device)
+        xla_cache_dir=xla_cache_dir, device=device, mesh=mesh)
     fcfg = FrontendConfig(capacity=queue_cap, max_batch=batch_size,
                           max_wait_s=max_wait_ms * 1e-3,
                           window_k_max=window_k_max, inflight=inflight,
@@ -538,9 +547,9 @@ def main(argv=None) -> int:
     ap.add_argument("--recompile-every", type=int, default=50)
     ap.add_argument("--no-morpheus", action="store_true")
     ap.add_argument("--mesh", default="auto", choices=["auto", "none"],
-                    help="'auto': no mesh when one device is visible "
-                         "(more than one raises: mesh placement is not "
-                         "ported); 'none': force single-device")
+                    help="'auto': a data-parallel mesh over every "
+                         "visible card (none when one is visible); "
+                         "'none': force single-device")
     ap.add_argument("--device", default="cuda",
                     help="device the planes run on (default: the card; "
                          "'cpu' runs on the host)")

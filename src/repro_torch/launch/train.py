@@ -21,7 +21,7 @@ Fault taxonomy (``distributed/fault.py``):
     optimizer step.
   * ``--device-loss-at-step N`` / ``--grow-back-after K`` — the elastic
     arc needs a mesh and resharding: they raise ``NotImplementedError``
-    (ROADMAP Queue 1 item 12).
+    (ROADMAP Queue 1 item 12b).
 
 Examples:
     python -m repro_torch.launch.train --arch starcoder2-3b --batch 4 \\
@@ -53,7 +53,7 @@ from ..optim import AdamWConfig, init_opt_state
 from ..training import SupervisorConfig, TrainSupervisor
 
 ELASTIC = ("--device-loss-at-step / --grow-back-after: the elastic mesh is "
-           "not ported (ROADMAP Queue 1 item 12)")
+           "not ported (ROADMAP Queue 1 item 12b)")
 
 
 def cut_layers(cfg, layers: int):
@@ -101,9 +101,9 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="in-process fault at the supervisor boundary "
                     "(deopt + retry, no lost step)")
     ap.add_argument("--device-loss-at-step", type=int, default=None,
-                    help="not ported (raises): ROADMAP item 12")
+                    help="not ported (raises): ROADMAP item 12b")
     ap.add_argument("--grow-back-after", type=int, default=None,
-                    help="not ported (raises): ROADMAP item 12")
+                    help="not ported (raises): ROADMAP item 12b")
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--respecialize-every", type=int, default=0,

@@ -41,8 +41,24 @@ decoder layers): q is projected and RoPE'd at ``start .. start+S-1``
 and attends without a mask over the given k and v, which are taken as
 they stand (no RoPE, no cache write), through ``ops.flash_attention``.
 The reference passes ``kv_pos = arange(S_enc)`` and ``causal=False``
-there, so its mask drops nothing.  The sequence-parallel decode of a
-mesh is not ported yet: it has no branch.
+there, so its mask drops nothing.
+
+Sequence-parallel decode (a :class:`~repro_torch.distributed.meshctx.\
+MeshPolicy` with a mesh, passed as ``policy=``): a one-token step over a
+cache whose slots split evenly over the sequence shards takes
+:func:`_gqa_decode_seq_parallel` (GQA) or :func:`_mla_decode_seq_parallel`
+(MLA's absorbed form), the reference's explicit flash-decoding branches.
+Each KV shard owns a contiguous range of cache slots; the shard's slots
+are intersected with the decode's visible range ``[lo, start + 1)`` (what
+the single-device decode slices), a shard with none is skipped, and the
+shards' partials are combined in f32 in shard order.  GQA's partials are
+``ops.flash_attention(..., return_lse=True)`` — the ``flash_attention``
+kernel on the card, once per KV shard — weighted by ``exp2(lse - max)``;
+MLA's are the reference's ``(max, sum, acc)`` partials in plain PyTorch.
+The cache itself stays whole on the mesh's home device, and each shard
+reads its slots in place (a copy only where a shard's device differs).
+Batch rows split over the batch axes when they divide; otherwise (batch
+1) the ``"data"`` axis joins the model axis in splitting the sequence.
 """
 from __future__ import annotations
 
@@ -52,12 +68,14 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from ..distributed import compat
 from ..kernels import ops
 from .config import MLAConfig, ModelConfig
 from .layers import apply_rope, dot_f32
 from .params import Initializer
 
 NEG_INF = -1e30
+LOG2E = 1.4426950408889634
 
 
 # ---------------------------------------------------------------------------
@@ -101,12 +119,15 @@ def attend_blocked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                    q_pos: torch.Tensor, kv_pos: torch.Tensor,
                    causal: bool = True, window: Optional[int] = None,
                    logit_softcap: float = 0.0,
-                   block: int = 512) -> torch.Tensor:
+                   block: int = 512, return_lse: bool = False):
     """q: (B,Sq,H,D); k,v: (B,Sk,Hkv,D); q_pos: (Sq,), kv_pos: (Sk,).
 
     kv entries with position < 0 are masked out (empty cache slots).
     Walks the KV blocks carrying (max, sumexp, acc) in f32; ``p`` is
-    rounded to v's dtype before ``p . v``.  Returns q's dtype."""
+    rounded to v's dtype before ``p . v``.  Returns q's dtype; with
+    ``return_lse`` also each row's logsumexp from the same running max
+    and sum, f32 (B, H, Sq) in log2 units (``NEG_INF`` for a row that
+    sees no key), what the ``flash_attention`` kernel writes."""
     B, Sq, H, D = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
     G = H // Hkv
@@ -145,9 +166,124 @@ def attend_blocked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         pv = dot_f32("bhgst,bthd->bshgd", p.to(vblk.dtype), vblk)
         acc = acc * alpha.permute(0, 3, 1, 2)[..., None] + pv
         m_run = m_new
-    l_run = l_run.clamp_min(1e-30).permute(0, 3, 1, 2)[..., None]
-    out = (acc / l_run).reshape(B, Sq, H, D)
-    return out.to(q.dtype)
+    out = (acc / l_run.clamp_min(1e-30).permute(0, 3, 1, 2)[..., None]
+           ).reshape(B, Sq, H, D).to(q.dtype)
+    if not return_lse:
+        return out
+    lse = torch.where(l_run > 0,
+                      (m_run + torch.log(l_run)) * LOG2E,
+                      torch.full_like(l_run, NEG_INF))
+    return out, lse.reshape(B, H, Sq)
+
+
+
+# ---------------------------------------------------------------------------
+# Sequence-parallel decode over a mesh
+# ---------------------------------------------------------------------------
+
+def _seq_split(pol, B: int, mla: bool):
+    """``(batch_axes, seq_axes)`` of a sequence-parallel decode: the
+    batch split over the policy's batch axes when B divides (and there
+    is more than one batch shard), else unsplit with ``"data"`` joining
+    the model axis in the sequence split (MLA splits the sequence over
+    the model axis only, as the reference)."""
+    mesh, mdl = pol.mesh, pol.model_axis
+    model = tuple(a for a in (mdl,) if a in mesh.shape)
+    if pol.n_batch_shards > 1 and B % pol.n_batch_shards == 0:
+        return tuple(pol.batch_axes), model
+    if mla:
+        return (), model
+    return (), tuple(a for a in ("data", mdl) if a in mesh.shape)
+
+
+def n_seq_shards(pol, B: int, mla: bool = False) -> int:
+    """How many KV shards a decode over ``pol``'s mesh cuts the cache
+    into (1 without a mesh)."""
+    if pol is None or pol.mesh is None:
+        return 1
+    return pol.mesh.axes_size(_seq_split(pol, B, mla)[1])
+
+
+def _seq_shards(pol, B: int, cap: int, lo: int, hi: int, mla: bool):
+    """Yield ``(b, rows, a, e, device)`` per sequence shard with visible
+    slots, in shard order: batch chunk ``b`` (rows ``rows``), cache
+    slots ``[a, e)`` = the shard's range intersected with ``[lo, hi)``."""
+    mesh = pol.mesh
+    batch_axes, seq_axes = _seq_split(pol, B, mla)
+    nb, ns = mesh.axes_size(batch_axes), mesh.axes_size(seq_axes)
+    L, Bl = cap // ns, B // nb
+    for i, c in enumerate(mesh.shard_coords(batch_axes + seq_axes)):
+        b, s = divmod(i, ns)
+        a, e = max(s * L, lo), min((s + 1) * L, hi)
+        if a < e:
+            yield b, slice(b * Bl, (b + 1) * Bl), a, e, mesh.device_at(c)
+
+
+def _gqa_decode_seq_parallel(pol, q, k, v, start: int, *, window,
+                             logit_softcap):
+    """Sequence-parallel flash decode for GQA: q (B, 1, H, hd) at
+    position ``start`` over the cache k, v (B, cap, Hkv, hd) whose slot i
+    holds position i.  Each KV shard attends its visible slots through
+    ``ops.flash_attention(..., return_lse=True)``; per batch chunk the
+    partials combine in f32 in shard order, weighted by
+    ``exp2(lse - max)``.  Returns (B, 1, H, hd) in q's dtype on q's
+    device."""
+    B, cap = q.shape[0], k.shape[1]
+    hi = start + 1
+    lo = max(0, hi - window) if window is not None else 0
+    home = q.device
+    parts: dict = {}
+    for b, rows, a, e, dev in _seq_shards(pol, B, cap, lo, hi, False):
+        out, lse = ops.flash_attention(
+            q[rows].to(dev), k[rows, a:e].to(dev), v[rows, a:e].to(dev),
+            causal=False, window=None, logit_softcap=logit_softcap,
+            return_lse=True)
+        parts.setdefault(b, []).append((out.to(home), lse.to(home)))
+    outs = []
+    for b in sorted(parts):
+        lses = [lse for _, lse in parts[b]]                  # (Bl, H, 1)
+        m = compat.pmax(lses, home)
+        num, den = None, None
+        for out, lse in parts[b]:
+            w = torch.exp2(lse - m)
+            t = out.float() * w.permute(0, 2, 1)[..., None]
+            num = t if num is None else num + t
+            den = w if den is None else den + w
+        outs.append(num / den.permute(0, 2, 1)[..., None])
+    return torch.cat(outs).to(q.dtype)
+
+
+def _mla_decode_seq_parallel(pol, q_lat, q_rope, ckv, k_rope, start: int,
+                             scale: float):
+    """Flash decoding over the model axis for MLA's absorbed form:
+    q_lat (B, 1, H, r) and q_rope (B, 1, H, rope) at position ``start``
+    over the compressed cache ckv (B, cap, r), k_rope (B, cap, rope).
+    Each shard's logits over its visible slots; the max over the shards
+    (in shard order), then each shard's ``exp`` sums and ``p . ckv`` in
+    f32, summed in shard order — the reference's pmax / psum stages.
+    Returns ctx_lat (B, 1, H, r) in f32 on q's device."""
+    B, cap = q_lat.shape[0], ckv.shape[1]
+    home = q_lat.device
+    shards = []
+    for b, rows, a, e, dev in _seq_shards(pol, B, cap, 0, start + 1, True):
+        c = ckv[rows, a:e].to(dev)
+        logits = (dot_f32("bshr,btr->bhst", q_lat[rows].to(dev), c)
+                  + dot_f32("bshr,btr->bhst", q_rope[rows].to(dev),
+                            k_rope[rows, a:e].to(dev))) * scale
+        shards.append((b, c, logits))
+    outs = []
+    for b in sorted({s[0] for s in shards}):
+        mine = [(c, lg) for bb, c, lg in shards if bb == b]
+        m_glob = compat.pmax([lg.amax(dim=-1) for _, lg in mine], home)
+        ls, accs = [], []
+        for c, lg in mine:
+            p = torch.exp(lg - m_glob.to(lg.device)[..., None])
+            ls.append(p.sum(dim=-1))
+            accs.append(dot_f32("bhst,btr->bshr", p.to(c.dtype), c))
+        l_glob = compat.psum(ls, home)
+        acc = compat.psum(accs, home)
+        outs.append(acc / l_glob.clamp_min(1e-30).permute(0, 2, 1)[..., None])
+    return torch.cat(outs)
 
 
 # ---------------------------------------------------------------------------
@@ -165,14 +301,16 @@ def project_kv(params, kv_in: torch.Tensor):
 
 def gqa_forward(params, cfg: ModelConfig, x: torch.Tensor, start: int = 0,
                 *, window: Optional[int] = None, cache=None, kv_const=None,
-                causal: bool = True, rope: bool = True):
+                causal: bool = True, rope: bool = True, policy=None):
     """x: (B,S,D); ``start``: the position of x's first token (an int).
 
     cache: {"k": (B,cap,Hkv,hd), "v": ..., "pos": (cap,)}, written in
     place at ``start .. start+S-1``.  ``kv_const``: (k, v) of shape
     (B, S_enc, Hkv, hd) to attend over without a mask (cross-attention;
-    only q takes RoPE, and the cache is not read).  Returns (out (B,S,D),
-    cache), the cache None with ``kv_const``."""
+    only q takes RoPE, and the cache is not read).  ``policy``: a
+    :class:`MeshPolicy` whose mesh sends a one-token step over a cache
+    through the sequence-parallel decode (module docstring).  Returns
+    (out (B,S,D), cache), the cache None with ``kv_const``."""
     B, S, d = x.shape
     wq = params["wq"]
     H, hd = wq.shape[1], wq.shape[2]
@@ -205,7 +343,12 @@ def gqa_forward(params, cfg: ModelConfig, x: torch.Tensor, start: int = 0,
         ck[:, start:start + S] = k.to(ck.dtype)
         cv[:, start:start + S] = v.to(cv.dtype)
         cpos[start:start + S] = positions
-        if S == 1 and start > 0:
+        n_seq = n_seq_shards(policy, B)
+        if (S == 1 and n_seq > 1 and ck.shape[1] % n_seq == 0):
+            out = _gqa_decode_seq_parallel(policy, q, ck, cv, start,
+                                           window=window,
+                                           logit_softcap=softcap)
+        elif S == 1 and start > 0:
             lo = max(0, start + 1 - window) if window is not None else 0
             out = ops.flash_attention(
                 q, ck[:, lo:start + 1], cv[:, lo:start + 1], causal=False,
@@ -224,7 +367,7 @@ def gqa_forward(params, cfg: ModelConfig, x: torch.Tensor, start: int = 0,
 # ---------------------------------------------------------------------------
 
 def mla_forward(params, cfg: ModelConfig, x: torch.Tensor, start: int = 0,
-                *, cache=None, block: int = 512):
+                *, cache=None, block: int = 512, policy=None):
     """x: (B,S,D); ``start``: the position of x's first token (an int).
 
     cache: {"ckv": (B,cap,r), "k_rope": (B,cap,rope), "pos": (cap,)},
@@ -240,9 +383,11 @@ def mla_forward(params, cfg: ModelConfig, x: torch.Tensor, start: int = 0,
     Over a cache it reads slots ``[:start+S]`` only: slot i is written at
     position i alone, so a slot past them holds -1 or a position past
     every query, which the mask drops (a block of it adds p = 0 and keeps
-    the running max).  The logits block is (B, H, S, block) in f32, 2.15
-    GB at deepseek-v2's prefill of 2 x 4096: it is updated in place, in
-    the reference's order of operations."""
+    the running max).  ``policy``: a :class:`MeshPolicy` whose mesh
+    sends a one-token step over a cache through
+    :func:`_mla_decode_seq_parallel`.  The logits block is (B, H, S,
+    block) in f32, 2.15 GB at deepseek-v2's prefill of 2 x 4096: it is
+    updated in place, in the reference's order of operations."""
     m: MLAConfig = cfg.mla
     B, S, d = x.shape
     wq = params["wq"]
@@ -270,6 +415,17 @@ def mla_forward(params, cfg: ModelConfig, x: torch.Tensor, start: int = 0,
         cr[:, start:start + S] = k_rope.to(cr.dtype)
         cpos[start:start + S] = positions
         cache = {"ckv": cc, "k_rope": cr, "pos": cpos}
+        n_seq = n_seq_shards(policy, B, mla=True)
+        if S == 1 and n_seq > 1 and cc.shape[1] % n_seq == 0:
+            scale = 1.0 / math.sqrt(m.qk_nope_dim + m.qk_rope_dim)
+            q_lat = torch.einsum("bshn,rhn->bshr", q_nope, params["w_uk"])
+            ctx_lat = _mla_decode_seq_parallel(policy, q_lat, q_rope, cc,
+                                               cr, start, scale)
+            ctx = torch.einsum("bshr,rhv->bshv", ctx_lat.to(x.dtype),
+                               params["w_uv"])
+            wo = params["wo"]
+            return ctx.reshape(B, S, -1) @ wo.reshape(-1, wo.shape[-1]), \
+                cache
         n = start + S
         ckv, k_rope, kv_pos = cc[:, :n], cr[:, :n], cpos[:n]
     else:

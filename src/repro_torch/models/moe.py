@@ -1,4 +1,4 @@
-"""Mixture-of-Experts FFN, single device.
+"""Mixture-of-Experts FFN.
 
 ``moe_ffn_local`` is the reference's dropless MoE (``repro.models.moe``):
 sort tokens by expert, run each expert's gated FFN on its contiguous row
@@ -9,11 +9,32 @@ sizes on the host — one device-to-host read per MoE layer, and no other
 (the counts are a ``scatter_add_``: ``torch.bincount`` on the card reads
 its input's min and max on the host first).
 
-:func:`moe_ffn` is the transformer's entry, for one device only: the
-reference's expert-parallel ``moe_ffn_sharded`` (a mesh; ROADMAP Queue 1
-item 12) is not ported.  Its hot-expert branch is: the trainer passes the
-hot set down explicitly (``make_train_step(hot_experts=)``), where the
-reference installs it in a process-global around its trace.
+:func:`moe_ffn_sharded` is the reference's expert-parallel path over a
+mesh (a :class:`~repro_torch.distributed.meshctx.MeshPolicy`), driven
+by this one process: the model axis owns the experts in contiguous
+slices, and either
+
+* (prefill-sized) tokens split over batch x model, each shard routes
+  its own tokens, packs them per owning shard up to a capacity (GShard:
+  what is past it is dropped and counted), the packs go through an
+  ``all_to_all`` along the model axis, each shard runs its own experts
+  (with a per-expert capacity when it owns more than one), and a second
+  ``all_to_all`` brings the rows back to be combined; or
+* (decode-sized) the tokens are whole on every model shard, each shard
+  computes only the entries routed to its own experts (with the same
+  per-expert capacity when it owns more than one), and the partial
+  outputs are summed over the model axis.  What that capacity drops is
+  counted here too; the reference's body drops the same entries and
+  reports 0.
+
+The collectives are ``distributed.compat``'s, in fixed shard order; the
+expert products stay ``torch.matmul`` per expert, as on the local path.
+
+:func:`moe_ffn` is the transformer's entry: the sharded path when given
+a policy with a mesh whose model axis divides the experts, else the
+local path or its hot-expert branch: the trainer passes the hot set down
+explicitly (``make_train_step(hot_experts=)``), where the reference
+installs it in a process-global around its trace.
 
 Routing ties: ``jax.lax.top_k`` returns the lower expert id first among
 equal logits.  :func:`route` takes the first k of a stable descending
@@ -29,9 +50,11 @@ from __future__ import annotations
 
 from typing import Optional, Sequence
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..distributed import compat
 from .config import MoEConfig, ModelConfig
 from .layers import _act, ffn, init_ffn
 from .params import Initializer
@@ -139,19 +162,221 @@ def moe_ffn_local(params, x2d: torch.Tensor, moe: MoEConfig,
                "expert_counts": group_sizes.to(torch.int32)}
 
 
+# ---------------------------------------------------------------------------
+# Sharded expert-parallel path (a mesh, one controlling process)
+# ---------------------------------------------------------------------------
+
+def _ceil8(n: int) -> int:
+    return -(-n // 8) * 8
+
+
+def _counts(ids: torch.Tensor, n: int) -> torch.Tensor:
+    """``bincount(ids, length=n)`` as a scatter (no host read)."""
+    return torch.zeros(n, dtype=torch.long, device=ids.device
+                       ).scatter_add_(0, ids, torch.ones_like(ids))
+
+
+def _expert_groups(xs: torch.Tensor, group_sizes: Sequence[int], w1, w3,
+                   w2, act: str, cap_e: Optional[int] = None):
+    """Rows of ``xs`` sorted into contiguous expert groups (rows past
+    ``sum(group_sizes)`` belong to none and come back zero).  With
+    ``cap_e`` an expert takes at most its first ``cap_e`` rows and the
+    rest come back zero and are counted (the reference's capacity-blocked
+    grouped matmul).  Returns ((N, D), dropped)."""
+    out = xs.new_zeros(xs.shape)
+    if cap_e is None:
+        n = sum(group_sizes)
+        if n:
+            out[:n] = _expert_compute(xs[:n], group_sizes, w1, w3, w2, act)
+        return out, 0
+    kept = [min(g, cap_e) for g in group_sizes]
+    starts = np.cumsum([0] + list(group_sizes[:-1]))
+    sel = [torch.arange(int(a), int(a) + k) for a, k in zip(starts, kept)
+           if k]
+    if sel:
+        sel = torch.cat(sel).to(xs.device)
+        out[sel] = _expert_compute(xs[sel], kept, w1, w3, w2, act)
+    return out, sum(g - k for g, k in zip(group_sizes, kept))
+
+
+def _shard_route(x, wr, br, moe: MoEConfig, n_model: int, cap: int):
+    """Stage 1 of the all-to-all body, one token shard: route, sort the
+    (token, choice) entries by expert, rank them within their owning
+    shard, and pack the first ``cap`` for each owner into its block of
+    ``send_x`` / ``send_id`` (local expert id, -1 for an empty slot)."""
+    T, D = x.shape
+    E, K = moe.num_experts, moe.top_k
+    E_l = E // n_model
+    gates, ids, logits = route(wr, x, K, br)
+    flat = ids.reshape(-1).long()
+    N = flat.shape[0]
+    order = torch.argsort(flat, stable=True)
+    s_ids = flat[order]
+    s_dest = s_ids // E_l
+    cnt = _counts(s_dest, n_model)
+    starts = torch.cumsum(cnt, 0) - cnt
+    rank = torch.arange(N, device=x.device) - starts[s_dest]
+    keep = rank < cap
+    slot = s_dest * cap + torch.where(keep, rank, 0)
+    send_x = x.new_zeros((n_model * cap, D))
+    send_id = torch.full((n_model * cap,), -1, dtype=torch.long,
+                         device=x.device)
+    send_x[slot[keep]] = x[(order // K)[keep]]
+    send_id[slot[keep]] = (s_ids % E_l)[keep]
+    return dict(gates=gates, ids=ids, logits=logits, order=order,
+                slot=slot, keep=keep, send_x=send_x, send_id=send_id,
+                dropped=int((~keep).sum()))
+
+
+def _shard_experts(rx, rid, w1, w3, w2, act: str, cap_e: Optional[int]):
+    """Stage 2, one expert shard: run its experts on the rows it received
+    (``rid`` the local expert id, -1 for an empty slot); returns the rows
+    in received order (empty slots zero) and the rows dropped."""
+    E_l = w1.shape[0]
+    valid = rid >= 0
+    cid = torch.where(valid, rid, E_l)
+    lorder = torch.argsort(cid, stable=True)
+    gs = _counts(cid, E_l + 1)[:E_l].tolist()
+    ly, dropped = _expert_groups(rx[lorder], gs, w1, w3, w2, act, cap_e)
+    ry = torch.empty_like(ly)
+    ry[lorder] = ly
+    return ry * valid[:, None].to(ry.dtype), dropped
+
+
+def _expert_slice(params, mi: int, E_l: int, dev):
+    return tuple(params[w][mi * E_l:(mi + 1) * E_l].to(dev)
+                 for w in ("w1", "w3", "w2"))
+
+
+def _moe_all_to_all(params, x2d, moe: MoEConfig, act: str, pol):
+    """Token-sharded expert parallelism (module docstring, first path);
+    returns (y, aux, dropped, counts) on x2d's device."""
+    mesh, mdl = pol.mesh, pol.model_axis
+    batch, n_model = tuple(pol.batch_axes), pol.n_model
+    E, K = moe.num_experts, moe.top_k
+    E_l = E // n_model
+    axes = batch + (mdl,)
+    n_tok = mesh.axes_size(axes)
+    T, home = x2d.shape[0], x2d.device
+    T_l = T // n_tok
+    cap = _ceil8(int(max(8, round(T_l * K / n_model
+                                  * moe.capacity_factor))))
+    cap_e = (_ceil8(int(-(-(n_model * cap) // E_l) * 1.25)) if E_l > 1
+             else None)
+    wr, br = params["w_router"], params.get("b_router")
+    st = compat.shard_map(
+        lambda i, d: dict(_shard_route(
+            x2d[i * T_l:(i + 1) * T_l].to(d), wr.to(d),
+            None if br is None else br.to(d), moe, n_model, cap), dev=d),
+        mesh, axes)
+    devs = [s["dev"] for s in st]
+    ys, dropped = [None] * n_tok, sum(s["dropped"] for s in st)
+    for g in range(n_tok // n_model):        # one batch shard's group
+        mine = range(g * n_model, (g + 1) * n_model)
+        rx = compat.all_to_all([st[i]["send_x"] for i in mine])
+        rid = compat.all_to_all([st[i]["send_id"] for i in mine])
+        back = []
+        for mi, i in enumerate(mine):
+            w = _expert_slice(params, mi, E_l, devs[i])
+            ry, d = _shard_experts(rx[mi], rid[mi], *w, act, cap_e)
+            back.append(ry)
+            dropped += d
+        by = compat.all_to_all(back)
+        for mi, i in enumerate(mine):
+            s = st[i]
+            yk = by[mi][s["slot"]] * s["keep"][:, None].to(by[mi].dtype)
+            y = torch.empty_like(yk)
+            y[s["order"]] = yk
+            ys[i] = (y.reshape(T_l, K, -1) * s["gates"][..., None].to(
+                y.dtype)).sum(dim=1).to(x2d.dtype)
+    aux = compat.psum([load_balance_loss(s["logits"], s["ids"], E)
+                       for s in st], home) / n_tok
+    counts = compat.psum([_counts(s["ids"].reshape(-1).long(), E)
+                          for s in st], home).to(torch.int32)
+    return (compat.all_gather(ys, 0, home), aux,
+            torch.tensor(float(dropped), device=home), counts)
+
+
+def _moe_psum(params, x2d, moe: MoEConfig, act: str, pol):
+    """Replicated-token expert parallelism (module docstring, second
+    path): each model shard computes its own experts' entries, at most
+    ``cap_e`` an expert (the rest dropped and counted), and the partial
+    outputs and drop counts are summed over the model axis in shard
+    order.  The reference repeats this on every batch shard; here it
+    runs once."""
+    mesh, mdl, n_model = pol.mesh, pol.model_axis, pol.n_model
+    E, K = moe.num_experts, moe.top_k
+    E_l = E // n_model
+    T, home = x2d.shape[0], x2d.device
+    cap_e = _ceil8(-(-(T * K) // E_l) * 2) if E_l > 1 else None
+    wr, br = params["w_router"], params.get("b_router")
+
+    def body(me, dev):
+        x = x2d.to(dev)
+        gates, ids, logits = route(wr.to(dev), x, K,
+                                   None if br is None else br.to(dev))
+        flat = ids.reshape(-1).long()
+        owned = (flat // E_l) == me
+        cid = torch.where(owned, flat % E_l, 0)
+        order = torch.argsort(cid + torch.where(owned, 0, E_l),
+                              stable=True)
+        gs = _counts(torch.where(owned, cid, E_l), E_l + 1)[:E_l].tolist()
+        ys, dropped = _expert_groups(
+            x[order // K], gs, *_expert_slice(params, me, E_l, dev), act,
+            cap_e)
+        y = torch.empty_like(ys)
+        y[order] = ys
+        part = (y.reshape(T, K, -1) * gates[..., None].to(y.dtype)
+                ).sum(dim=1)
+        return part, dropped, ids, logits
+
+    parts = compat.shard_map(body, mesh, (mdl,))
+    y = compat.psum([p[0] for p in parts], home).to(x2d.dtype)
+    dropped = sum(p[1] for p in parts)
+    _, _, ids, logits = parts[-1]
+    aux = load_balance_loss(logits, ids, E).to(home)
+    counts = _counts(ids.reshape(-1).long(), E).to(home, torch.int32)
+    return y, aux, torch.tensor(float(dropped), device=home), counts
+
+
+def moe_ffn_sharded(params, x2d: torch.Tensor, moe: MoEConfig,
+                    act: str = "silu", policy=None):
+    """The reference's ``moe_ffn_sharded``: (y, metrics) for x2d (T, D)
+    over ``policy``'s mesh.  The all-to-all path when T splits evenly
+    into batch x model shards of at least 8 tokens, else the
+    replicated-token path.  Metrics: ``aux_loss`` averaged over the
+    token shards, ``dropped`` (tokens past a capacity) and
+    ``expert_counts`` summed."""
+    pol = policy
+    n_tok = pol.n_batch_shards * pol.n_model
+    T = x2d.shape[0]
+    if T % n_tok == 0 and T // n_tok >= 8:
+        y, aux, dropped, counts = _moe_all_to_all(params, x2d, moe, act,
+                                                  pol)
+    else:
+        y, aux, dropped, counts = _moe_psum(params, x2d, moe, act, pol)
+    return y, {"aux_loss": aux, "dropped": dropped,
+               "expert_counts": counts}
+
+
 def moe_ffn(params, x: torch.Tensor, cfg: ModelConfig,
             aux_loss: bool = True,
-            hot_experts: Optional[Sequence[int]] = None):
-    """x: (B,S,D) -> (y, metrics), the reference's ``moe_ffn`` with no
-    mesh: ``moe_ffn_local`` over the B*S tokens, or, given a hot-expert
-    set smaller than the expert count, the branch-injected
+            hot_experts: Optional[Sequence[int]] = None, policy=None):
+    """x: (B,S,D) -> (y, metrics), the reference's ``moe_ffn``:
+    :func:`moe_ffn_sharded` under a ``policy`` with a mesh whose model
+    axis divides the experts; otherwise ``moe_ffn_local`` over the B*S tokens, or, given a
+    hot-expert set smaller than the expert count, the branch-injected
     ``moe_ffn_hotpath`` (the reference reads that set from a
     process-global installed around its trace; the trainer passes it
-    here explicitly), plus the shared experts' FFN when ``num_shared``
+    here explicitly); plus the shared experts' FFN when ``num_shared``
     is set."""
     moe = cfg.moe
     B, S, D = x.shape
-    if hot_experts and len(hot_experts) < moe.num_experts:
+    if (policy is not None and policy.mesh is not None
+            and moe.num_experts % policy.n_model == 0):
+        y, metrics = moe_ffn_sharded(params, x.reshape(B * S, D), moe,
+                                     cfg.ffn_act, policy)
+    elif hot_experts and len(hot_experts) < moe.num_experts:
         from ..core.passes.branch_inject import moe_ffn_hotpath
         y, metrics = moe_ffn_hotpath(params, x.reshape(B * S, D), cfg,
                                      tuple(hot_experts), cfg.ffn_act)

@@ -65,6 +65,7 @@ from typing import Optional, Tuple
 import torch
 import torch.utils.checkpoint
 
+from ..distributed.meshctx import constrain, get_policy
 from .attention import gqa_forward, init_attention, init_mla_attention, \
     mla_forward, project_kv
 from .config import LayerSpec, ModelConfig
@@ -164,7 +165,8 @@ def _check_cross(xkv, enc_out, enc_len: Optional[int]) -> None:
 def layer_forward(p, cfg: ModelConfig, spec: LayerSpec, x: torch.Tensor,
                   start: int = 0, cache=None, enc_out=None,
                   causal: bool = True, aux_loss: bool = True,
-                  enc_len: Optional[int] = None, hot_experts=None):
+                  enc_len: Optional[int] = None, hot_experts=None,
+                  policy=None):
     """Returns (x, new_cache, metrics); ``start`` is the position of x's
     first token.  The cache is written in place (``new_cache`` holds the
     same tensors): a Mamba layer's one-token step over a cache takes
@@ -176,7 +178,9 @@ def layer_forward(p, cfg: ModelConfig, spec: LayerSpec, x: torch.Tensor,
     dense layer adds no aux loss and drops nothing: its metrics are host
     zeros, so a decode step launches no kernels for them.  A MoE layer's
     metrics are ``moe_ffn``'s (``aux_loss=False`` skips its load-balance
-    loss; ``hot_experts`` takes its hot-expert branch)."""
+    loss; ``hot_experts`` takes its hot-expert branch).  ``policy``: a
+    :class:`~repro_torch.distributed.meshctx.MeshPolicy` for the mesh
+    branches (sequence-parallel decode, expert-parallel MoE)."""
     if spec.cross_attn:
         _check_cross(cache["xkv"] if cache is not None else None, enc_out,
                      enc_len)
@@ -185,10 +189,12 @@ def layer_forward(p, cfg: ModelConfig, spec: LayerSpec, x: torch.Tensor,
         h = rmsnorm(p["attn_norm"], x, cfg.rms_eps)
         kv = cache["kv"] if cache is not None else None
         if cfg.mla:
-            a, kvc = mla_forward(p["attn"], cfg, h, start, cache=kv)
+            a, kvc = mla_forward(p["attn"], cfg, h, start, cache=kv,
+                                 policy=policy)
         else:
             a, kvc = gqa_forward(p["attn"], cfg, h, start,
-                                 window=spec.window, cache=kv, causal=causal)
+                                 window=spec.window, cache=kv, causal=causal,
+                                 policy=policy)
         if cfg.post_norm:
             a = rmsnorm(p["attn_post_norm"], a, cfg.rms_eps)
         if new_cache is not None:
@@ -227,7 +233,8 @@ def layer_forward(p, cfg: ModelConfig, spec: LayerSpec, x: torch.Tensor,
     if spec.ffn != "none":
         h = rmsnorm(p["ffn_norm"], x, cfg.rms_eps)
         if spec.ffn == "moe":
-            f, metrics = moe_ffn(p["ffn"], h, cfg, aux_loss, hot_experts)
+            f, metrics = moe_ffn(p["ffn"], h, cfg, aux_loss, hot_experts,
+                                 policy)
         else:
             f = ffn(p["ffn"], h, cfg.ffn_act)
         if cfg.post_norm:
@@ -346,7 +353,7 @@ def lm_forward(params, cfg: ModelConfig, tokens: torch.Tensor,
                start: int = 0, cache=None,
                media_embeds: Optional[torch.Tensor] = None,
                enc_out=None, remat: bool = False, aux_loss: bool = True,
-               hot_experts=None
+               hot_experts=None, policy=None
                ) -> Tuple[torch.Tensor, Optional[dict], dict]:
     """tokens: (B, S_text); ``start``: the position of the first token (0
     for prefill and forward, ``pos`` for a decode step).  ``media_embeds``:
@@ -362,8 +369,12 @@ def lm_forward(params, cfg: ModelConfig, tokens: torch.Tensor,
     nothing_saveable)`` of its scan body; otherwise it changes nothing.
     ``aux_loss=False`` skips the MoE layers' load-balance loss (the metric
     stays 0); ``hot_experts`` takes the MoE layers' hot-expert branch.
-    Returns (logits, cache, metrics); the cache is written in place and
-    returned."""
+    ``policy`` (default: the installed one, ``meshctx.get_policy()``)
+    is threaded to every layer for the mesh branches; the reference's
+    activation constraints stand at the same points (``constrain``,
+    which partitions nothing here).  Returns (logits, cache, metrics);
+    the cache is written in place and returned."""
+    policy = policy if policy is not None else get_policy()
     S = tokens.shape[1] + (media_embeds.shape[1] if media_embeds is not None
                            else 0)
     mamba, enc_len, cross = [], None, _cross_position(cfg)
@@ -381,6 +392,7 @@ def lm_forward(params, cfg: ModelConfig, tokens: torch.Tensor,
     x = embed(params["embed"], tokens)
     if media_embeds is not None:
         x = torch.cat([media_embeds.to(x.dtype), x], dim=1)
+    x = constrain(x, ("batch", None, None))
 
     # host zeros until a MoE layer adds a tensor
     aux, dropped, counts = 0.0, 0.0, []
@@ -388,7 +400,7 @@ def lm_forward(params, cfg: ModelConfig, tokens: torch.Tensor,
     for i in range(cfg.first_k_dense):
         c = cache[f"prefix{i}"] if cache is not None else None
         x, _, m = layer_forward(params[f"prefix{i}"], cfg, dense_spec, x,
-                                start, c, aux_loss=aux_loss)
+                                start, c, aux_loss=aux_loss, policy=policy)
         aux = aux + m["aux_loss"]
     # one unbind a stacked leaf (views): its gradient is stacked once
     blocks = {f"pos{pos}": unbind_tree(params["blocks"][f"pos{pos}"],
@@ -396,6 +408,7 @@ def lm_forward(params, cfg: ModelConfig, tokens: torch.Tensor,
               for pos in range(len(cfg.pattern))}
 
     def run_period(x, i):
+        x = constrain(x, ("batch", None, None))
         aux, dropped, period = 0.0, 0.0, None
         for pos, spec in enumerate(cfg.pattern):
             key = f"pos{pos}"
@@ -403,7 +416,8 @@ def lm_forward(params, cfg: ModelConfig, tokens: torch.Tensor,
                  else None)
             x, _, m = layer_forward(blocks[key][i], cfg, spec, x, start, c,
                                     enc_out, aux_loss=aux_loss,
-                                    enc_len=enc_len, hot_experts=hot_experts)
+                                    enc_len=enc_len, hot_experts=hot_experts,
+                                    policy=policy)
             aux = aux + m["aux_loss"]
             dropped = dropped + m["dropped"]
             if "expert_counts" in m:
@@ -424,12 +438,14 @@ def lm_forward(params, cfg: ModelConfig, tokens: torch.Tensor,
             counts.append(period if period is not None else torch.zeros(
                 cfg.moe.num_experts, dtype=torch.int32, device=x.device))
 
-    x = rmsnorm(params["final_norm"], x, cfg.rms_eps)
+    x = constrain(rmsnorm(params["final_norm"], x, cfg.rms_eps),
+                  ("batch", None, None))
     if cfg.tie_embeddings:
         logits = x @ params["embed"]["table"].t()
         logits = softcap(logits, cfg.final_logit_softcap)
     else:
         logits = unembed(params["unembed"], x, cfg)
+    logits = constrain(logits, ("batch", None, "vocab"))
     if cache is not None:
         cache["filled"] = (start + S if mamba
                            else max(cache["filled"], start + S))

@@ -18,6 +18,14 @@ into the ML domain:
 Feature flags (control plane): ``vision_enabled`` (the QUIC-branch
 analogue) and ``track_sessions``.
 
+This data plane is mesh-agnostic: under a sharded runtime
+(``EngineConfig(mesh=...)``) the tables are replicated, the request
+batch's leading dim is split over the data shards, each shard runs this
+step on its rows and records its own sketches, and the sessions writes
+of every shard land in every replica — nothing here changes.  Keep
+``batch_size`` a multiple of the shard count so batches split evenly (a
+batch that does not divide runs whole on the mesh's home device).
+
 Weights: :func:`build_params` draws the port's own from a seeded
 ``torch.Generator``; :func:`params_from_numpy` carries the reference's
 across (its params tree as numpy arrays).  :func:`build_tables` draws

@@ -41,7 +41,7 @@ terminal state.
 
 The TRAINING chaos cells (``run_train_chaos``, at the end of this file)
 drive the training supervisor; their device-loss cell needs a mesh and
-raises (ROADMAP.md Queue 1 item 12).
+raises (ROADMAP.md Queue 1 item 12b).
 """
 from __future__ import annotations
 
@@ -340,7 +340,7 @@ def _final_sweep(pair: _Pair, ctl: MorpheusController, plane: ArchPlane,
 #                 advances exactly once per batch (no lost, no double
 #                 step) and the run ends re-specialized + healthy.
 #   device_loss   the elastic arc needs a mesh: raises
-#                 NotImplementedError (ROADMAP Queue 1 item 12).
+#                 NotImplementedError (ROADMAP Queue 1 item 12b).
 #   compile       injected build failures: bounded-backoff retries
 #                 absorb a short burst off the training thread; a burst
 #                 past max_retries quarantines the plan signature and
@@ -509,7 +509,7 @@ def _train_step_fault(seed: int, device, report: Dict[str, Any]) -> None:
 def _train_device_loss(seed: int, device, report: Dict[str, Any]) -> None:
     raise NotImplementedError(
         "the training device-loss arc needs a mesh and elastic resharding: "
-        "ROADMAP Queue 1 item 12")
+        "ROADMAP Queue 1 item 12b")
 
 
 def _train_compile_fault(seed: int, device, report: Dict[str, Any]) -> None:

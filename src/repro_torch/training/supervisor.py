@@ -50,7 +50,7 @@ SimulatedFailure`) fire *before* execution, so the supervisor deopts to
 * **Elastic mesh: not ported.**  A :class:`~repro_torch.distributed.\
 fault.SimulatedDeviceLoss` from the injector, :meth:`recover_devices`
   and the reshard behind them raise ``NotImplementedError``: they need a
-  mesh and resharding (ROADMAP Queue 1 item 12).
+  mesh and resharding (ROADMAP Queue 1 item 12b).
 
 Determinism caveats: ``HealthConfig.min_downtime_s`` must be 0 (the
 default) for the probe to be a pure function of step counts, and
@@ -78,7 +78,7 @@ from ..models.params import flat_tree
 from .plan import TrainPlan, TrainProfile
 
 ELASTIC = ("the elastic mesh (device loss, grow-back, reshard) is not "
-           "ported: ROADMAP Queue 1 item 12")
+           "ported: ROADMAP Queue 1 item 12b")
 # the CUDA libraries a train step launches: attention's forward and
 # backward, a Mamba layer's ssd_scan and its backward
 TRAIN_LIBRARIES = ("flash_attention", "flash_attention_bwd", "ssd_scan",
@@ -155,7 +155,7 @@ class TrainSupervisor:
         self.cache = exec_cache or ExecutableCache(self.cfg.cache_capacity)
         self.plane_id = plane_id
         self.injector = injector
-        # the reference's elastic arc snapshots there (ROADMAP item 12)
+        # the reference's elastic arc snapshots there (ROADMAP item 12b)
         self._meta_fn = meta_fn
         self._ckpt_dir = ckpt_dir
         self._log = log_fn

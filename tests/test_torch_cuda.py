@@ -1841,3 +1841,95 @@ def test_exec_cache_deduplicates_inflight_builds_on_the_card(cuda):
         assert torch.equal(got, want)
     finally:
         rt.close()
+
+
+# ---------------------------------------------------------------------------
+# the mesh on one card: return_lse through ops, the sequence-parallel
+# decode, a 4 x cuda:0 serving runtime
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ops_flash_attention_return_lse_is_the_kernels(cuda, dtype):
+    g = torch.Generator(device="cuda").manual_seed(11)
+    q = torch.randn(2, 1, 8, 128, generator=g, device=cuda).to(dtype)
+    k = torch.randn(2, 300, 2, 128, generator=g, device=cuda).to(dtype)
+    v = torch.randn(2, 300, 2, 128, generator=g, device=cuda).to(dtype)
+    out, lse = ops.flash_attention(q, k, v, causal=False, logit_softcap=30.0,
+                                   return_lse=True)
+    want_out, want_lse = fa_mod.flash_attention_cuda(
+        q, k, v, causal=False, logit_softcap=30.0, return_lse=True)
+    assert torch.equal(out, want_out) and torch.equal(lse, want_lse)
+    # and the output is the call without the logsumexp, bit for bit
+    assert torch.equal(out, ops.flash_attention(q, k, v, causal=False,
+                                                logit_softcap=30.0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,B,start,window", [
+    (torch.float32, 2, 700, None), (torch.bfloat16, 2, 700, 200),
+    (torch.bfloat16, 1, 90, None)])
+def test_seq_parallel_decode_kernel_equals_plain(cuda, dtype, B, start,
+                                                 window):
+    """The sequence-parallel GQA decode over a (2, 2) mesh of cuda:0,
+    each KV shard through the kernel, against the same decode on the
+    CPU's plain path: within the kernel's own tolerances (``FA_TOL``)."""
+    from repro_torch.distributed.meshctx import MeshPolicy
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models import attention as TA
+    g = torch.Generator().manual_seed(12)
+    cap = 1024
+    q = torch.randn(B, 1, 16, 64, generator=g)
+    k = torch.randn(B, cap, 4, 64, generator=g)
+    v = torch.randn(B, cap, 4, 64, generator=g)
+    pols = {d: MeshPolicy(mesh=make_debug_mesh(2, 2, device=d))
+            for d in ("cpu", "cuda")}
+    want = TA._gqa_decode_seq_parallel(
+        pols["cpu"], q.to(dtype).float(), k.to(dtype).float(),
+        v.to(dtype).float(), start, window=window, logit_softcap=50.0)
+    before = ops.launches().get("flash_attention", 0)
+    out = TA._gqa_decode_seq_parallel(
+        pols["cuda"], q.to(cuda, dtype), k.to(cuda, dtype),
+        v.to(cuda, dtype), start, window=window, logit_softcap=50.0)
+    n = len(list(TA._seq_shards(pols["cuda"], B, cap,
+                                0 if window is None else start + 1 - window,
+                                start + 1, False)))
+    assert ops.launches()["flash_attention"] == before + n
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    err = (out.float().cpu() - want).abs().max().item()
+    assert err <= tol * max(1.0, want.abs().max().item()), err
+
+
+@pytest.mark.cuda
+def test_mesh_serving_runtime_specialized_equals_generic_on_the_card(cuda):
+    from repro_torch.core import EngineConfig, MorpheusRuntime, SketchConfig
+    from repro_torch.distributed.meshctx import Mesh
+    from repro_torch.serving import ServeConfig, build_params, \
+        build_tables, make_serve_step, make_synthetic_batch
+    cfg = ServeConfig()
+    params = build_params(cfg, 0, "cuda")
+    for lp in params["layers"]:
+        with torch.no_grad():
+            lp["moe"]["b_router"][:3] = 6.0
+    rt = MorpheusRuntime(
+        make_serve_step(cfg), build_tables(cfg), params,
+        make_synthetic_batch(cfg, 0, device="cuda"),
+        cfg=EngineConfig(sketch=SketchConfig(sample_every=2, max_hot=32,
+                                             hot_coverage=0.8),
+                         features={"vision_enabled": False,
+                                   "track_sessions": True},
+                         moe_router_table="router",
+                         mesh=Mesh(["cuda"] * 4, ("data",))))
+    try:
+        for i in range(12):
+            rt.step(make_synthetic_batch(cfg, 100 + i, 8, device="cuda"))
+        rt.recompile(block=True)
+        assert dict(rt.plan.sites)["vocab_embed#0"].impl == "hot_cache"
+        b = make_synthetic_batch(cfg, 999, 8, device="cuda")
+        want = rt.run_generic(b)
+        before = ops.launches().get("hot_gather", 0)
+        out = rt.step(b)
+        assert ops.launches()["hot_gather"] == before + 4   # one a shard
+        assert torch.equal(out, want)
+    finally:
+        rt.close()

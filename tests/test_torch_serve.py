@@ -153,16 +153,21 @@ def test_main_runs_on_the_host(capsys):
 
 
 def test_mesh_and_xla_cache_dir_rules(monkeypatch):
+    from repro_torch.distributed.meshctx import Mesh
     assert T._resolve_mesh("none", "cpu") is None
     assert T._resolve_mesh("auto", "cpu") is None
-    with pytest.raises(NotImplementedError, match="item 12"):
+    mesh = Mesh(["cpu"] * 2, ("data",))
+    assert T._resolve_mesh(mesh, "cpu") is mesh
+    with pytest.raises(TypeError, match="Mesh"):
         T._resolve_mesh(object(), "cpu")
-    # more than one card visible: auto raises rather than using one
+    # more than one card visible: auto spans them all on "data"
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        T._resolve_mesh("auto", "cuda")
+    auto = T._resolve_mesh("auto", "cuda")
+    assert auto.size == 2 and tuple(auto.shape) == ("data",)
+    assert auto.device_list == (torch.device("cuda", 0),
+                                torch.device("cuda", 1))
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
     assert T._resolve_mesh("auto", "cuda") is None
     monkeypatch.undo()
