@@ -314,6 +314,27 @@
    Phases 19-20 each zero the launch counts just before and read them
    just after, and fail unless ``ssd_scan`` and ``ssd_scan_bwd``
    launched.
+21. Mesh-train phase (``[mesh-train]``): phi3.5-MoE at every published
+   width, 2 of 32 layers (``MESH_TRAIN``), bf16, B 4 x 2048 on a (data
+   2, model 2) mesh of cuda:0 with fsdp rules, capacity factor 4: one
+   loss and backward through the single-device path and one through the
+   mesh path on the same params, every gradient within the step's own
+   bf16 noise (the single device's bf16 gradients against its f32 ones
+   through the plain attention), the tokens routed otherwise counted,
+   nothing dropped; then ZeRO-sliced mesh steps (``grad_shardings``,
+   ``master`` / ``m`` / ``v`` split by their specs): finite losses, step
+   ms against ``[train-moe]``'s, f32 state per coordinate, peak.  Its
+   launch counts are the mesh steps' alone.
+22. Mesh-elastic phase (``[mesh-elastic]``): starcoder2-3b at every
+   width, 2 of 30 layers (``MESH_ELASTIC``), B 12 x 1024, 10 steps under
+   ``TrainSupervisor(devices=[cuda:0] x 4, sharding_fn=...)`` over a
+   ("data",) mesh: uninterrupted, then with a device lost at step 3
+   (the mesh shrinks to 3 entries) and grown back at step 6; the
+   counters, the devices by step, the optimizer's step, the final
+   leaves against the uninterrupted run's (``MESH_MASTER_RTOL``), and
+   each reshard's seconds (snapshot, restore, verify, rebuild).  Phases
+   21-22 fail unless ``flash_attention`` and ``flash_attention_bwd``
+   launched.
 
 In every model phase the kernels JSON counts ``flash_attention``'s and
 ``ssd_scan``'s launches over the two served runs alone (counts zeroed
@@ -3014,12 +3035,13 @@ def train_resume_phase(torch, ops, smi) -> None:
     shutil.rmtree(ckpt, ignore_errors=True)
 
 
-def train_moe_phase(torch, ops, smi) -> None:
+def train_moe_phase(torch, ops, smi) -> float:
     """``[train-moe]``: phi3.5-MoE at every width, 2 of 32 layers, with
     respecialization every 4 steps and a step fault after the first
     activation: a specialized plan activates and its steps run
     ``moe_ffn_hotpath``; the fault deopts and retries the same batch; the
-    optimizer's step counter advances once per batch."""
+    optimizer's step counter advances once per batch.  Returns the median
+    step ms."""
     from repro_torch.configs import get_config
     from repro_torch.core.passes import branch_inject
     from repro_torch.launch import train as T
@@ -3079,6 +3101,7 @@ def train_moe_phase(torch, ops, smi) -> None:
           f"{[round(x['loss'], 4) for x in rec]}; step ms (median) "
           f"{statistics.median(x['dt'] for x in rec) * 1e3:.0f}; peak "
           f"{gib(torch.cuda.max_memory_allocated())} on {smi}")
+    return statistics.median(x["dt"] for x in rec) * 1e3
 
 
 # mamba2-1.3b's training layer: B 4 x S 2048 (TRAIN_SSM), 64 heads x 64,
@@ -3797,6 +3820,269 @@ def mesh_model_phase(torch, ops, spec, smi) -> int:
     return served
 
 
+# phi3.5-MoE at every published width, TRAIN_MOE's cut (2 of 32 layers),
+# trained on a (data 2, model 2) mesh of cuda:0 with fsdp rules and the
+# ZeRO-sliced optimizer.  Capacity factor 4 (the reference's own no-drop
+# setting in test_sharding_elastic.py; the config's 1.25 otherwise): the
+# expert-parallel body drops past capacity where one device never does,
+# and the phase must drop nothing so that both compute one function
+MESH_TRAIN = dict(arch="phi3.5-moe-42b-a6.6b", layers=2, batch=4, seq=2048,
+                  steps=4, capacity=4.0, lr=1e-4)
+# starcoder2-3b at every width, 2 of 30 layers, under the supervisor over
+# a ("data",) mesh of 4 x cuda:0: a device lost at step 3 shrinks it to 3
+# entries, grown back at step 6.  B 12 splits by 3 and by 4
+MESH_ELASTIC = dict(arch="starcoder2-3b", layers=2, batch=12, seq=1024,
+                    steps=10, lose=3, grow=6, lr=1e-4)
+MESH_MASTER_RTOL = 1e-6    # elastic run vs uninterrupted, of a leaf's max
+
+
+def _routed_otherwise(torch, one, mesh_calls, n_layers: int) -> int:
+    """Tokens whose top-k expert set differs between the single device's
+    router calls (one a layer) and the mesh's (one a token shard a layer,
+    in shard order), over the forward's calls."""
+    n_shards = len(mesh_calls) // (2 * n_layers)   # forward + remat
+    diff = 0
+    for layer in range(n_layers):
+        a = one[layer].sort(-1).values
+        b = torch.cat(mesh_calls[layer * n_shards:(layer + 1) * n_shards]
+                      ).sort(-1).values
+        diff += int((a != b).any(-1).sum())
+    return diff
+
+
+def mesh_train_phase(torch, ops, smi, moe_ms: float) -> dict:
+    """``[mesh-train]``: MESH_TRAIN.  On the same params and batch, one
+    loss and backward through the single-device path and one through the
+    mesh path (experts through ``moe_ffn_sharded``, autograd back through
+    the collectives), their gradients held normwise within the step's
+    own bf16 noise (the single device's bf16 gradients against its f32
+    ones through the plain attention), with the tokens routed otherwise
+    counted; then ``steps`` ZeRO-sliced mesh steps, the main path.
+    Returns the main path's launches."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, TokenPipeline
+    from repro_torch.distributed.meshctx import MeshPolicy, use_policy
+    from repro_torch.distributed.sharding import make_rules, \
+        train_state_shardings
+    from repro_torch.kernels.ref import flash_attention_ref
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.model import Model
+    from repro_torch.models.params import flat_tree, trainable
+    from repro_torch.optim import AdamWConfig, init_opt_state
+    t = MESH_TRAIN
+    whole = get_config(t["arch"])
+    cfg = whole.replace(n_layers=t["layers"], moe=dataclasses.replace(
+        whole.moe, capacity_factor=t["capacity"]))
+    model = Model(cfg)
+    mesh = make_debug_mesh(2, 2, device="cuda")
+    pol = MeshPolicy(mesh=mesh)
+    r = train_reckon(torch, cfg, t["batch"], t["seq"])
+    print(f"[mesh-train] {cfg.name} at every published width, "
+          f"{t['layers']} of {whole.n_layers} layers, "
+          f"{r['params'] / 1e9:.2f} B params, bf16, B {t['batch']} x "
+          f"{t['seq']} on {mesh}, fsdp rules, capacity factor "
+          f"{t['capacity']}; reckoned state and bf16 grads "
+          f"{gib(r['bf16 params'] + r['f32 master, m, v'] + r['bf16 grads'])}")
+    torch.cuda.reset_peak_memory_stats()
+    pipe = TokenPipeline(DataConfig(vocab=cfg.vocab, seq=t["seq"],
+                                    global_batch=t["batch"], seed=0), "cuda")
+    params = trainable(model.init(0, "cuda"))
+
+    def grads(p, policy=None, plain=False):
+        real = ops.flash_attention
+        if plain:
+            ops.flash_attention = lambda q, k, v, *, causal=True, \
+                window=None, logit_softcap=0.0, **_: flash_attention_ref(
+                    q, k, v, causal=causal, window=window,
+                    logit_softcap=logit_softcap)
+        routes = []
+        try:
+            with use_policy(policy), route_tap(routes):
+                loss, m = model.loss(p, batch)
+                loss.backward()
+        finally:
+            ops.flash_attention = real
+        g = {k: q.grad for k, q in flat_tree(p).items()}
+        p.zero_grad(set_to_none=True)
+        return loss.detach().item(), m, g, routes
+
+    batch = pipe.next_batch()
+    l1, _, g1, r1 = grads(params)
+    l2, m2, g2, r2 = grads(params, pol)
+    check(float(m2["dropped"]) == 0.0,
+          f"mesh-train: the mesh's MoE dropped {float(m2['dropped'])}")
+    flips = _routed_otherwise(torch, r1, r2, cfg.n_layers)
+    del r1, r2
+    p32 = trainable(model.init(0, "cuda").float())
+    l32, _, g32, _ = grads(p32, plain=True)
+    del p32
+    noise_l = max(abs(l1 - l32), 2 ** -8 * abs(l32))
+    check(abs(l2 - l1) <= noise_l,
+          f"mesh-train: loss on the mesh {l2} vs one device {l1} (f32 "
+          f"{l32})")
+    worst = 0.0
+    for k in g1:
+        err = (g2[k].float() - g1[k].float()).abs().max().item()
+        nz = (g1[k].float() - g32[k]).abs().max().item()
+        check(err <= nz, f"mesh-train: grad {k}: |mesh - one device| {err} "
+                         f"> the single device's own bf16 noise {nz}")
+        worst = max(worst, err / max(nz, 1e-30))
+    print(f"[mesh-train] one loss and backward: mesh {l2:.6f}, one device "
+          f"{l1:.6f} (f32 {l32:.6f}); every gradient within the step's own "
+          f"bf16 noise (worst {worst:.2f} of it); {flips} of "
+          f"{cfg.n_layers * t['batch'] * t['seq']} token-layers routed "
+          f"otherwise")
+    del g1, g2, g32
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    sh = train_state_shardings(params, mesh, make_rules(False, fsdp=True))
+    state = {"params": params, "opt": init_opt_state(params, sh["opt"])}
+    per_coord = {c: 0 for c in mesh.coords()}
+    for part in ("master", "m", "v"):
+        for key, s in flat_tree(sh["opt"][part]).items():
+            n = math.prod(flat_tree(params)[key].shape) * 4
+            for c in mesh.coords():
+                per_coord[c] += n if s.replicated else n // math.prod(s.grid)
+    step = make_train_step(model, AdamWConfig(lr=t["lr"], warmup_steps=1,
+                                              total_steps=t["steps"]),
+                           grad_shardings=sh["opt"]["master"], policy=pol)
+    ops.reset_launches()
+    losses, secs = [], []
+    for _ in range(t["steps"]):
+        b = pipe.next_batch()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, b)
+        losses.append(float(m["loss"]))
+        secs.append(time.perf_counter() - t0)
+        check(float(m["dropped"]) == 0.0,
+              f"mesh-train: step dropped {float(m['dropped'])}")
+    counts = ops.launches()
+    check(all(math.isfinite(x) for x in losses), f"mesh-train: {losses}")
+    check(int(state["opt"]["step"]) == t["steps"], "mesh-train: opt step")
+    for name in ("flash_attention", "flash_attention_bwd"):
+        check(counts.get(name, 0) > 0, f"mesh-train: {name} never launched")
+    ms = statistics.median(secs[1:]) * 1e3
+    print(f"[mesh-train] {t['steps']} ZeRO-sliced mesh steps: losses "
+          f"{[round(x, 4) for x in losses]}; step ms (median of steps 2-"
+          f"{t['steps']}) {ms:.1f} against [train-moe]'s single-device "
+          f"{moe_ms:.1f}; f32 master, m, v per coordinate "
+          f"{gib(min(per_coord.values()))} - {gib(max(per_coord.values()))}"
+          f" of {gib(r['f32 master, m, v'])} whole; launches {counts}; peak "
+          f"{gib(torch.cuda.max_memory_allocated())} allocated on {smi}")
+    del state, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def mesh_elastic_phase(torch, ops, smi) -> None:
+    """``[mesh-elastic]``: MESH_ELASTIC under ``TrainSupervisor(devices=
+    [cuda:0] x 4, sharding_fn=...)``: uninterrupted first, then with a
+    device lost and grown back; the counters the CPU test asserts, the
+    final leaves against the uninterrupted run's, and each reshard's
+    seconds (what a device loss costs)."""
+    import shutil
+    import tempfile
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, TokenPipeline
+    from repro_torch.distributed.fault import FailureInjector, \
+        SimulatedDeviceLoss
+    from repro_torch.distributed.meshctx import Mesh
+    from repro_torch.distributed.sharding import gather_to_host, \
+        make_rules, train_state_shardings
+    from repro_torch.launch.train import build_state
+    from repro_torch.models.model import Model
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.training import SupervisorConfig, TrainSupervisor
+    t = MESH_ELASTIC
+    whole = get_config(t["arch"])
+    cfg = whole.replace(n_layers=t["layers"])
+    model = Model(cfg)
+    rules = make_rules(False, fsdp=True)
+    r = train_reckon(torch, cfg, t["batch"], t["seq"])
+    print(f"[mesh-elastic] {cfg.name} at every width, {t['layers']} of "
+          f"{whole.n_layers} layers, {r['params'] / 1e9:.2f} B params, state "
+          f"{gib(r['bf16 params'] + r['f32 master, m, v'])}, B {t['batch']} "
+          f"x {t['seq']}, {t['steps']} steps on a ('data',) mesh of 4 x "
+          f"cuda:0")
+    tmp = tempfile.mkdtemp(prefix="mesh_elastic_")
+
+    def run(lose: bool):
+        state = build_state(model, 0, "cuda")
+        params = state["params"]
+        inj = FailureInjector()
+        pipe = TokenPipeline(DataConfig(vocab=cfg.vocab, seq=t["seq"],
+                                        global_batch=t["batch"], seed=0),
+                             "cuda")
+        sup = TrainSupervisor(
+            model, AdamWConfig(lr=t["lr"], warmup_steps=1,
+                               total_steps=t["steps"]),
+            state, pipe.peek_batch(),
+            cfg=SupervisorConfig(respecialize_every=0),
+            devices=["cuda"] * 4,
+            sharding_fn=lambda devs: train_state_shardings(
+                params, Mesh(devs, ("data",)), rules),
+            ckpt_dir=os.path.join(tmp, "lossy" if lose else "plain"),
+            injector=inj,
+            log_fn=lambda m: print(f"[mesh-elastic] {m}", flush=True))
+        state = sup.place(state)
+        n_dev, losses = [], []
+        try:
+            for i in range(t["steps"]):
+                if lose and i == t["lose"]:
+                    inj.arm_next(SimulatedDeviceLoss("device lost"))
+                if lose and i == t["grow"]:
+                    state = sup.recover_devices(state)
+                state, m = sup.step(state, pipe.next_batch())
+                losses.append(float(m["loss"]))
+                n_dev.append(sup.stats()["n_devices"])
+            return gather_to_host(state), sup.stats(), n_dev, losses, \
+                sup.reshard_times
+        finally:
+            sup.close()
+            del state, params
+            gc.collect()
+            torch.cuda.empty_cache()
+
+    try:
+        ref, _, _, ref_losses, _ = run(False)
+        got, s, n_dev, losses, times = run(True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    check((s["device_losses"], s["grow_backs"], s["reshard_verified"],
+           s["mesh_epoch"]) == (1, 1, 2, 2), f"mesh-elastic: stats {s}")
+    want = [4] * t["lose"] + [3] * (t["grow"] - t["lose"]) + \
+        [4] * (t["steps"] - t["grow"])
+    check(n_dev == want, f"mesh-elastic: devices by step {n_dev}")
+    check(int(got["opt/step"]) == t["steps"], "mesh-elastic: opt step")
+    check(all(math.isfinite(x) for x in losses), f"mesh-elastic: {losses}")
+    worst, equal = 0.0, True
+    for k, a in ref.items():
+        equal = equal and torch.equal(a, got[k])
+        if "/master/" in f"/{k}":
+            scale = a.double().abs().max().item()
+            err = (a.double() - got[k].double()).abs().max().item()
+            check(err <= MESH_MASTER_RTOL * max(scale, 1e-30),
+                  f"mesh-elastic: {k} {err} of {scale}")
+            worst = max(worst, err / max(scale, 1e-30))
+    print(f"[mesh-elastic] devices by step {n_dev}; device_losses "
+          f"{s['device_losses']}, grow_backs {s['grow_backs']}, "
+          f"reshard_verified {s['reshard_verified']}, mesh_epoch "
+          f"{s['mesh_epoch']}, sync_compiles {s['sync_compiles']}; final "
+          f"leaves bit-equal to the uninterrupted run: {equal} (worst master "
+          f"{worst:.3e} of a leaf's max); losses {[round(x, 4) for x in losses]}"
+          f" vs {[round(x, 4) for x in ref_losses]}")
+    for i, tm in enumerate(times):
+        print(f"[mesh-elastic] reshard {i + 1} "
+              f"({'shrink 4 -> 3' if i == 0 else 'grow 3 -> 4'}): "
+              + ", ".join(f"{k[:-2]} {v:.3f} s" for k, v in tm.items())
+              + f", {sum(tm.values()):.3f} s in all on {smi}")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4046,8 +4332,8 @@ def main() -> int:
     train_plain_check(torch, ops)
     main_path("train-resume", lambda: train_resume_phase(torch, ops, smi),
               ("flash_attention", "flash_attention_bwd"))
-    main_path("train-moe", lambda: train_moe_phase(torch, ops, smi),
-              ("flash_attention", "flash_attention_bwd"))
+    moe_ms = main_path("train-moe", lambda: train_moe_phase(torch, ops, smi),
+                       ("flash_attention", "flash_attention_bwd"))
     err["ssd_scan_bwd"], timing["ssd_scan_bwd"] = ssd_bwd_kernel_phase(
         torch, smi)
     gc.collect()
@@ -4056,6 +4342,17 @@ def main() -> int:
               ("ssd_scan", "ssd_scan_bwd"))
     main_path("train-hybrid", lambda: train_hybrid_phase(torch, ops, smi),
               ("ssd_scan", "ssd_scan_bwd"))
+    gc.collect()
+    torch.cuda.empty_cache()
+    # training on a mesh: the ZeRO-sliced steps' launches alone, then the
+    # supervisor's device-loss arc
+    t = time.perf_counter()
+    counts = mesh_train_phase(torch, ops, smi, moe_ms)
+    print(f"[mesh-train] phase {time.perf_counter() - t:.1f} s")
+    for name in ("flash_attention", "flash_attention_bwd"):
+        launches[name] += counts[name]
+    main_path("mesh-elastic", lambda: mesh_elastic_phase(torch, ops, smi),
+              ("flash_attention", "flash_attention_bwd"))
     kernels = []
     for name, (src, replaces) in KERNELS.items():
         kernels.append(dict(name=name, route="cuda", source=src,

@@ -25,12 +25,22 @@ consistent view) and writes on a daemon thread; its
 :class:`CheckpointHandle`'s ``join()`` re-raises any write error.
 ``save(..., keep_last=N)`` prunes all but the newest N checkpoints.
 
+A tree placed on a mesh saves each leaf whole: a
+:class:`~repro_torch.distributed.compat.Sharded` leaf's blocks are
+gathered to the host in shard order, a
+:class:`~repro_torch.distributed.compat.Replicated` leaf's first copy is
+read, so the layout on disk does not depend on the mesh.
+
 :func:`restore` writes the stored values **into the example tree's
 tensors in place** (cast to each leaf's dtype, on its device) and
 returns that tree: the reference builds new arrays, but the trainer's
-state is most of a card, and a second copy of it would not fit.
-Restoring onto a resized mesh (the reference's ``shardings``) waits for
-ROADMAP Queue 1 item 12b.
+state is most of a card, and a second copy of it would not fit.  With
+``shardings`` (the reference's: a tree of
+:class:`~repro_torch.distributed.sharding.NamedSharding`), each leaf is
+laid out by its new spec on its new mesh, which is how a checkpoint
+survives a mesh resize: a leaf that already lies so is still written in
+place; one whose placement changes is rebuilt in its container, one leaf
+at a time, its old tensor dropped before the next is built.
 """
 from __future__ import annotations
 
@@ -45,7 +55,8 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from ..models.params import flat_tree
+from ..distributed.compat import Replicated, Sharded, host_copy
+from ..models.params import ParamTree, flat_tree, leaf_slots
 
 # torch dtypes with no numpy twin: stored as an unsigned view of one width
 _VIEWS = {torch.bfloat16: (torch.int16, np.uint16),
@@ -55,8 +66,9 @@ _VIEWS = {torch.bfloat16: (torch.int16, np.uint16),
 
 def _to_host(t) -> tuple:
     """(numpy array as stored, dtype name for the manifest): a copy, so a
-    later in-place update of ``t`` leaves it as it was."""
-    t = torch.as_tensor(t).detach().to("cpu", copy=True)
+    later in-place update of ``t`` leaves it as it was.  A placed leaf is
+    read whole (a Sharded one's blocks gathered in shard order)."""
+    t = host_copy(t)
     if t.dtype in _VIEWS:
         view, npv = _VIEWS[t.dtype]
         a = t.contiguous().view(view).numpy().view(npv)
@@ -212,11 +224,33 @@ def latest_step(ckpt_dir) -> Optional[int]:
     return max(steps) if steps else None
 
 
+def _get(box, name):
+    return getattr(box, name) if isinstance(box, ParamTree) else box[name]
+
+
+def _write_in_place(leaf, src: torch.Tensor) -> None:
+    if isinstance(leaf, Sharded):
+        for blk, sl in zip(leaf.shards, leaf.block_slices()):
+            blk.copy_(src[sl])
+    elif isinstance(leaf, Replicated):
+        for t in leaf.copies.values():
+            t.copy_(src)
+    else:
+        leaf.copy_(src.to(device=leaf.device))
+
+
 @torch.no_grad()
-def restore(ckpt_dir, step: Optional[int], example_tree) -> tuple:
-    """Returns ``(example_tree, meta)`` with every tensor leaf of
-    ``example_tree`` overwritten in place by the stored values (cast to
-    the leaf's dtype); ``meta`` holds the saved meta and ``step``."""
+def restore(ckpt_dir, step: Optional[int], example_tree,
+            shardings=None) -> tuple:
+    """Returns ``(example_tree, meta)`` with every leaf of
+    ``example_tree`` overwritten by the stored values (cast to the leaf's
+    dtype); ``meta`` holds the saved meta and ``step``.  ``shardings``
+    (same structure, :class:`~repro_torch.distributed.sharding.\
+NamedSharding` leaves) reshards onto its mesh: a leaf already laid out
+    so is written in place, any other is replaced in its container by
+    the new layout (module docstring).  A ParamTree's leaves stay whole
+    parameters: a replicated sharding puts one on the mesh's home
+    device, a split one raises."""
     _gc_stale(Path(ckpt_dir))
     if step is None:
         step = latest_step(ckpt_dir)
@@ -229,10 +263,26 @@ def restore(ckpt_dir, step: Optional[int], example_tree) -> tuple:
     missing = [k for k in flat if k not in arrays]
     if missing:
         raise KeyError(f"checkpoint missing leaves: {missing[:5]}...")
-    for key, leaf in flat.items():
+    del flat
+    flat_sh = flat_tree(shardings) if shardings is not None else {}
+    for box, name, key in leaf_slots(example_tree):
+        leaf = _get(box, name)
         src = _from_stored(arrays[key], manifest["keys"][key]["dtype"])
         if tuple(src.shape) != tuple(leaf.shape):
             raise ValueError(f"checkpoint leaf {key} is {tuple(src.shape)}, "
                              f"the tree's {tuple(leaf.shape)}")
-        leaf.copy_(src.to(device=leaf.device))
+        sh = flat_sh.get(key)
+        if sh is None or sh.holds(leaf):
+            _write_in_place(leaf, src)
+        elif isinstance(box, ParamTree):
+            if not sh.replicated:
+                raise TypeError(f"restore: the parameter {key} cannot be "
+                                f"split ({sh.spec}); params stay whole")
+            leaf.data = src.to(device=sh.mesh.home, dtype=leaf.dtype)
+        else:
+            dtype = leaf.dtype
+            box[name] = None             # drop the old layout first
+            del leaf
+            box[name] = sh.place(src, dtype)
+        del src
     return example_tree, manifest["meta"] | {"step": manifest["step"]}

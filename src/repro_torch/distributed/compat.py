@@ -33,19 +33,35 @@ from .meshctx import Mesh
 
 
 class Sharded:
-    """A value split along dimension ``dim`` into ``len(shards)`` blocks,
-    block i on its own device.  ``shape`` is the whole value's; numpy
-    reads (``np.asarray``) concatenate the blocks on the host."""
-    __slots__ = ("shards", "dim")
+    """A value split into blocks, block i on its own device.  ``dim`` is
+    the split dimension, or a tuple of them (a spec that splits several
+    dimensions); ``grid`` the number of blocks along each, row-major
+    (default: every block along the one ``dim``), which is the order of
+    :meth:`Mesh.shard_coords` over the spec's axes.  ``shape`` is the
+    whole value's; numpy reads (``np.asarray``) concatenate the blocks on
+    the host."""
+    __slots__ = ("shards", "dim", "grid")
 
-    def __init__(self, shards: Sequence[torch.Tensor], dim: int = 0):
+    def __init__(self, shards: Sequence[torch.Tensor], dim=0, grid=None):
         self.shards = tuple(shards)
         self.dim = dim
+        self.grid = (len(self.shards),) if grid is None else tuple(grid)
+        if int(np.prod(self.grid, dtype=np.int64)) != len(self.shards):
+            raise ValueError(f"Sharded: {len(self.shards)} blocks for a "
+                             f"grid of {self.grid}")
+
+    @property
+    def dims(self) -> Tuple[int, ...]:
+        return tuple(self.dim) if isinstance(self.dim, tuple) else (
+            self.dim,)
 
     @property
     def shape(self) -> torch.Size:
         s = list(self.shards[0].shape)
-        s[self.dim] = sum(int(t.shape[self.dim]) for t in self.shards)
+        for k, (d, g) in enumerate(zip(self.dims, self.grid)):
+            stride = int(np.prod(self.grid[k + 1:], dtype=np.int64))
+            s[d] = sum(int(self.shards[j * stride].shape[d])
+                       for j in range(g))
         return torch.Size(s)
 
     @property
@@ -60,25 +76,51 @@ class Sharded:
     def devices(self) -> Tuple[torch.device, ...]:
         return tuple(t.device for t in self.shards)
 
+    def block_slices(self) -> List[Tuple[slice, ...]]:
+        """Block i's place in the whole value: one slice per dimension,
+        for every block in order."""
+        out = []
+        for j, t in enumerate(self.shards):
+            sl = [slice(None)] * t.dim()
+            for d, i in zip(self.dims, np.unravel_index(j, self.grid)):
+                n = int(t.shape[d])
+                sl[d] = slice(int(i) * n, (int(i) + 1) * n)
+            out.append(tuple(sl))
+        return out
+
     def gather(self, device) -> torch.Tensor:
         """The whole value on ``device`` (blocks concatenated in order)."""
-        return torch.cat([t.to(device) for t in self.shards], self.dim)
+        return _cat_grid([t.to(device) for t in self.shards], self.dims,
+                         self.grid, torch.cat)
 
     def select(self, j: int) -> "Sharded":
-        """Index ``j`` of dimension 0, which must not be the split one
+        """Index ``j`` of dimension 0, which must not be a split one
         (a fused window's step axis)."""
-        if self.dim == 0:
+        if 0 in self.dims:
             raise ValueError("Sharded.select indexes an unsplit leading dim")
-        return Sharded([t[j] for t in self.shards], self.dim - 1)
+        dim = (self.dim - 1 if isinstance(self.dim, int)
+               else tuple(d - 1 for d in self.dim))
+        return Sharded([t[j] for t in self.shards], dim, self.grid)
 
     def __array__(self, dtype=None, copy=None):
-        a = np.concatenate([t.detach().cpu().numpy() for t in self.shards],
-                           axis=self.dim)
+        a = _cat_grid([t.detach().cpu().numpy() for t in self.shards],
+                      self.dims, self.grid, np.concatenate)
         return a if dtype is None else a.astype(dtype)
 
     def __repr__(self) -> str:
         return (f"Sharded(shape={tuple(self.shape)}, dim={self.dim}, "
+                f"grid={self.grid}, "
                 f"devices={[str(d) for d in self.devices]})")
+
+
+def _cat_grid(blocks: list, dims: Sequence[int], grid: Sequence[int], cat):
+    """Row-major ``blocks`` over ``grid`` joined along ``dims`` with
+    ``cat(list, dim)`` (``torch.cat`` or ``np.concatenate``)."""
+    if not dims:
+        return blocks[0]
+    n = len(blocks) // grid[0]
+    return cat([_cat_grid(blocks[i * n:(i + 1) * n], dims[1:], grid[1:],
+                          cat) for i in range(grid[0])], dims[0])
 
 
 class Replicated:
@@ -133,6 +175,28 @@ def split(x, devices: Sequence[torch.device], dim: int = 0) -> Sharded:
                     for b, d in zip(x.chunk(n, dim), devices)], dim)
 
 
+def split_grid(x: torch.Tensor, dims: Sequence[int], grid: Sequence[int],
+               devices: Sequence[torch.device], copy: bool = False
+               ) -> Sharded:
+    """``x`` cut into ``grid[k]`` equal blocks along each ``dims[k]``,
+    row-major, block i copied to ``devices[i]`` (``copy=True``: a block of
+    its own even where it lies already, so it holds no view of ``x``)."""
+    blocks = [x]
+    for d, g in zip(dims, grid):
+        if x.shape[d] % g:
+            raise ValueError(f"split_grid: dim {d} of {tuple(x.shape)} "
+                             f"does not divide into {g} blocks")
+        blocks = [c for b in blocks for c in b.chunk(g, d)]
+    if len(blocks) != len(devices):
+        raise ValueError(f"split_grid: {len(blocks)} blocks for "
+                         f"{len(devices)} devices")
+    out = [b.to(dev, copy=copy) for b, dev in zip(blocks, devices)]
+    if copy:
+        out = [b.contiguous() for b in out]
+    dim = dims[0] if len(dims) == 1 else tuple(dims)
+    return Sharded(out, dim, grid)
+
+
 def replicate(x: torch.Tensor, devices: Sequence[torch.device]
               ) -> Replicated:
     """``x`` placed once per distinct device of ``devices`` (a copy only
@@ -163,6 +227,16 @@ def to_home(x, device) -> Any:
     if isinstance(x, torch.Tensor):
         return x.to(device)
     return x
+
+
+def host_copy(x) -> torch.Tensor:
+    """``x`` whole on the host, in memory of its own (a :class:`Sharded`
+    gathered in shard order, a :class:`Replicated`'s first copy)."""
+    if isinstance(x, Sharded):
+        return x.gather("cpu").detach()
+    if isinstance(x, Replicated):
+        x = x.value
+    return torch.as_tensor(x).detach().to("cpu", copy=True)
 
 
 # ---------------------------------------------------------------------------

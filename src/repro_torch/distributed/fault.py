@@ -13,9 +13,9 @@ paths are exercised end to end:
   * ``StragglerMonitor`` — per-step wall-time tracking; a step slower
     than ``threshold x`` the rolling median marks the node suspect;
     after ``patience`` suspect steps the mitigation callback fires.
-
-Not ported yet: ``elastic_reshard`` (restore a checkpoint onto a new
-mesh) needs a mesh, which waits for ROADMAP.md Queue 1 item 12b.
+  * ``elastic_reshard`` — restore a checkpoint onto a resized mesh (a
+    device lost, or grown back): ``checkpoint.restore`` with the new
+    mesh's shardings.
 """
 from __future__ import annotations
 
@@ -102,3 +102,11 @@ class StragglerMonitor:
                 self._suspect = max(0, self._suspect - 1)
         self._times.append(seconds)
         return fired
+
+
+def elastic_reshard(ckpt_dir: str, example_tree, new_shardings):
+    """Resume a checkpoint onto a different mesh (fewer/more devices):
+    the latest step restored into ``example_tree`` with every leaf laid
+    out by ``new_shardings`` (``checkpoint.restore``)."""
+    from ..checkpoint import restore
+    return restore(ckpt_dir, None, example_tree, shardings=new_shardings)

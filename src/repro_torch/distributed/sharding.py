@@ -23,14 +23,27 @@ decode split their operands by hand.  Dense weights and activations are
 not partitioned (there is no SPMD partitioner): :func:`tree_device_bytes`
 reports the per-device bytes the rules *would* give, the figure the
 reference's dry run plans memory with.
+
+Training places its state by the rules too (ZeRO): :class:`NamedSharding`
+is a spec on a mesh, the reference's ``NamedSharding``;
+:func:`param_pspecs` gives a param tree its logical axes (the
+reference's ``Initializer`` records them per leaf; the port's leaves
+carry none, so they come from the leaf's name, as
+:data:`PARAM_AXES` lists them); :func:`train_state_shardings` and
+:func:`place_train_state` lay a train state out (params whole on the
+mesh's home device, ``master`` / ``m`` / ``v`` split by their specs),
+and :func:`gather_to_host` reads any placed tree back whole.
 """
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
+from ..models.params import flat_tree, leaf_slots, unflat_tree
+from . import compat
 from .meshctx import Mesh
 
 AxisPref = Tuple[str, ...]
@@ -196,3 +209,186 @@ def batch_shardings(batch_specs: dict, mesh: Mesh, rules: Rules):
             axes = ("batch",) + (None,) * (len(v.shape) - 1)
             out[k] = spec_for(axes, rules, mesh, tuple(v.shape))
     return out
+
+
+# ---------------------------------------------------------------------------
+# Training state placement (ZeRO)
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class NamedSharding:
+    """A spec (as :func:`spec_for` gives it) on a mesh: where a leaf's
+    blocks lie.  A spec that splits nothing replicates the leaf."""
+    mesh: Mesh
+    spec: tuple
+
+    @property
+    def split_dims(self) -> Tuple[int, ...]:
+        return tuple(d for d, e in enumerate(self.spec) if e is not None)
+
+    @property
+    def axes(self) -> Tuple[str, ...]:
+        """The mesh axes the spec uses, in spec order (the shard order of
+        :meth:`Mesh.shard_coords`)."""
+        out: Tuple[str, ...] = ()
+        for e in self.spec:
+            if e is not None:
+                out += e if isinstance(e, tuple) else (e,)
+        return out
+
+    @property
+    def grid(self) -> Tuple[int, ...]:
+        return tuple(_n_shards((self.spec[d],), self.mesh)
+                     for d in self.split_dims)
+
+    @property
+    def devices(self) -> Tuple[torch.device, ...]:
+        """The device of each block, in shard order."""
+        return tuple(self.mesh.device_at(c)
+                     for c in self.mesh.shard_coords(self.axes))
+
+    @property
+    def replicated(self) -> bool:
+        return not self.split_dims
+
+    def place(self, x: torch.Tensor, dtype=None):
+        """``x`` laid out by this sharding, as blocks of their own (no
+        view of ``x`` survives): a :class:`~repro_torch.distributed.\
+compat.Sharded` in shard order, or a :class:`~repro_torch.distributed.\
+compat.Replicated` for a spec that splits nothing."""
+        x = x.detach() if dtype is None else x.detach().to(dtype)
+        if self.replicated:
+            return compat.Replicated(
+                {d: x.to(d, copy=True)
+                 for d in self.mesh.distinct_devices})
+        return compat.split_grid(x, self.split_dims, self.grid,
+                                 self.devices, copy=True)
+
+    def holds(self, leaf) -> bool:
+        """True when ``leaf`` already lies as this sharding places it."""
+        if self.replicated:
+            if isinstance(leaf, compat.Replicated):
+                return tuple(leaf.copies) == self.mesh.distinct_devices
+            return (isinstance(leaf, torch.Tensor)
+                    and self.mesh.distinct_devices == (leaf.device,))
+        return (isinstance(leaf, compat.Sharded)
+                and leaf.dims == self.split_dims
+                and leaf.grid == self.grid
+                and leaf.devices == self.devices)
+
+    def cut(self, x: torch.Tensor):
+        """``x`` (a whole value, e.g. a gradient) as this sharding's
+        blocks, each on its device: views of ``x`` where a block lies on
+        ``x``'s device.  ``x`` itself for a spec that splits nothing."""
+        if self.replicated:
+            return x
+        return compat.split_grid(x, self.split_dims, self.grid,
+                                 self.devices)
+
+
+# The logical axes of every param leaf of the zoo, by the leaf's name
+# (the reference's ``Initializer`` calls: models/{attention,layers,moe,
+# ssd}.py).  A stacked leaf has one more leading "layers" axis a stack.
+PARAM_AXES: Dict[str, Tuple[Optional[str], ...]] = {
+    "wq": ("embed", "q_heads", "head_dim"),
+    "wk": ("embed", "kv_heads", "head_dim"),
+    "wv": ("embed", "kv_heads", "head_dim"),
+    "wo": ("q_heads", "head_dim", "embed"),
+    "w_dkv": ("embed", "kv_lora"),
+    "w_krope": ("embed", "head_dim"),
+    "w_uk": ("kv_lora", "q_heads", "head_dim"),
+    "w_uv": ("kv_lora", "q_heads", "head_dim"),
+    "scale": ("embed",),
+    "table": ("vocab", "embed"),
+    "w": ("embed", "vocab"),
+    "w_up": ("embed", "mlp"),
+    "w_gate": ("embed", "mlp"),
+    "w_down": ("mlp", "embed"),
+    "w_router": ("embed", None),
+    "b_router": (None,),
+    "w1": ("experts", "embed", "mlp"),
+    "w3": ("experts", "embed", "mlp"),
+    "w2": ("experts", "mlp", "embed"),
+    "in_proj": ("embed", "ssm_in"),
+    "conv_w": (None, "ssm_in"),
+    "conv_b": ("ssm_in",),
+    "A_log": ("ssm_heads",),
+    "D": ("ssm_heads",),
+    "dt_bias": ("ssm_heads",),
+    "norm_scale": ("ssm_in",),
+    "out_proj": ("ssm_in", "embed"),
+}
+
+
+def param_pspecs(params) -> Dict[str, Any]:
+    """A params tree (a ParamTree or nested dicts) as a PSpec tree of
+    nested dicts: each leaf with the reference's logical axes."""
+    out = {}
+    for key, v in flat_tree(params).items():
+        base = PARAM_AXES[key.rsplit("/", 1)[-1]]
+        extra = len(v.shape) - len(base)
+        if extra not in (0, 1):
+            raise ValueError(f"param_pspecs: {key} of shape "
+                             f"{tuple(v.shape)} has no axes for {base}")
+        out[key] = PSpec(v, ("layers",) * extra + base)
+    return unflat_tree(out)
+
+
+def named_shardings(specs, mesh: Mesh):
+    """A spec tree (:func:`shardings_for`) as :class:`NamedSharding`
+    leaves on ``mesh``."""
+    return _map_specs(lambda s: NamedSharding(mesh, s), specs)
+
+
+def _map_specs(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _map_specs(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def train_state_shardings(params, mesh: Mesh, rules: Rules) -> dict:
+    """The ZeRO layout of a train state ``{"params", "opt": {master, m,
+    v, step}}``: ``master`` / ``m`` / ``v`` by the params' specs under
+    ``rules`` (each block on its coordinate's device), the params and
+    ``step`` replicated.  ``state["opt"]["master"]`` is also the
+    ``grad_shardings`` of :func:`~repro_torch.launch.steps.\
+make_train_step`."""
+    zero = named_shardings(shardings_for(param_pspecs(params), mesh, rules),
+                           mesh)
+    rep = _map_specs(lambda _: NamedSharding(mesh, ()), zero)
+    return {"params": rep,
+            "opt": {"master": zero, "m": zero, "v": zero,
+                    "step": NamedSharding(mesh, ())}}
+
+
+@torch.no_grad()
+def place_train_state(state: dict, shardings: dict) -> dict:
+    """Lay ``state`` out by ``shardings`` (:func:`train_state_shardings`)
+    and return it.  The params (a ParamTree, whose leaves must stay
+    parameters) move whole to the mesh's home device, where the model
+    runs; the other devices of the mesh take what they need per call
+    (the expert-parallel MoE copies its experts' slices), so on a
+    repeated-device mesh the params are the one copy the replicated
+    layout asks for.  ``step`` stays a tensor on the home device.  Every
+    other leaf is placed by its sharding, one leaf at a time, its old
+    tensor dropped before the next is built."""
+    home = shardings["opt"]["step"].mesh.home
+    state["params"].to(home)
+    opt = state["opt"]
+    opt["step"] = opt["step"].to(home)
+    for part in ("master", "m", "v"):
+        sh = flat_tree(shardings["opt"][part])
+        for box, name, key in leaf_slots(opt[part]):
+            if sh[key].holds(box[name]):
+                continue
+            whole = compat.to_home(box[name], home)
+            box[name] = None
+            box[name] = sh[key].place(whole)
+            del whole
+    return state
+
+
+def gather_to_host(tree) -> Dict[str, torch.Tensor]:
+    """``{key: whole leaf on the host}`` of a placed tree (blocks
+    concatenated in shard order, a replicated leaf's first copy)."""
+    return {k: compat.host_copy(v) for k, v in flat_tree(tree).items()}

@@ -19,9 +19,12 @@ Fault taxonomy (``distributed/fault.py``):
   * ``--step-fault-at N`` — an *in-process* fault at the supervisor's
     boundary: deopts to generic, retries the same batch, never loses an
     optimizer step.
-  * ``--device-loss-at-step N`` / ``--grow-back-after K`` — the elastic
-    arc needs a mesh and resharding: they raise ``NotImplementedError``
-    (ROADMAP Queue 1 item 12b).
+  * ``--device-loss-at-step N`` / ``--grow-back-after K`` — a device
+    drops out at step N: snapshot, device-set shrink, verified elastic
+    reshard, degraded generic steps while re-specialization proceeds in
+    the background; K steps later the device set grows back.  The driver
+    trains on one device, as the reference's does, so the survivors are
+    that device and the grow-back has nothing to add.
 
 Examples:
     python -m repro_torch.launch.train --arch starcoder2-3b --batch 4 \\
@@ -45,16 +48,12 @@ from .. import resolve_device
 from ..checkpoint import latest_step, restore, save, save_async
 from ..configs import get_config
 from ..data import DataConfig, TokenPipeline
-from ..distributed.fault import FailureInjector, SimulatedFailure, \
-    StragglerMonitor
+from ..distributed.fault import FailureInjector, SimulatedDeviceLoss, \
+    SimulatedFailure, StragglerMonitor
 from ..models.model import Model
 from ..models.params import param_count, trainable
 from ..optim import AdamWConfig, init_opt_state
 from ..training import SupervisorConfig, TrainSupervisor
-
-ELASTIC = ("--device-loss-at-step / --grow-back-after: the elastic mesh is "
-           "not ported (ROADMAP Queue 1 item 12b)")
-
 
 def cut_layers(cfg, layers: int):
     """``cfg`` cut to its first ``layers`` layers at every width: a
@@ -101,9 +100,11 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="in-process fault at the supervisor boundary "
                     "(deopt + retry, no lost step)")
     ap.add_argument("--device-loss-at-step", type=int, default=None,
-                    help="not ported (raises): ROADMAP item 12b")
+                    help="simulate losing a device: snapshot + mesh "
+                    "shrink + elastic reshard + degraded continue")
     ap.add_argument("--grow-back-after", type=int, default=None,
-                    help="not ported (raises): ROADMAP item 12b")
+                    help="grow the mesh back N steps after the device "
+                    "loss")
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--respecialize-every", type=int, default=0,
@@ -120,9 +121,6 @@ def main(argv=None, on_step=None) -> int:
     """The driver.  ``on_step(step, state, metrics, seconds, supervisor)``,
     when given, is called after every step (a caller's measurements)."""
     args = parse_args(argv)
-    if args.device_loss_at_step is not None or \
-            args.grow_back_after is not None:
-        raise NotImplementedError(ELASTIC)
     device = resolve_device(args.device)
     cfg = get_config(args.arch)
     if args.smoke:
@@ -191,6 +189,15 @@ def main(argv=None, on_step=None) -> int:
             if args.step_fault_at is not None and step == args.step_fault_at:
                 fault_injector.arm_next(
                     SimulatedFailure(f"injected failure at step {step}"))
+            if (args.device_loss_at_step is not None
+                    and step == args.device_loss_at_step):
+                fault_injector.arm_next(
+                    SimulatedDeviceLoss(f"device lost at step {step}"))
+            if (args.device_loss_at_step is not None
+                    and args.grow_back_after is not None
+                    and step == (args.device_loss_at_step
+                                 + args.grow_back_after)):
+                state = sup.recover_devices(state)
             t0 = time.time()
             batch = pipe.next_batch()
             state, metrics = sup.step(state, batch)

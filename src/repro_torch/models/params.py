@@ -178,6 +178,25 @@ def flat_tree(tree, prefix: str = "") -> Dict[str, Any]:
     return out
 
 
+def leaf_slots(tree, prefix: str = ""):
+    """``(container, name, key)`` for every leaf of a tree of dicts,
+    lists and ParamTrees, in :func:`flat_tree` order: the leaf is
+    ``container[name]`` (a ParamTree's, ``getattr``; a parameter, to be
+    written in place only), and a dict's or list's may be replaced."""
+    if isinstance(tree, ParamTree):
+        for k in tree._parameters:
+            yield tree, k, prefix + k
+        for k, m in tree._modules.items():
+            yield from leaf_slots(m, f"{prefix}{k}/")
+        return
+    for k, v in _children(tree):
+        if _children(v) is None:
+            yield tree, (int(k) if isinstance(tree, list) else k), \
+                prefix + k
+        else:
+            yield from leaf_slots(v, f"{prefix}{k}/")
+
+
 def unflat_tree(flat: Dict[str, Any]) -> Dict[str, Any]:
     """Nested dicts from :func:`flat_tree`'s keys."""
     out: Dict[str, Any] = {}

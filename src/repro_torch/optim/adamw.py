@@ -16,6 +16,18 @@ past it raises :class:`~repro_torch.distributed.fault.LostStepError`
 (the trainer restores a checkpoint), a fault before it leaves the state
 as it was.  Each leaf is updated in chunks of ``CHUNK`` elements, so the
 f32 temporaries stay at a few hundred MB whatever the leaf's size.
+
+On a mesh (ZeRO), ``master``, ``m`` and ``v`` leaves are
+:class:`~repro_torch.distributed.compat.Sharded` by their specs
+(``distributed.sharding.train_state_shardings``), or
+:class:`~repro_torch.distributed.compat.Replicated` where a spec splits
+nothing: each block is updated on its own device, in place and chunked
+as above, against the gradient's same block (a ``Sharded`` gradient cut
+by the same specs, or a whole one cut here).  The gradient norm visits
+every leaf's blocks in shard order and is summed once, so the clip is
+one number for the whole tree; the new params are then gathered from
+the blocks into the params' tensors in place.  The first write is then
+the first block's, and a fault past it loses the step as before.
 """
 from __future__ import annotations
 
@@ -24,6 +36,7 @@ from dataclasses import dataclass
 
 import torch
 
+from ..distributed.compat import Replicated, Sharded, split_grid
 from ..distributed.fault import LostStepError
 from ..models.params import flat_tree, unflat_tree
 
@@ -57,12 +70,25 @@ def schedule(cfg: AdamWConfig, step) -> torch.Tensor:
     return cfg.lr * torch.where(step < cfg.warmup_steps, warm, cos)
 
 
-def init_opt_state(params) -> dict:
+def init_opt_state(params, shardings=None) -> dict:
     """``{"master", "m", "v", "step"}`` for a tree of params (a ParamTree
     or nested dicts): f32 copies and zeros on each leaf's device (on
-    ``meta`` only shapes), step 0."""
+    ``meta`` only shapes), step 0.  ``shardings`` (the ``"opt"`` part of
+    ``distributed.sharding.train_state_shardings``): ``master``, ``m``
+    and ``v`` are placed by it leaf by leaf, ``step`` on the mesh's home
+    device."""
     flat = {k: p.detach() for k, p in flat_tree(params).items()}
     dev = next(iter(flat.values())).device
+    if shardings is not None:
+        sh = flat_tree(shardings["master"])
+        master = {k: sh[k].place(p, torch.float32) for k, p in flat.items()}
+        return {
+            "master": unflat_tree(master),
+            "m": unflat_tree({k: _zeros_like(t) for k, t in master.items()}),
+            "v": unflat_tree({k: _zeros_like(t) for k, t in master.items()}),
+            "step": torch.zeros((), dtype=torch.int32,
+                                device=shardings["step"].mesh.home),
+        }
     return {
         "master": unflat_tree({k: p.to(torch.float32, copy=True)
                                for k, p in flat.items()}),
@@ -72,6 +98,50 @@ def init_opt_state(params) -> dict:
                           for k, p in flat.items()}),
         "step": torch.zeros((), dtype=torch.int32, device=dev),
     }
+
+
+def _zeros_like(x):
+    if isinstance(x, Sharded):
+        return Sharded([torch.zeros_like(t) for t in x.shards], x.dim,
+                       x.grid)
+    if isinstance(x, Replicated):
+        return Replicated({d: torch.zeros_like(t)
+                           for d, t in x.copies.items()})
+    return torch.zeros_like(x)
+
+
+def _blocks(x) -> list:
+    """A leaf's blocks in shard order: a Sharded's blocks, a Replicated's
+    first copy, a tensor itself."""
+    if isinstance(x, Sharded):
+        return list(x.shards)
+    if isinstance(x, Replicated):
+        return [x.value]
+    return [x]
+
+
+def _grad_blocks(g, like) -> list:
+    """The gradient ``g`` (whole or Sharded) as blocks that line up with
+    the state leaf ``like``'s."""
+    if isinstance(like, Sharded):
+        if not isinstance(g, Sharded):
+            g = split_grid(g, like.dims, like.grid, like.devices)
+        if g.grid != like.grid or g.dims != like.dims:
+            raise ValueError(f"a gradient split {g.grid} over {g.dims} "
+                             f"for a state split {like.grid} over "
+                             f"{like.dims}")
+        return list(g.shards)
+    if isinstance(g, Sharded):
+        g = g.gather(_blocks(like)[0].device)
+    return [g]
+
+
+def _sync_copies(x) -> None:
+    """A Replicated state leaf's other copies set to its first."""
+    if isinstance(x, Replicated):
+        first = x.value
+        for t in list(x.copies.values())[1:]:
+            t.copy_(first)
 
 
 def _chunks(t: torch.Tensor):
@@ -87,12 +157,15 @@ def global_norm(tree) -> torch.Tensor:
     inf once a gradient entry passes ~1.8e19 (or their sum 3.4e38), and
     its clip then zeroes the whole update.  starcoder2-3b at 30 layers
     with the reference's random init has such gradients (they grow ~2-3x
-    a layer, in the reference as here)."""
+    a layer, in the reference as here).  A sharded leaf's blocks are
+    visited in shard order, their sums carried to the first block's
+    device."""
     total = None
     for _, g in sorted(flat_tree(tree).items()):    # the reference's order
-        for c in _chunks(g):
-            s = c.double().square().sum()
-            total = s if total is None else total + s
+        for b in _blocks(g):                        # then shard order
+            for c in _chunks(b):
+                s = c.double().square().sum()
+                total = s if total is None else total + s.to(total.device)
     return total.sqrt().float()
 
 
@@ -119,24 +192,47 @@ def adamw_update(cfg: AdamWConfig, grads, opt_state, params=None):
     flat_p = flat_tree(params) if params is not None else None
     try:
         for key, g in sorted(flat_g.items()):
-            parts = zip(_chunks(g), _chunks(flat_ma[key]),
-                        _chunks(flat_m[key]), _chunks(flat_v[key]))
-            for gc, ma, m, v in parts:
-                # the reference's operations, one rounding each
-                gc = gc.float() * scale
-                m.mul_(cfg.b1).add_(gc * (1 - cfg.b1))
-                v.mul_(cfg.b2).add_(gc.square_().mul_(1 - cfg.b2))
-                denom = (v / bc2).sqrt_().add_(cfg.eps)
-                upd = (m / bc1).div_(denom).add_(ma * cfg.weight_decay)
-                ma.sub_(upd.mul_(lr_f))
+            ma_leaf = flat_ma[key]
+            blocks = zip(_grad_blocks(g, ma_leaf), _blocks(ma_leaf),
+                         _blocks(flat_m[key]), _blocks(flat_v[key]))
+            for gb, mab, mb, vb in blocks:
+                sc = scale.to(mab.device)
+                parts = zip(_chunks(gb), _chunks(mab), _chunks(mb),
+                            _chunks(vb))
+                for gc, ma, m, v in parts:
+                    # the reference's operations, one rounding each
+                    gc = gc.float() * sc
+                    m.mul_(cfg.b1).add_(gc * (1 - cfg.b1))
+                    v.mul_(cfg.b2).add_(gc.square_().mul_(1 - cfg.b2))
+                    denom = (v / bc2).sqrt_().add_(cfg.eps)
+                    upd = (m / bc1).div_(denom).add_(ma * cfg.weight_decay)
+                    ma.sub_(upd.mul_(lr_f))
+            for leaf in (ma_leaf, flat_m[key], flat_v[key]):
+                _sync_copies(leaf)
             if flat_p is not None:
-                flat_p[key].copy_(flat_ma[key])
+                _write_params(flat_p[key], ma_leaf)
         opt_state["step"].fill_(step)
     except Exception as e:              # noqa: BLE001 — re-raised as lost
         raise LostStepError(
             f"the optimizer failed after its first in-place write: {e}"
         ) from e
     if params is None:
-        params = unflat_tree({k: flat_ma[k].to(g.dtype, copy=True)
+        params = unflat_tree({k: _whole(flat_ma[k]).to(g.dtype, copy=True)
                               for k, g in flat_g.items()})
     return params, opt_state, {"grad_norm": gnorm, "lr": lr}
+
+
+def _whole(x) -> torch.Tensor:
+    if isinstance(x, Sharded):
+        return x.gather(x.devices[0])
+    return _blocks(x)[0]
+
+
+def _write_params(p: torch.Tensor, master) -> None:
+    """The params' tensor ``p`` set from its master, cast to ``p``'s
+    dtype: a Sharded master block by block into ``p``'s slices."""
+    if isinstance(master, Sharded):
+        for blk, sl in zip(master.shards, master.block_slices()):
+            p[sl].copy_(blk)
+    else:
+        p.copy_(_blocks(master)[0])

@@ -40,8 +40,7 @@ the accounting invariant — every submitted request reached exactly one
 terminal state.
 
 The TRAINING chaos cells (``run_train_chaos``, at the end of this file)
-drive the training supervisor; their device-loss cell needs a mesh and
-raises (ROADMAP.md Queue 1 item 12b).
+drive the training supervisor.
 """
 from __future__ import annotations
 
@@ -339,8 +338,9 @@ def _final_sweep(pair: _Pair, ctl: MorpheusController, plane: ArchPlane,
 #                 retries the same batch: the optimizer step counter
 #                 advances exactly once per batch (no lost, no double
 #                 step) and the run ends re-specialized + healthy.
-#   device_loss   the elastic arc needs a mesh: raises
-#                 NotImplementedError (ROADMAP Queue 1 item 12b).
+#   device_loss   snapshot -> mesh shrink -> elastic reshard (verified
+#                 bitwise) -> degraded generic -> background
+#                 re-specialization -> healthy.
 #   compile       injected build failures: bounded-backoff retries
 #                 absorb a short burst off the training thread; a burst
 #                 past max_retries quarantines the plan signature and
@@ -507,9 +507,41 @@ def _train_step_fault(seed: int, device, report: Dict[str, Any]) -> None:
 
 
 def _train_device_loss(seed: int, device, report: Dict[str, Any]) -> None:
-    raise NotImplementedError(
-        "the training device-loss arc needs a mesh and elastic resharding: "
-        "ROADMAP Queue 1 item 12b")
+    from ..data import TokenPipeline
+
+    steps, lose_at = 32, 14
+    dcfg, make_sup = _train_cell(seed, steps, device)
+    inj = FailureInjector()
+    sup, state = make_sup(injector=inj)
+    pipe = TokenPipeline(dcfg, device)
+    for i in range(steps):
+        if i == lose_at:
+            inj.arm_next(SimulatedDeviceLoss("chaos: device lost"))
+        state, m = sup.step(state, pipe.next_batch())
+        if i == lose_at:
+            _assert_train(not sup.active_plan.specialized,
+                          "device_loss: not on generic after reshard")
+    s = sup.stats()
+    _assert_train(s["device_losses"] == 1 and s["reshard_verified"] == 1,
+                  f"device_loss: reshard not verified ({s})")
+    _assert_train(s["mesh_epoch"] == 1,
+                  "device_loss: cache namespace never rotated")
+    _assert_train(_opt_step(state) == steps,
+                  f"device_loss: optimizer applied {_opt_step(state)} "
+                  f"updates for {steps} batches")
+    # the post-reshard generic is the only extra training-thread build
+    _assert_train(s["sync_compiles"] == 2,
+                  f"device_loss: unexpected training-thread builds "
+                  f"(sync_compiles={s['sync_compiles']})")
+    _assert_train(s["respecialize_recoveries"] >= 1
+                  and s["health"] == HEALTHY
+                  and s["active"].startswith("specialized"),
+                  f"device_loss: plane never re-specialized "
+                  f"(health={s['health']} active={s['active']})")
+    _assert_train(np.isfinite(float(m["loss"])),
+                  "device_loss: non-finite loss after reshard")
+    sup.close()
+    report.update(loss_step=lose_at, stats=s)
 
 
 def _train_compile_fault(seed: int, device, report: Dict[str, Any]) -> None:

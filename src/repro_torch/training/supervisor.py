@@ -47,10 +47,19 @@ SimulatedFailure`) fire *before* execution, so the supervisor deopts to
   step waiting at the barrier exactly like any other swap.  A
   quarantined signature deopts instead.
 
-* **Elastic mesh: not ported.**  A :class:`~repro_torch.distributed.\
-fault.SimulatedDeviceLoss` from the injector, :meth:`recover_devices`
-  and the reshard behind them raise ``NotImplementedError``: they need a
-  mesh and resharding (ROADMAP Queue 1 item 12b).
+* **Elastic mesh.**  :class:`~repro_torch.distributed.fault.\
+SimulatedDeviceLoss` triggers snapshot → device-set shrink →
+  :func:`~repro_torch.distributed.fault.elastic_reshard` (verified bit
+  for bit) → continue *degraded* on the generic step over the survivors
+  while re-specialization proceeds in the background (health-gated);
+  :meth:`recover_devices` grows back.  ``devices`` is the device set (a
+  list that may repeat a device) and ``sharding_fn(devices)`` the train
+  state's layout on a mesh over it
+  (``distributed.sharding.train_state_shardings``): the state is placed
+  by it (:meth:`place`) and every step's gradients and optimizer state
+  are ZeRO-sliced by its ``master`` specs.  Every reshard rotates the
+  cache namespace (``purge_namespace``): executables are topology-bound,
+  their key holding the layout.
 
 Determinism caveats: ``HealthConfig.min_downtime_s`` must be 0 (the
 default) for the probe to be a pure function of step counts, and
@@ -66,19 +75,19 @@ from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
+import torch
 
 from ..core.controller.health import HealthConfig, PlaneHealth, QUARANTINED
 from ..core.controller.scheduler import RecompileScheduler
 from ..core.execcache import ExecutableCache, batch_key
 from ..distributed.fault import (LostStepError, SimulatedCompileFailure,
-                                 SimulatedDeviceLoss, SimulatedFailure)
+                                 SimulatedDeviceLoss, SimulatedFailure,
+                                 elastic_reshard)
 from ..kernels import build as kernel_build
 from ..launch.steps import make_train_step
 from ..models.params import flat_tree
 from .plan import TrainPlan, TrainProfile
 
-ELASTIC = ("the elastic mesh (device loss, grow-back, reshard) is not "
-           "ported: ROADMAP Queue 1 item 12b")
 # the CUDA libraries a train step launches: attention's forward and
 # backward, a Mamba layer's ssd_scan and its backward
 TRAIN_LIBRARIES = ("flash_attention", "flash_attention_bwd", "ssd_scan",
@@ -142,6 +151,8 @@ class TrainSupervisor:
     def __init__(self, model, opt_cfg, state, example_batch, *,
                  cfg: Optional[SupervisorConfig] = None,
                  exec_cache: Optional[ExecutableCache] = None,
+                 devices: Optional[List] = None,
+                 sharding_fn: Optional[Callable[[List], Any]] = None,
                  plane_id: str = "train",
                  ckpt_dir: Optional[str] = None,
                  meta_fn: Optional[Callable[[], Dict]] = None,
@@ -155,7 +166,6 @@ class TrainSupervisor:
         self.cache = exec_cache or ExecutableCache(self.cfg.cache_capacity)
         self.plane_id = plane_id
         self.injector = injector
-        # the reference's elastic arc snapshots there (ROADMAP item 12b)
         self._meta_fn = meta_fn
         self._ckpt_dir = ckpt_dir
         self._log = log_fn
@@ -166,10 +176,18 @@ class TrainSupervisor:
             backoff_base_s=h.backoff_base_s, backoff_cap_s=h.backoff_cap_s,
             max_retries=h.max_retries, on_give_up=self._on_give_up,
             clock=h.clock)
-        self._device = example_batch["tokens"].device
+        self._devices = (list(devices) if devices
+                         else [example_batch["tokens"].device])
+        self._all_devices = list(self._devices)
+        self._sharding_fn = sharding_fn
         self._mesh_epoch = 0
-        # the executables' key: shapes and dtypes only (no live tensors)
-        self._bkey = (batch_key(flat_tree(state)), batch_key(example_batch))
+        # shapes and dtypes only (no live tensors)
+        self._state_key = batch_key(flat_tree(state))
+        self._batch_key = batch_key(example_batch)
+        self._refresh_layout()
+        # seconds of each reshard's phases (snapshot, restore, verify,
+        # rebuild), in order
+        self.reshard_times: List[Dict[str, float]] = []
         self._lock = threading.Lock()
         self._stats_lock = threading.Lock()
         self._stats: Dict[str, Any] = {
@@ -205,14 +223,31 @@ class TrainSupervisor:
     def _ns(self) -> str:
         return f"train/{self.plane_id}@{self._mesh_epoch}"
 
+    def _refresh_layout(self) -> None:
+        """The current topology's state layout, gradient shardings and
+        executable key (shapes, dtypes and where each leaf lies)."""
+        self._shardings = (self._sharding_fn(self._devices)
+                           if self._sharding_fn is not None else None)
+        self._grad_sh = (self._shardings["opt"]["master"]
+                         if self._shardings is not None else None)
+        layout = (() if self._shardings is None else tuple(
+            (k, sh.spec, tuple(str(d) for d in sh.devices))
+            for k, sh in flat_tree(self._shardings).items()))
+        self._bkey = (self._state_key, self._batch_key, layout)
+
     def place(self, tree):
-        """The reference places a tree per its mesh's sharding; one card
-        has none, so the tree is returned as it is."""
-        return tree
+        """Lay a live train state out by the current topology's sharding
+        (``distributed.sharding.place_train_state``; a no-op without a
+        ``sharding_fn``).  Call once on the initial state.  Batches need
+        no placement: the model runs on the mesh's home device."""
+        if self._shardings is None:
+            return tree
+        from ..distributed.sharding import place_train_state
+        return place_train_state(tree, self._shardings)
 
     @property
     def devices(self) -> List:
-        return [self._device]
+        return list(self._devices)
 
     @property
     def mesh_epoch(self) -> int:
@@ -222,13 +257,16 @@ class TrainSupervisor:
     def _compile_plan(self, plan: TrainPlan, sync: bool):
         key = ExecutableCache.make_key(self._ns, (plan.signature, ()),
                                        self._bkey)
+        grad_sh = self._grad_sh          # this topology's, at build time
+        devices = [torch.device(d) for d in self._devices]
 
         def build():
             t0 = time.perf_counter()
             fn = make_train_step(self.model, self.opt_cfg,
                                  microbatches=self.cfg.microbatches,
-                                 hot_experts=plan.hot or ())
-            if self._device.type == "cuda":
+                                 hot_experts=plan.hot or (),
+                                 grad_shardings=grad_sh)
+            if any(d.type == "cuda" for d in devices):
                 for name in TRAIN_LIBRARIES:
                     kernel_build.load(name)
             return fn, time.perf_counter() - t0
@@ -480,7 +518,7 @@ class TrainSupervisor:
                 "degraded": self._degraded,
                 "fault_step": self._fault_step,
                 "mesh_epoch": self._mesh_epoch,
-                "n_devices": 1}
+                "n_devices": len(self._devices)}
 
     def restore_spec(self, spec: Optional[Dict[str, Any]],
                      resume_step: Optional[int] = None) -> None:
@@ -536,17 +574,88 @@ class TrainSupervisor:
                       f"hot={tuple(spec['active_hot'])} from checkpoint")
 
     # ---- elastic mesh -----------------------------------------------------
+    def _elastic_dir(self) -> str:
+        if self._ckpt_dir is None:
+            import tempfile
+            self._ckpt_dir = tempfile.mkdtemp(prefix="morpheus_elastic_")
+        return str(self._ckpt_dir) + "/.elastic"
+
     def _device_loss(self, state, exc):
-        """The reference's device-loss arc (snapshot, mesh shrink,
-        elastic reshard, degraded generic): not ported."""
-        raise NotImplementedError(f"{ELASTIC} (fault: {exc})")
+        """The device-loss arc: snapshot → shrink the device set →
+        elastic reshard → continue degraded on generic over the
+        survivors (re-specialization is health-gated background work)."""
+        with self._stats_lock:
+            self._stats["device_losses"] += 1
+        survivors = self._devices[:-1] or self._devices
+        self._log(f"morpheus: device loss at step {self._step} ({exc}); "
+                  f"shrinking {len(self._devices)} -> {len(survivors)} "
+                  f"device(s)")
+        state = self._reshard(state, survivors)
+        reason = f"device loss: {exc}"
+        self._degraded = reason
+        self._fault_step = self._step
+        self.health.on_fault(reason, steps=self._step)
+        self._log(f"morpheus: degraded on {len(self._devices)} device(s); "
+                  f"re-specialization continues in background")
+        return state
 
     def recover_devices(self, state):
-        """The reference's grow-back arc: not ported."""
-        raise NotImplementedError(ELASTIC)
+        """Grow back to the full device set (the inverse arc: snapshot →
+        reshard onto all devices → re-specialize at the next decision
+        boundary)."""
+        if len(self._devices) >= len(self._all_devices):
+            return state
+        with self._stats_lock:
+            self._stats["grow_backs"] += 1
+        self._log(f"morpheus: growing back "
+                  f"{len(self._devices)} -> {len(self._all_devices)} "
+                  f"device(s)")
+        return self._reshard(state, list(self._all_devices))
 
     def _reshard(self, state, devices):
-        raise NotImplementedError(ELASTIC)
+        """Snapshot ``state`` (kept on the host too), move to ``devices``
+        under a new cache namespace, restore the snapshot onto their
+        layout (into ``state``: in place where a leaf's layout holds,
+        rebuilt leaf by leaf where it changes), verify it bit for bit
+        against the host copy, and rebuild the resident generic step —
+        the one extra training-thread build a topology change costs."""
+        from ..checkpoint import save
+        from ..distributed.sharding import gather_to_host
+        t0 = time.perf_counter()
+        snap_dir = self._elastic_dir()
+        meta = dict(self._meta_fn() if self._meta_fn is not None else {})
+        meta["morpheus"] = self.spec_meta()
+        save(snap_dir, self._step, state, meta=meta, keep_last=2)
+        host = gather_to_host(state)
+        t1 = time.perf_counter()
+        old_ns = self._ns
+        self._devices = list(devices)
+        self._mesh_epoch += 1
+        self.cache.purge_namespace(old_ns)   # executables are
+        self._refresh_layout()               # topology-bound
+        restored, _ = elastic_reshard(snap_dir, state, self._shardings)
+        t2 = time.perf_counter()
+        got = gather_to_host(restored)
+        ok = got.keys() == host.keys() and all(
+            torch.equal(got[k], host[k]) for k in host)
+        del got, host
+        t3 = time.perf_counter()
+        if not ok:                           # corrupt restore: stop, do
+            raise LostStepError(             # not train on garbage
+                f"elastic reshard verification failed at step "
+                f"{self._step}")
+        with self._stats_lock:
+            self._stats["reshard_verified"] += 1
+        self._generic_exe = self._compile_plan(self._generic_plan,
+                                               sync=True)
+        with self._lock:
+            self._active = (self._generic_plan, self._generic_exe)
+            self._staged.clear()
+        self._cov_window.clear()
+        self.reshard_times.append({
+            "snapshot_s": t1 - t0, "restore_s": t2 - t1,
+            "verify_s": t3 - t2, "rebuild_s": time.perf_counter() - t3})
+        return restored
 
     # ---- introspection ----------------------------------------------------
     @property
@@ -564,7 +673,7 @@ class TrainSupervisor:
         out["health"] = self.health.state
         out["active"] = self.active_plan.label
         out["mesh_epoch"] = self._mesh_epoch
-        out["n_devices"] = 1
+        out["n_devices"] = len(self._devices)
         with self._lock:
             out["staged_pending"] = len(self._staged)
         return out

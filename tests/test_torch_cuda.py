@@ -1933,3 +1933,92 @@ def test_mesh_serving_runtime_specialized_equals_generic_on_the_card(cuda):
         assert torch.equal(out, want)
     finally:
         rt.close()
+
+
+# ---------------------------------------------------------------------------
+# training on a mesh of one card (ZeRO-sliced state, resized restores)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+def test_mesh_train_step_on_the_card_is_call_equal_and_uses_the_kernels(
+        cuda):
+    """phi3.5-MoE smoke in bf16 on a (data 2, model 2) mesh of cuda:0,
+    fsdp rules, ZeRO-sliced: two runs of two steps from the same params
+    give the same bits, and every step launches flash_attention forward
+    and backward."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, TokenPipeline
+    from repro_torch.distributed.meshctx import MeshPolicy
+    from repro_torch.distributed.sharding import gather_to_host, \
+        make_rules, place_train_state, train_state_shardings
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.launch.train import build_state
+    from repro_torch.models.model import Model
+    from repro_torch.optim import AdamWConfig
+    cfg = get_config("phi3.5-moe-42b-a6.6b").smoke()
+    cfg = cfg.replace(moe=dataclasses.replace(cfg.moe, capacity_factor=2.0))
+    model = Model(cfg)
+    mesh = make_debug_mesh(2, 2, device=cuda)
+    dcfg = DataConfig(vocab=cfg.vocab, seq=64, global_batch=4, seed=0)
+    runs = []
+    for _ in range(2):
+        state = build_state(model, 0, cuda)
+        sh = train_state_shardings(state["params"], mesh,
+                                   make_rules(False, fsdp=True))
+        state = place_train_state(state, sh)
+        step = make_train_step(model, AdamWConfig(lr=1e-3),
+                               grad_shardings=sh["opt"]["master"],
+                               policy=MeshPolicy(mesh=mesh))
+        pipe = TokenPipeline(dcfg, cuda)
+        losses = []
+        for _ in range(2):
+            ops.reset_launches()
+            state, m = step(state, pipe.next_batch())
+            n = ops.launches()
+            assert n.get("flash_attention", 0) >= cfg.n_layers, n
+            assert n.get("flash_attention_bwd", 0) == cfg.n_layers, n
+            assert float(m["dropped"]) == 0.0
+            losses.append(float(m["loss"]))
+        runs.append((losses, gather_to_host(state)))
+    (l1, h1), (l2, h2) = runs
+    assert l1 == l2 and all(np.isfinite(l1))
+    assert all(torch.equal(h1[k], h2[k]) for k in h1)
+
+
+@pytest.mark.cuda
+def test_restore_onto_a_mesh_of_three_on_the_card_is_bit_equal(cuda,
+                                                                 tmp_path):
+    """A train state ZeRO-sliced over 4 entries of cuda:0, saved, and
+    restored with ``shardings=`` onto 3 entries: every leaf bit-equal,
+    the split leaves in 3 blocks, those that do not divide by 3
+    replicated."""
+    from repro_torch.checkpoint import restore, save
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.compat import Sharded
+    from repro_torch.distributed.meshctx import Mesh
+    from repro_torch.distributed.sharding import gather_to_host, \
+        make_rules, place_train_state, train_state_shardings
+    from repro_torch.launch.train import build_state
+    from repro_torch.models.model import Model
+    from repro_torch.models.params import flat_tree
+    cfg = get_config("starcoder2-3b").smoke().replace(d_model=96)
+    rules = make_rules(False, fsdp=True)
+    state = build_state(Model(cfg), 0, cuda)
+    params = state["params"]
+    state = place_train_state(state, train_state_shardings(
+        params, Mesh([cuda] * 4, ("data",)), rules))
+    host = gather_to_host(state)
+    save(str(tmp_path), 1, state)
+    sh3 = train_state_shardings(params, Mesh([cuda] * 3, ("data",)), rules)
+    out, meta = restore(str(tmp_path), None, state, shardings=sh3)
+    assert meta["step"] == 1
+    got = gather_to_host(out)
+    assert all(torch.equal(got[k], host[k]) for k in host)
+    split = 0
+    for key, s in flat_tree(sh3["opt"]["master"]).items():
+        leaf = flat_tree(out["opt"]["master"])[key]
+        assert s.holds(leaf), key
+        split += isinstance(leaf, Sharded) and len(leaf.shards) == 3
+    assert split > 0

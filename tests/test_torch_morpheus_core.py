@@ -13,8 +13,9 @@ set (``test_adaptive_controller_backs_off``), held on the sampler the
 runtime uses by
 ``test_torch_controller.py::test_sampling_backs_off_then_disarms_and_rearms``
 (the reference's ``AdaptiveController`` has no caller, so the port has
-none).  ``test_sketch_merge`` waits for the mesh (ROADMAP item 12): the
-reference merges sketches only across the shards of a mesh."""
+none).  ``test_sketch_merge``'s merge is held on the mesh, where the
+reference merges sketches across the shards, by
+``test_torch_sharded_runtime.py::test_sharded_record_merge_equals_reference_single_device``."""
 import dataclasses
 
 import jax.numpy as jnp

@@ -30,7 +30,7 @@ scale, on the CPU, with the reference's weights carried across by
   Zipf skew (the twin of ``test_substrate.py::test_pipeline_zipf_skew``);
 - the twins of ``test_substrate.py``'s CLI tests (crash and resume, the
   hot-expert swap) through ``python -m repro_torch.launch.train --device
-  cpu``.
+  cpu``, and the driver's device-loss and grow-back flags.
 """
 import os
 import subprocess
@@ -435,9 +435,24 @@ def test_train_morpheus_hot_expert_swap():
 
 
 def test_elastic_flags_raise():
+    """``--device-loss-at-step`` / ``--grow-back-after`` (the name
+    predates them): the driver trains on one device, as the reference's,
+    so the device loss reshards onto that device, verified, and the
+    grow-back has nothing to add; the run reaches its end."""
     from repro_torch.launch.train import main
-    with pytest.raises(NotImplementedError, match="item 12"):
-        main(["--device-loss-at-step", "3", "--device", "cpu"])
+    seen = []
+    rc = main(["--arch", "starcoder2-3b", "--smoke", "--steps", "8",
+               "--batch", "2", "--seq", "16", "--ckpt-every", "0",
+               "--log-every", "100", "--device-loss-at-step", "3",
+               "--grow-back-after", "2", "--device", "cpu"],
+              on_step=lambda step, state, m, dt, sup: seen.append(
+                  (step, sup.stats(), int(state["opt"]["step"]))))
+    assert rc == 0
+    last = seen[-1][1]
+    assert last["device_losses"] == 1 and last["reshard_verified"] == 1
+    assert last["grow_backs"] == 0 and last["mesh_epoch"] == 1
+    assert [s[1]["device_losses"] for s in seen] == [0, 0, 0] + [1] * 5
+    assert [s[2] for s in seen] == list(range(1, 9))
 
 
 def test_the_trainer_needs_the_card_unless_told_otherwise():

@@ -6,8 +6,8 @@
                 resume;
   step_fault    deopt + same-batch retry, the optimizer step counter
                 advances exactly once per batch, terminal re-specialized;
-  device_loss   needs a mesh: held to raise NotImplementedError
-                (ROADMAP Queue 1 item 12);
+  device_loss   snapshot -> mesh shrink -> verified elastic reshard ->
+                degraded generic -> background re-specialization;
   compile       bounded-backoff absorption of short bursts, signature
                 quarantine past max_retries, training survives both.
 
@@ -43,10 +43,6 @@ CELLS = [pytest.param(s, id=f"train-chaos-{s}", marks=(
 
 @pytest.mark.parametrize("scenario", CELLS)
 def test_train_chaos_cell(scenario):
-    if scenario == "device_loss":
-        with pytest.raises(NotImplementedError, match="item 12"):
-            run_train_chaos(scenario, seed=0, device="cpu")
-        return
     report = run_train_chaos(scenario, seed=0, device="cpu")
     assert report["scenario"] == scenario
     if scenario == "crash_resume":
@@ -56,6 +52,10 @@ def test_train_chaos_cell(scenario):
     elif scenario == "step_fault":
         assert report["stats"]["step_faults"] == 1
         assert report["stats"]["respecialize_recoveries"] >= 1
+    elif scenario == "device_loss":
+        assert report["stats"]["device_losses"] == 1
+        assert report["stats"]["reshard_verified"] == 1
+        assert report["stats"]["mesh_epoch"] == 1
     elif scenario == "compile":
         assert report["absorbed_stats"]["quarantines"] == 0
         assert report["quarantine_stats"]["quarantines"] == 1

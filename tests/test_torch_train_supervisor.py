@@ -4,9 +4,10 @@ decision function, profile checkpoint-coupling, the cache-key anatomy
 that lets ``ExecutableCache.quarantine`` purge train executables), then
 the port's own fault boundary: a fault in the forward or the backward
 deopts and retries the same batch, one after the optimizer's first
-in-place write raises ``LostStepError``, the device-loss arc raises
-(ROADMAP Queue 1 item 12).  The end-to-end arcs live in
-``tests/test_torch_train_chaos.py``."""
+in-place write raises ``LostStepError``, and the device-loss arc on one
+device, the reference's own case (the survivors are the same device).
+The end-to-end arcs live in ``tests/test_torch_train_chaos.py``, the
+arc on a mesh in ``tests/test_torch_sharded_train.py``."""
 import json
 
 import numpy as np
@@ -210,11 +211,35 @@ def test_a_fault_after_the_optimizers_first_write_loses_the_step(
 
 
 def test_device_loss_raises_not_implemented():
+    """The one-device arc, the reference's own case (the name predates
+    it): the survivors are the same device.  A specialized MoE plane
+    snapshots, reshards onto the survivors verified bit for bit under a
+    new cache namespace, rebuilds its generic step (the one extra
+    training-thread build), runs degraded on it, and the health probe
+    and the next decision bring it back healthy and specialized; the
+    grow-back has nothing to add."""
+    from repro_torch.data import TokenPipeline
+    from repro_torch.testing.chaos import _train_cell
+    dcfg, make_sup = _train_cell(0, 32, "cpu")
     inj = FailureInjector()
-    _, sup, state, pipe = _plane(injector=inj)
-    inj.arm_next(SimulatedDeviceLoss("lost"))
-    with pytest.raises(NotImplementedError, match="item 12"):
-        sup.step(state, pipe.next_batch())
-    with pytest.raises(NotImplementedError, match="item 12"):
-        sup.recover_devices(state)
+    sup, state = make_sup(injector=inj)
+    pipe = TokenPipeline(dcfg, "cpu")
+    for i in range(32):
+        if i == 14:
+            assert sup.active_plan.specialized
+            inj.arm_next(SimulatedDeviceLoss("lost"))
+        state, m = sup.step(state, pipe.next_batch())
+        if i == 14:
+            s = sup.stats()
+            assert (s["device_losses"], s["reshard_verified"],
+                    s["mesh_epoch"], s["sync_compiles"],
+                    s["n_devices"]) == (1, 1, 1, 2, 1)
+            assert s["health"] == "degraded" and s["active"] == "generic"
+            assert all(k[0] == "train/train@1" for k in sup.cache._entries)
+            assert sup.spec_meta()["mesh_epoch"] == 1
+            assert sup.recover_devices(state) is state
+    s = sup.stats()
+    assert s["grow_backs"] == 0 and s["sync_compiles"] == 2
+    assert s["health"] == "healthy" and s["active"].startswith("specialized")
+    assert int(state["opt"]["step"]) == 32 and np.isfinite(float(m["loss"]))
     sup.close()
