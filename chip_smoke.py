@@ -335,6 +335,18 @@
    each reshard's seconds (snapshot, restore, verify, rebuild).  Phases
    21-22 fail unless ``flash_attention`` and ``flash_attention_bwd``
    launched.
+23. Dry-run phase (``[dryrun]``): three steps the card runs at full
+   width (``[train-dense]``'s starcoder2-3b train step, gemma2-9b's
+   prefill and decode step at ``[model]``'s 2 x 6144), each counted by
+   ``launch/op_analysis.py``'s recorder once on ``meta`` tensors and once
+   on the card: FLOPs by class, bytes and each kernel's calls, FLOPs and
+   bytes must be equal; each step's device time (CUDA events, median of
+   5 after 2) must be at least its roofline's ``max(t_compute,
+   t_memory)``; the card's peak allocation within ``DRYRUN_PEAK_BAND``
+   of the recorded peak plus the arguments.  Then
+   ``examples/multiarch_dryrun_torch.py`` traces llama3-8b
+   ``decode_32k`` on the meta production mesh in a subprocess and must
+   write its record.  Its launches count in the kernels JSON.
 
 In every model phase the kernels JSON counts ``flash_attention``'s and
 ``ssd_scan``'s launches over the two served runs alone (counts zeroed
@@ -365,9 +377,9 @@ from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-HBM_BYTES_PER_S = 3.35e12       # H100 SXM data sheet
-F32_FLOP_PER_S = 67e12          # H100 SXM, f32 outside the tensor cores
-TF32_FLOP_PER_S = 495e12        # H100 SXM, dense TF32 tensor cores
+# the card's peaks (HBM_BYTES_PER_S, BF16_ / TF32_ / F32_FLOP_PER_S) and
+# the kernels' work (FLOPs by class, bytes) come from the package:
+# repro_torch.launch.op_analysis and repro_torch.kernels.work
 KERNELS = {                     # name -> (source, TPU kernel it replaces)
     "hot_gather": ("src/repro_torch/kernels/csrc/hot_gather.cu",
                    "src/repro/kernels/hot_gather.py:42"),
@@ -1450,9 +1462,11 @@ def time_hot_gather(torch, hot_gather_cuda, hot_gather_ref, table, hot_ids,
     cold = idx[~torch.isin(idx, hot_ids)]
     n_cold_rows = int(torch.unique(cold).numel())
     # each input read once (only the rows this run needs), output written
-    nbytes = (idx.numel() * 4 + hot_ids.numel() * 4 + hot_rows.numel()
-              * table.element_size() + n_cold_rows * row + T * row)
     from repro_torch.kernels import ops
+    from repro_torch.kernels.work import hot_gather_work
+    from repro_torch.launch.op_analysis import bound
+    work = hot_gather_work(table, hot_rows, hot_ids, idx, n_cold_rows)
+    nbytes = work.bytes
     kern = lambda: hot_gather_cuda(table, hot_rows, hot_ids, idx)
     plain = lambda: hot_gather_ref(table, hot_rows, hot_ids, idx)
     lib = lambda: table.index_select(0, idx)
@@ -1463,8 +1477,8 @@ def time_hot_gather(torch, hot_gather_cuda, hot_gather_ref, table, hot_ids,
         "ms": device_ms(torch, kern),
         "plain_ms": device_ms(torch, plain),
         "library_ms": device_ms(torch, lib),
-        "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
-        "bound_by": "bytes",
+        "bound_ms": bound(work)[0] * 1e3,
+        "bound_by": bound(work)[1],
     }
     check(ops.launches()["hot_gather"] > n0, "timing did not launch")
     eager = {k: eager_ms(torch, f) for k, f in
@@ -1807,35 +1821,28 @@ def time_ssd_scan(torch, ssd_scan_cuda, ssd_scan_ref, args, kw,
     dy, ds = ssd_compare(torch, ssd_scan_cuda, ssd_scan_ref, label, args,
                          chunk, init, SSD_TOL[tol],
                          normwise=tol == "f32_normwise")
-    # multiply-adds these inputs need: the lower triangle of C.B per
-    # group (both operands x's type), of the scores (f32) times x per
-    # head, C.state and the state update (an f32 operand against one of
-    # x's type)
-    tri = sum(L * (L + 1) // 2 for L in
-              (min(chunk, S - c0) for c0 in range(0, S, chunk)))
-    same = B * G * tri * N
-    mixed = B * (H * tri * P + 2 * H * S * P * N)
-    macs = same + mixed
-    elt = x.element_size()
-    nbytes = (2 * x.numel() * elt + dt.numel() * 4 + A.numel() * 4
-              + (Bm.numel() + Cm.numel()) * elt
-              + (2 if init is not None else 1) * B * H * P * N * 4)
-    # the least time on the tensor cores for the same work to the same
-    # accuracy, each product by its operands' types: bf16 x bf16 at the
-    # bf16 rate (exact in f32), f32 x bf16 as two TF32 products (the f32
-    # side's hi and lo halves), f32 x f32 as three (3xTF32); on the CUDA
-    # cores beside it
+    # the work these inputs need (kernels/work.py): the least time on the
+    # tensor cores for the same work to the same accuracy, each product by
+    # its operands' types: bf16 x bf16 at the bf16 rate (exact in f32),
+    # f32 x bf16 as two TF32 products (the f32 side's hi and lo halves),
+    # f32 x f32 as three (3xTF32); on the CUDA cores beside it
+    from repro_torch.kernels.work import ssd_scan_work
+    from repro_torch.launch.op_analysis import (BF16_FLOP_PER_S,
+                                                F32_FLOP_PER_S,
+                                                HBM_BYTES_PER_S,
+                                                TF32_FLOP_PER_S,
+                                                compute_seconds)
+    work = ssd_scan_work(x, Bm, chunk=chunk, init=init is not None)
+    nbytes, flops = work.bytes, work.total_flops
+    t_ops = compute_seconds(work.flops)
     if x.dtype == torch.bfloat16:
-        t_ops = (2 * same / BF16_FLOP_PER_S
-                 + 2 * 2 * mixed / TF32_FLOP_PER_S)
-        ops_by = (f"{2 * same / 1e9:.2f} GFLOP bf16 x bf16 at "
+        ops_by = (f"{work.flops['bf16'] / 1e9:.2f} GFLOP bf16 x bf16 at "
                   f"{BF16_FLOP_PER_S / 1e12:.0f} TFLOP/s, "
-                  f"{2 * mixed / 1e9:.2f} GFLOP f32 x bf16 as two TF32 "
-                  f"products")
+                  f"{work.flops['tf32x2'] / 1e9:.2f} GFLOP f32 x bf16 as "
+                  f"two TF32 products")
     else:
-        t_ops = 3 * 2 * macs / TF32_FLOP_PER_S
         ops_by = "3xTF32 operations"
-    t_cuda_cores = 2 * macs / F32_FLOP_PER_S
+    t_cuda_cores = flops / F32_FLOP_PER_S
     t_bytes = nbytes / HBM_BYTES_PER_S
     from repro_torch.kernels import ops
     n0 = ops.launches().get("ssd_scan", 0)
@@ -1862,7 +1869,7 @@ def time_ssd_scan(torch, ssd_scan_cuda, ssd_scan_ref, args, kw,
           f"{F32_FLOP_PER_S / 1e12:.0f} TFLOP/s")
     print(f"[time] ssd_scan {label} B={B} S={S} H={H} P={P} N={N} G={G} "
           f"chunk={chunk} {x.dtype} strides x {x.stride()} Bm {Bm.stride()}"
-          f": {2 * macs / 1e9:.2f} GFLOP, "
+          f": {flops / 1e9:.2f} GFLOP, "
           f"{nbytes / 1e6:.1f} MB, max |y - plain| {dy:.3e}, max |state - "
           f"plain| {ds:.3e}, {res}")
     return res, max(dy, ds)
@@ -1882,7 +1889,6 @@ FA_TOL = {"f32": 2e-5, "bf16": 2e-2, "path_normwise": 2e-2}
 # (|lse| ~1,600, where f32's spacing is 1.2e-4), and there two f32
 # evaluations land units apart
 FA_LSE_TOL, FA_LSE_REL = 1e-4, 2.0 ** -21
-BF16_FLOP_PER_S = 989e12        # H100 SXM, dense bf16 tensor cores
 # gemma2-9b decode logits at position p against row p of a prefill of the
 # same tokens, normwise (max|decode - prefill| <= tol * max|prefill|).
 # Both are bf16 through 42 layers; the GEMMs of a 2-row decode and of a
@@ -2076,16 +2082,6 @@ def fa_kernel_phase(torch, flash_attention_cuda, flash_attention_ref):
         check(torch.equal(a, b), f"flash_attention {dtype}: two calls differ")
     print("[kernel] flash_attention: call == call, bit for bit")
     return worst
-
-
-def visible_pairs(Sq: int, Sk: int, causal: bool, window) -> int:
-    """(q, k) pairs the mask leaves, positions the implicit aranges."""
-    n = 0
-    for q in range(Sq):
-        hi = min(Sk, q + 1) if causal else Sk
-        lo = max(0, q - window + 1) if window is not None else 0
-        n += max(0, hi - lo)
-    return n
 
 
 def model_phase(torch, ops, spec):
@@ -2602,6 +2598,8 @@ def time_flash_attention(torch, flash_attention_cuda, flash_attention_ref,
     calls) and its bound.  Returns each captured call's numbers and the
     largest normwise error."""
     from repro_torch.kernels import flash_attention as fa_mod
+    from repro_torch.kernels.work import flash_attention_work, visible_pairs
+    from repro_torch.launch.op_analysis import bound
     F = torch.nn.functional
     rows, worst = {}, 0.0
     for name in sorted(captured):
@@ -2618,9 +2616,9 @@ def time_flash_attention(torch, flash_attention_cuda, flash_attention_ref,
               f"from plain by {err} (max|plain| {scale})")
         worst = max(worst, err / scale)
         pairs = visible_pairs(Sq, Sk, kw["causal"], kw["window"])
-        flops = 4 * D * pairs * B * H
-        nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
-        t_ops, t_bytes = flops / BF16_FLOP_PER_S, nbytes / HBM_BYTES_PER_S
+        work = flash_attention_work(q, k, causal=kw["causal"],
+                                    window=kw["window"])
+        flops, nbytes = work.total_flops, work.bytes
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
         lib = lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=kw["causal"], enable_gqa=True)
@@ -2632,8 +2630,8 @@ def time_flash_attention(torch, flash_attention_cuda, flash_attention_ref,
             "plain_ms": device_ms(torch, lambda: flash_attention_ref(
                 q, k, v, **kw), calls, replays),
             "library_ms": device_ms(torch, lib, calls, replays),
-            "bound_ms": max(t_ops, t_bytes) * 1e3,
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "bound_ms": bound(work)[0] * 1e3,
+            "bound_by": bound(work)[1],
         }
         rows[name] = row
         print(f"[time] flash_attention {name} ({label(name)}, {path}) q "
@@ -2698,6 +2696,9 @@ def train_kernel_phase(torch, smi):
     its timing row)."""
     from repro_torch.kernels import flash_attention as fa_mod
     from repro_torch.kernels.ref import flash_attention_bwd_ref
+    from repro_torch.kernels.work import flash_attention_bwd_work, \
+        visible_pairs
+    from repro_torch.launch.op_analysis import bound
     F = torch.nn.functional
     gen = torch.Generator().manual_seed(5)
     main_row, main_err = None, None
@@ -2729,16 +2730,15 @@ def train_kernel_phase(torch, smi):
               f"flash_attention_bwd {label}: max |kernel - plain f32| {err} "
               f"> {BWD_BF16_REL} x the plain version's own bf16 {noise}")
         pairs = visible_pairs(Sq, Sk, causal, window)
-        flops = 10 * B * H * pairs * D
-        # q, o, do, k, v read once; dq, dk, dv written once (bf16)
-        nbytes = (4 * qb.numel() + 4 * kb.numel()) * 2
-        t_ops, t_bytes = flops / BF16_FLOP_PER_S, nbytes / HBM_BYTES_PER_S
+        # q, o, do, k, v and the logsumexp read once; dq, dk, dv written
+        work = flash_attention_bwd_work(qb, kb, causal=causal, window=window)
+        flops = work.total_flops
         big = Sq * Sk > 1e6
         row = {"ms": device_ms(torch, run, *((3, 3) if big else (20, 10))),
                "plain_ms": eager_ms(torch, lambda: flash_attention_bwd_ref(
                    qb, kb, vb, dob, **kw), 5 if big else 20),
-               "bound_ms": max(t_ops, t_bytes) * 1e3,
-               "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+               "bound_ms": bound(work)[0] * 1e3,
+               "bound_by": bound(work)[1],
                "library_ms": None}
         if window is None and not cap:
             # SDPA computes the same function: time its backward alone
@@ -2795,16 +2795,29 @@ def train_kernel_phase(torch, smi):
 
 
 def train_reckon(torch, cfg, batch: int, seq: int) -> dict:
-    """Bytes the training state and the biggest activations take, from the
-    config's shapes (the ``meta`` device allocates nothing)."""
+    """Bytes the training state and the biggest activations take on one
+    card: the dry run's memory model (``launch/dryrun.memory_model``) of
+    a ``batch`` x ``seq`` train cell on a one-device mesh (the params, the
+    AdamW state with its step, the remat boundaries of its microbatch),
+    beside the bf16 gradients and the f32 logits, from the config's shapes
+    (the ``meta`` device allocates nothing)."""
+    from repro_torch.configs import ShapeSpec
+    from repro_torch.distributed.compat import abstract_mesh
+    from repro_torch.distributed.sharding import make_rules
+    from repro_torch.launch import dryrun
     from repro_torch.models.model import Model
     from repro_torch.models.params import param_count
-    n = param_count(Model(cfg).init(device="meta"))
-    T = batch * seq
-    return {"params": n, "bf16 params": 2 * n, "f32 master, m, v": 12 * n,
-            "bf16 grads": 2 * n,
-            "f32 logits": T * cfg.padded_vocab * 4,
-            "remat boundaries": cfg.n_layers * T * cfg.d_model * 2}
+    params = Model(cfg).init(device="meta")
+    n = param_count(params)
+    mm = dryrun.memory_model(
+        cfg, ShapeSpec("card", "train", seq, batch),
+        abstract_mesh((1, 1), ("data", "model")), make_rules(False),
+        ("data",), params)["memory_model"]
+    return {"params": n, "bf16 params": mm["params_bytes"],
+            "f32 master, m, v": mm["opt_bytes"],
+            "bf16 grads": mm["params_bytes"],
+            "f32 logits": batch * seq * cfg.padded_vocab * 4,
+            "remat boundaries": mm["residual_bytes"]}
 
 
 def gib(n: float) -> str:
@@ -3268,30 +3281,27 @@ def ssd_bwd_kernel_phase(torch, smi):
     kern, err = ssd_bwd_compare(torch, label, args, None, dy, None, Q,
                                 "bf16")
     plain = lambda: ssd_scan_bwd_ref(*args, Q, dy)
-    # multiply-adds these inputs need: per chunk the lower triangle of
-    # C.B per group and of dy.x per head, both operands x's type; the
-    # scores (f32) times dy (dx), times C (dB) and times B (dC) per head;
-    # the state's four products per head, an f32 operand against one of
-    # x's type (the local sums, dS B, dS^T x, S^T dy)
-    tri = sum(L * (L + 1) // 2 for L in
-              (min(Q, S - c0) for c0 in range(0, S, Q)))
-    same = B * (G * tri * N + H * tri * P)
-    mixed = B * (H * tri * (P + 2 * N) + 4 * H * S * P * N)
-    macs = same + mixed
-    elt = args[0].element_size()
+    # the work these inputs need (kernels/work.py: per chunk the lower
+    # triangle of C.B per group and of dy.x per head, both operands x's
+    # type; the scores (f32) times dy, C and B per head; the state's four
+    # products per head, an f32 operand against one of x's type; read x,
+    # B, C, dy, dt, A and the forward's dacs, states and final state,
+    # written dx, dB, dC, ddt, dA, dinit), at the least time on the
+    # tensor cores for the same work to the same accuracy: a bf16 x bf16
+    # product at the bf16 rate (exact in f32); an f32 operand against a
+    # bf16 one as two TF32 products (its hi and lo halves; the bf16 side
+    # is exact in TF32); the main shape is bf16
+    from repro_torch.kernels.work import ssd_scan_bwd_work
+    from repro_torch.launch.op_analysis import (BF16_FLOP_PER_S,
+                                                F32_FLOP_PER_S,
+                                                HBM_BYTES_PER_S,
+                                                TF32_FLOP_PER_S,
+                                                compute_seconds)
+    work = ssd_scan_bwd_work(args[0], args[3], chunk=Q)
+    nbytes, flops = work.bytes, work.total_flops
     nc = -(-S // Q)
-    # read: x, B, C, dy, dt, A and the forward's dacs, states and final
-    # state; written: dx, dB, dC, ddt, dA, dinit
-    nbytes = (3 * B * S * H * P * elt + 4 * B * S * G * N * elt
-              + 2 * B * S * H * 4 + 2 * H * 4 + B * H * nc * Q * 4
-              + B * H * nc * P * N * 4 + 2 * B * H * P * N * 4)
-    # least time on the tensor cores for the same work to the same
-    # accuracy: a bf16 x bf16 product at the bf16 rate (exact in f32); an
-    # f32 operand against a bf16 one as two TF32 products (its hi and lo
-    # halves; the bf16 side is exact in TF32); the main shape is bf16
-    t_ops = (2 * same / BF16_FLOP_PER_S
-             + 2 * 2 * mixed / TF32_FLOP_PER_S)
-    t_cuda_cores = 2 * macs / F32_FLOP_PER_S
+    t_ops = compute_seconds(work.flops)
+    t_cuda_cores = flops / F32_FLOP_PER_S
     t_bytes = nbytes / HBM_BYTES_PER_S
     row = {"ms": device_ms(torch, kern, 3, 5),
            "plain_ms": eager_ms(torch, plain, 3),
@@ -3301,11 +3311,12 @@ def ssd_bwd_kernel_phase(torch, smi):
     passes = kernel_times(torch, kern, 3)
     print(f"[ssd-bwd-kernel] ssd_scan_bwd {label} B={B} S={S} H={H} P={P} "
           f"N={N} G={G} chunk={Q} bf16 strides x {args[0].stride()}: "
-          f"{2 * macs / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB; kernel "
+          f"{flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB; kernel "
           f"{row['ms']:.4f} ms (graph replay), plain {row['plain_ms']:.4f} "
           f"ms, bound {row['bound_ms']:.4f} ms (operations: "
-          f"{2 * same / 1e9:.1f} GFLOP bf16 x bf16 at "
-          f"{BF16_FLOP_PER_S / 1e12:.0f} TFLOP/s, {2 * mixed / 1e9:.1f} "
+          f"{work.flops['bf16'] / 1e9:.1f} GFLOP bf16 x bf16 at "
+          f"{BF16_FLOP_PER_S / 1e12:.0f} TFLOP/s, "
+          f"{work.flops['tf32x2'] / 1e9:.1f} "
           f"GFLOP f32 x bf16 as two TF32 products at "
           f"{TF32_FLOP_PER_S / 1e12:.0f} TFLOP/s; {t_bytes * 1e3:.4f} ms by "
           f"bytes; {t_cuda_cores * 1e3:.4f} ms on the CUDA cores at "
@@ -4083,6 +4094,175 @@ def mesh_elastic_phase(torch, ops, smi) -> None:
               + f", {sum(tm.values()):.3f} s in all on {smi}")
 
 
+# ---------------------------------------------------------------------------
+# The dry run's counts against the card (phase 23)
+# ---------------------------------------------------------------------------
+
+# [dryrun]: three steps the card already runs at full width, each recorded
+# by launch/op_analysis's Recorder once on meta tensors and once on the
+# card: [train-dense]'s starcoder2-3b train step (TRAIN's batch and seq)
+# and gemma2-9b's prefill and decode step at MODEL's shapes (2 x 6144)
+DRYRUN_SERVE = dict(arch="gemma2-9b", batch=2, prompt=6144, seed=0)
+DRYRUN_WARM, DRYRUN_STEPS = 2, 5        # warm-up steps, then timed steps
+DRYRUN_CELL = ("llama3-8b", "decode_32k")   # the example's CLI cell
+# the card's max_memory_allocated over a recorded step against the
+# recorder's peak live bytes plus the step's arguments: the allocator
+# rounds each block up to 512 B and holds cuBLAS's workspace and the
+# kernel wrappers' scratch, which the recorder does not count, so the card
+# holds at least as much, and at most 5 % more (on an H100 80GB HBM3 at
+# 700 W: 1.009 / 1.010 / 1.021 on the train, prefill and decode steps;
+# PERF.md has the runs)
+DRYRUN_PEAK_BAND = (0.99, 1.05)
+
+
+def dryrun_steps(torch, device):
+    """``(label, build)`` for each of ``[dryrun]``'s steps: ``build()``
+    makes the step's arguments on ``device`` (params from the seed; on
+    ``meta`` shapes only) and returns ``(step, args)``; a decode's build
+    prefills first, so its step continues a filled cache."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import (make_decode_step,
+                                          make_prefill_step,
+                                          make_train_step)
+    from repro_torch.models.model import Model
+    from repro_torch.models.params import trainable
+    from repro_torch.optim import AdamWConfig, init_opt_state
+
+    def tokens(cfg, B, S):
+        g = torch.Generator().manual_seed(1)
+        return torch.randint(0, cfg.vocab, (B, S), generator=g,
+                             dtype=torch.int32)
+
+    def train():
+        t = TRAIN
+        model = Model(get_config(t["arch"]))
+        params = trainable(model.init(0, device))
+        state = {"params": params, "opt": init_opt_state(params)}
+        tok = tokens(model.cfg, t["batch"], t["seq"])
+        batch = {"tokens": tok.to(device),
+                 "labels": torch.roll(tok, -1, 1).to(device)}
+        step = make_train_step(model, AdamWConfig(lr=t["lr"]))
+        return (lambda: step(state, batch)), (state, batch)
+
+    def serve(decode: bool):
+        d = DRYRUN_SERVE
+        model = Model(get_config(d["arch"]))
+        params = model.init(d["seed"], device)
+        B, P = d["batch"], d["prompt"]
+        cache = model.init_cache(B, P + 8, device=device)
+        batch = {"tokens": tokens(model.cfg, B, P).to(device)}
+        prefill = make_prefill_step(model)
+        if not decode:
+            return (lambda: prefill(params, cache, batch)), (params, cache,
+                                                             batch)
+        prefill(params, cache, batch)
+        step = make_decode_step(model)
+        tok = batch["tokens"][:, :1]
+        return (lambda: step(params, cache, tok, P)), (params, cache, tok)
+
+    return (("starcoder2-3b train step", train),
+            ("gemma2-9b prefill", lambda: serve(False)),
+            ("gemma2-9b decode step", lambda: serve(True)))
+
+
+def dryrun_phase(torch, ops, smi) -> None:
+    """``[dryrun]``: each of ``dryrun_steps``' steps recorded on ``meta``
+    and on the card (``op_analysis.Recorder``, host operations left out):
+    FLOPs by class, bytes and every kernel's calls / FLOPs / bytes must be
+    equal; the step's device time (CUDA events, the median of
+    ``DRYRUN_STEPS`` after ``DRYRUN_WARM``) must be at least the roofline's
+    ``max(t_compute, t_memory)``, a time under it meaning a wrong count;
+    the recorder's peak live bytes plus the arguments beside the card's
+    ``max_memory_allocated``.  Then the example's CLI traces
+    ``DRYRUN_CELL`` on the meta production mesh in a subprocess and must
+    write its record."""
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import op_analysis as OA
+
+    def record(step):
+        with OA.Recorder(host="cpu") as rec:
+            step()
+            if torch.cuda.is_initialized():
+                torch.cuda.synchronize()
+        return OA.analyze(rec)
+
+    meta = dict(dryrun_steps(torch, "meta"))
+    differ = []
+    for label, build in dryrun_steps(torch, "cuda"):
+        t0 = time.perf_counter()
+        m_step, _ = meta[label]()
+        m = record(m_step)
+        step, args = build()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        c = record(step)
+        peak = torch.cuda.max_memory_allocated()
+        same = all(m[key] == c[key]
+                   for key in ("flops_by_class", "hbm_bytes", "kernels"))
+        for key in ("flops_by_class", "hbm_bytes", "kernels"):
+            if m[key] != c[key]:
+                differ.append(f"{label}: {key} on meta {m[key]} differs "
+                              f"from the card's {c[key]}")
+                print(f"[dryrun] {differ[-1]}")
+        for _ in range(DRYRUN_WARM):
+            step()
+        times = []
+        for _ in range(DRYRUN_STEPS):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            step()
+            b.record()
+            torch.cuda.synchronize()
+            times.append(a.elapsed_time(b))
+        ms = statistics.median(times)
+        rf = OA.roofline(c)
+        bound_ms = max(rf["t_compute"], rf["t_memory"]) * 1e3
+        check(ms >= bound_ms, f"[dryrun] {label}: {ms:.3f} ms under its "
+              f"roofline bound {bound_ms:.3f} ms: a count is wrong")
+        held = dryrun.resident_bytes(args).get((), 0) + c["peak_live_bytes"]
+        lo, hi = DRYRUN_PEAK_BAND
+        check(lo * held <= peak <= hi * held,
+              f"[dryrun] {label}: max_memory_allocated {peak} outside "
+              f"{DRYRUN_PEAK_BAND} of the recorded {held}")
+        kern = {k: (v["calls"], v["flops"], v["bytes"])
+                for k, v in c["kernels"].items()}
+        print(f"[dryrun] {label}: {'meta == card' if same else 'card'}: "
+              f"{c['flops'] / 1e12:.3f} "
+              f"TFLOP ({ {k: v / 1e12 for k, v in c['flops_by_class'].items()} }"
+              f" by class), {c['hbm_bytes'] / 1e9:.3f} GB, kernels (calls, "
+              f"FLOPs, bytes) {kern}; step {ms:.3f} ms (median of "
+              f"{DRYRUN_STEPS}, {[round(x, 3) for x in times]}) against "
+              f"the roofline's {bound_ms:.3f} ms ({rf['dominant']}: compute "
+              f"{rf['t_compute'] * 1e3:.3f} ms, memory "
+              f"{rf['t_memory'] * 1e3:.3f} ms), ratio "
+              f"{ms / bound_ms:.3f}; peak live {held / 2**30:.3f} GiB "
+              f"(arguments + recorded) against max_memory_allocated "
+              f"{peak / 2**30:.3f} GiB, ratio {peak / held:.4f}; "
+              f"{time.perf_counter() - t0:.1f} s on {smi}")
+        del step, args, m_step
+        gc.collect()
+        torch.cuda.empty_cache()
+    check(not differ, f"[dryrun] meta and card counts differ: {differ}")
+    arch, shape = DRYRUN_CELL
+    out = (ROOT / "experiments" / "dryrun_torch"
+           / f"{arch}__{shape}__pod16x16.json")
+    if out.exists():
+        out.unlink()
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable,
+                        str(ROOT / "examples" / "multiarch_dryrun_torch.py"),
+                        "--arch", arch, "--shape", shape],
+                       capture_output=True, text=True, timeout=600)
+    check(r.returncode == 0 and out.exists(),
+          f"[dryrun] the example exited {r.returncode}: {r.stderr[-2000:]}")
+    rec = json.loads(out.read_text())
+    check(rec["status"] == "ok", f"[dryrun] the example's record: {rec}")
+    print(f"[dryrun] examples/multiarch_dryrun_torch.py {arch} {shape}: "
+          f"{r.stdout.strip().splitlines()[-1]}; "
+          f"{time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4352,6 +4532,10 @@ def main() -> int:
     for name in ("flash_attention", "flash_attention_bwd"):
         launches[name] += counts[name]
     main_path("mesh-elastic", lambda: mesh_elastic_phase(torch, ops, smi),
+              ("flash_attention", "flash_attention_bwd"))
+    gc.collect()
+    torch.cuda.empty_cache()
+    main_path("dryrun", lambda: dryrun_phase(torch, ops, smi),
               ("flash_attention", "flash_attention_bwd"))
     kernels = []
     for name, (src, replaces) in KERNELS.items():

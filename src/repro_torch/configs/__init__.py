@@ -1,9 +1,8 @@
 """Architecture registry: ``get_config(arch_id)`` / ``ARCH_IDS``.
 
-The ten config modules are data copied from ``repro.configs``.  The
-reference's ``configs/shapes.py`` (the dry-run and training shape
-specs) is not ported yet: it serves the dry-run half of the mesh
-(ROADMAP Queue 1 item 12c).
+The ten config modules are data copied from ``repro.configs``;
+``shapes.py`` holds the dry run's four assigned shapes
+(``python -m repro_torch.launch.dryrun``).
 """
 from __future__ import annotations
 
@@ -32,3 +31,6 @@ def get_config(arch_id: str) -> ModelConfig:
         raise KeyError(f"unknown arch {arch_id!r}; known: {ARCH_IDS}")
     mod = import_module(_MODULES[arch_id], package=__name__)
     return mod.CONFIG
+
+
+from .shapes import SHAPES, ShapeSpec, applies, batch_specs, cache_dims

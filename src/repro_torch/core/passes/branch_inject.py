@@ -26,7 +26,7 @@ import numpy as np
 import torch
 
 from ...models.config import ModelConfig
-from ...models.moe import _dispatch, load_balance_loss, route
+from ...models.moe import _dispatch, host_sizes, load_balance_loss, route
 from ..instrument import SketchConfig
 from ..specialize import SiteSpec
 from .registry import SpecializationPass
@@ -93,7 +93,7 @@ def moe_ffn_hotpath(params, x2d: torch.Tensor, cfg: ModelConfig,
     counts = torch.zeros(E, dtype=torch.long, device=dev).scatter_add_(
         0, flat, torch.ones_like(flat))
     # the one device-to-host read of the layer, as the generic path's
-    sizes = counts.tolist()
+    sizes = host_sizes(counts, flat.numel())
     hot_sizes = [sizes[e] for e in hot_experts]
     all_hot = sum(hot_sizes) == flat.numel()
     if all_hot:

@@ -21,15 +21,44 @@ inside it.  Here one Python process drives every coordinate of a
 
 Copies between distinct devices go through ``Tensor.to``; nothing here
 assumes the devices differ.
+
+For a recorder (``launch/op_analysis.py``), :func:`shard_map` runs body
+``i`` at its coordinate (:func:`at`), a :class:`Sharded` built by a
+sharding (``NamedSharding.place`` / ``cut``) knows each block's
+coordinate (``coords``), so per-block loops can do the same, and each
+collective reports its per-shard operand bytes under the reference's
+HLO name (``all-reduce``, ``all-gather``, ``all-to-all``).  Without a
+recorder these cost one global read.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Callable, Dict, List, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from ..kernels import work as _work
 from .meshctx import Mesh
+
+_NOWHERE = contextlib.nullcontext()
+
+
+def at(coord):
+    """A context that runs its body at mesh coordinate ``coord`` for the
+    active recorder (none: the recorder's home coordinate)."""
+    rec = _work.RECORDER
+    if rec is None or coord is None:
+        return _NOWHERE
+    return rec.at(tuple(coord))
+
+
+def record_collective(kind: str, xs) -> None:
+    """Report a collective over the per-shard operands ``xs`` to the
+    active recorder (none: nothing)."""
+    rec = _work.RECORDER
+    if rec is not None:
+        rec.collective(kind, xs)
 
 
 class Sharded:
@@ -39,16 +68,27 @@ class Sharded:
     (default: every block along the one ``dim``), which is the order of
     :meth:`Mesh.shard_coords` over the spec's axes.  ``shape`` is the
     whole value's; numpy reads (``np.asarray``) concatenate the blocks on
-    the host."""
-    __slots__ = ("shards", "dim", "grid")
+    the host.  ``coords``: each block's mesh coordinate, where a sharding
+    placed it (else None)."""
+    __slots__ = ("shards", "dim", "grid", "coords")
 
-    def __init__(self, shards: Sequence[torch.Tensor], dim=0, grid=None):
+    def __init__(self, shards: Sequence[torch.Tensor], dim=0, grid=None,
+                 coords=None):
         self.shards = tuple(shards)
         self.dim = dim
         self.grid = (len(self.shards),) if grid is None else tuple(grid)
+        self.coords = None if coords is None else tuple(coords)
         if int(np.prod(self.grid, dtype=np.int64)) != len(self.shards):
             raise ValueError(f"Sharded: {len(self.shards)} blocks for a "
                              f"grid of {self.grid}")
+
+    def like(self, shards: Sequence[torch.Tensor]) -> "Sharded":
+        """New blocks laid out as these (dim, grid, coordinates)."""
+        return Sharded(shards, self.dim, self.grid, self.coords)
+
+    def block_coords(self) -> tuple:
+        """Each block's coordinate (None where unknown)."""
+        return self.coords or (None,) * len(self.shards)
 
     @property
     def dims(self) -> Tuple[int, ...]:
@@ -100,7 +140,8 @@ class Sharded:
             raise ValueError("Sharded.select indexes an unsplit leading dim")
         dim = (self.dim - 1 if isinstance(self.dim, int)
                else tuple(d - 1 for d in self.dim))
-        return Sharded([t[j] for t in self.shards], dim, self.grid)
+        return Sharded([t[j] for t in self.shards], dim, self.grid,
+                       self.coords)
 
     def __array__(self, dtype=None, copy=None):
         a = _cat_grid([t.detach().cpu().numpy() for t in self.shards],
@@ -176,11 +217,12 @@ def split(x, devices: Sequence[torch.device], dim: int = 0) -> Sharded:
 
 
 def split_grid(x: torch.Tensor, dims: Sequence[int], grid: Sequence[int],
-               devices: Sequence[torch.device], copy: bool = False
-               ) -> Sharded:
+               devices: Sequence[torch.device], copy: bool = False,
+               coords=None) -> Sharded:
     """``x`` cut into ``grid[k]`` equal blocks along each ``dims[k]``,
     row-major, block i copied to ``devices[i]`` (``copy=True``: a block of
-    its own even where it lies already, so it holds no view of ``x``)."""
+    its own even where it lies already, so it holds no view of ``x``;
+    ``coords``: the blocks' mesh coordinates, each copy made there)."""
     blocks = [x]
     for d, g in zip(dims, grid):
         if x.shape[d] % g:
@@ -190,11 +232,13 @@ def split_grid(x: torch.Tensor, dims: Sequence[int], grid: Sequence[int],
     if len(blocks) != len(devices):
         raise ValueError(f"split_grid: {len(blocks)} blocks for "
                          f"{len(devices)} devices")
-    out = [b.to(dev, copy=copy) for b, dev in zip(blocks, devices)]
-    if copy:
-        out = [b.contiguous() for b in out]
+    out = []
+    for b, dev, c in zip(blocks, devices, coords or [None] * len(blocks)):
+        with at(c):
+            b = b.to(dev, copy=copy)
+            out.append(b.contiguous() if copy else b)
     dim = dims[0] if len(dims) == 1 else tuple(dims)
-    return Sharded(out, dim, grid)
+    return Sharded(out, dim, grid, coords)
 
 
 def replicate(x: torch.Tensor, devices: Sequence[torch.device]
@@ -246,6 +290,7 @@ def host_copy(x) -> torch.Tensor:
 def psum(xs: Sequence[torch.Tensor], device=None) -> torch.Tensor:
     """``xs[0] + xs[1] + ...`` on ``device`` (default ``xs[0]``'s), summed
     left to right."""
+    record_collective("all-reduce", xs)
     device = xs[0].device if device is None else device
     out = xs[0].to(device)
     for x in xs[1:]:
@@ -254,6 +299,7 @@ def psum(xs: Sequence[torch.Tensor], device=None) -> torch.Tensor:
 
 
 def pmax(xs: Sequence[torch.Tensor], device=None) -> torch.Tensor:
+    record_collective("all-reduce", xs)
     device = xs[0].device if device is None else device
     out = xs[0].to(device)
     for x in xs[1:]:
@@ -264,6 +310,7 @@ def pmax(xs: Sequence[torch.Tensor], device=None) -> torch.Tensor:
 def all_gather(xs: Sequence[torch.Tensor], dim: int = 0,
                device=None) -> torch.Tensor:
     """The blocks concatenated along ``dim`` in shard order."""
+    record_collective("all-gather", xs)
     device = xs[0].device if device is None else device
     return torch.cat([x.to(device) for x in xs], dim)
 
@@ -274,6 +321,7 @@ def all_to_all(xs: Sequence[torch.Tensor], split_dim: int = 0,
     ``split_dim`` and sends block j to shard j; shard j concatenates what
     it receives along ``concat_dim`` in sender order, on its own device
     (``jax.lax.all_to_all(tiled=True)``)."""
+    record_collective("all-to-all", xs)
     n = len(xs)
     blocks = [x.chunk(n, split_dim) for x in xs]
     return [torch.cat([blocks[i][j].to(xs[j].device) for i in range(n)],
@@ -288,9 +336,12 @@ def shard_map(f: Callable, mesh: Mesh, axes: Sequence[str]) -> List[Any]:
     """``f(i, device)`` once per shard ``i`` of a value split over
     ``axes`` (the coordinates of ``Mesh.shard_coords``, in shard order),
     on that coordinate's device; returns the per-shard results for the
-    caller's collectives."""
-    return [f(i, mesh.device_at(c))
-            for i, c in enumerate(mesh.shard_coords(axes))]
+    caller's collectives.  Body ``i`` runs :func:`at` its coordinate."""
+    out = []
+    for i, c in enumerate(mesh.shard_coords(axes)):
+        with at(c):
+            out.append(f(i, mesh.device_at(c)))
+    return out
 
 
 def abstract_mesh(axis_sizes: Sequence[int],

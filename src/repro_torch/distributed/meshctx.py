@@ -76,6 +76,7 @@ class Mesh:
                              f"{len(sizes)} axis names, got "
                              f"{self.axis_names}")
         self.shape = OrderedDict(zip(self.axis_names, sizes))
+        self._shard_coords: dict = {}       # axes -> shard_coords(axes)
 
     @property
     def size(self) -> int:
@@ -117,9 +118,15 @@ class Mesh:
         """One coordinate per shard of a value split over ``axes``: those
         that vary only along ``axes`` (every other axis at 0), in shard
         order (:meth:`axis_index` over ``axes``)."""
-        others = [k for k, a in enumerate(self.axis_names) if a not in axes]
-        cs = [c for c in self.coords() if all(c[k] == 0 for k in others)]
-        return tuple(sorted(cs, key=lambda c: self.axis_index(c, axes)))
+        key = tuple(axes)
+        if key not in self._shard_coords:
+            others = [k for k, a in enumerate(self.axis_names)
+                      if a not in axes]
+            cs = [c for c in self.coords()
+                  if all(c[k] == 0 for k in others)]
+            self._shard_coords[key] = tuple(
+                sorted(cs, key=lambda c: self.axis_index(c, axes)))
+        return self._shard_coords[key]
 
     def axes_size(self, axes: Sequence[str]) -> int:
         n = 1

@@ -242,10 +242,14 @@ class NamedSharding:
                      for d in self.split_dims)
 
     @property
+    def coords(self) -> Tuple[Tuple[int, ...], ...]:
+        """The mesh coordinate of each block, in shard order."""
+        return self.mesh.shard_coords(self.axes)
+
+    @property
     def devices(self) -> Tuple[torch.device, ...]:
         """The device of each block, in shard order."""
-        return tuple(self.mesh.device_at(c)
-                     for c in self.mesh.shard_coords(self.axes))
+        return tuple(self.mesh.device_at(c) for c in self.coords)
 
     @property
     def replicated(self) -> bool:
@@ -262,7 +266,8 @@ compat.Replicated` for a spec that splits nothing."""
                 {d: x.to(d, copy=True)
                  for d in self.mesh.distinct_devices})
         return compat.split_grid(x, self.split_dims, self.grid,
-                                 self.devices, copy=True)
+                                 self.devices, copy=True,
+                                 coords=self.coords)
 
     def holds(self, leaf) -> bool:
         """True when ``leaf`` already lies as this sharding places it."""
@@ -283,7 +288,7 @@ compat.Replicated` for a spec that splits nothing."""
         if self.replicated:
             return x
         return compat.split_grid(x, self.split_dims, self.grid,
-                                 self.devices)
+                                 self.devices, coords=self.coords)
 
 
 # The logical axes of every param leaf of the zoo, by the leaf's name
@@ -329,6 +334,40 @@ def param_pspecs(params) -> Dict[str, Any]:
         extra = len(v.shape) - len(base)
         if extra not in (0, 1):
             raise ValueError(f"param_pspecs: {key} of shape "
+                             f"{tuple(v.shape)} has no axes for {base}")
+        out[key] = PSpec(v, ("layers",) * extra + base)
+    return unflat_tree(out)
+
+
+# The logical axes of every cache leaf, by its (entry, leaf) names (the
+# reference's ``init_layer_cache``); a stacked leaf has one more leading
+# "layers" axis.
+CACHE_AXES: Dict[Tuple[str, str], Tuple[Optional[str], ...]] = {
+    ("kv", "k"): ("batch", "seq_kv", "kv_heads", "head_dim"),
+    ("kv", "v"): ("batch", "seq_kv", "kv_heads", "head_dim"),
+    ("kv", "pos"): ("seq_kv",),
+    ("kv", "ckv"): ("batch", "seq_kv", "kv_lora"),
+    ("kv", "k_rope"): ("batch", "seq_kv", None),
+    ("mamba", "conv"): ("batch", None, "ssm_in"),
+    ("mamba", "ssm"): ("batch", "ssm_heads", None, None),
+    ("xkv", "k"): ("batch", "seq_enc", "kv_heads", "head_dim"),
+    ("xkv", "v"): ("batch", "seq_enc", "kv_heads", "head_dim"),
+}
+
+
+def cache_pspecs(cache) -> Dict[str, Any]:
+    """A cache tree (``Model.init_cache``) as a PSpec tree of nested
+    dicts with the reference's logical axes; the host-side entries
+    (``filled``, ``enc_len``) are left out."""
+    out = {}
+    for key, v in flat_tree(cache).items():
+        if not isinstance(v, torch.Tensor):
+            continue
+        entry, leaf = key.split("/")[-2:]
+        base = CACHE_AXES[(entry, leaf)]
+        extra = len(v.shape) - len(base)
+        if extra not in (0, 1):
+            raise ValueError(f"cache_pspecs: {key} of shape "
                              f"{tuple(v.shape)} has no axes for {base}")
         out[key] = PSpec(v, ("layers",) * extra + base)
     return unflat_tree(out)

@@ -27,7 +27,10 @@ batch, sequence and head, so a decode attends over a slice of the cache
 in place.  What it does not take raises; nothing falls back.  The plain
 PyTorch version of the same function is :func:`flash_attention_ref`
 (``kernels/ref.py``); ``kernels/ops.py`` chooses between them by the
-tensors' device.
+tensors' device.  :func:`flash_attention_meta` and
+:func:`flash_attention_bwd_meta` are the two kernels' shape functions
+for ``meta`` tensors (a dry run's trace): the wrappers' checks, then
+empty outputs of their shapes and dtypes.
 
 Asked with ``return_lse=True``, :func:`flash_attention_cuda` also
 returns each row's logsumexp, an f32 (B, H, Sq) in log2 units
@@ -59,7 +62,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from . import build
+from . import build, work
 from .hot_gather import LAUNCHES
 from .ref import flash_attention_bwd_ref  # noqa: F401  (the plain versions)
 from .ref import flash_attention_lse_ref  # noqa: F401
@@ -128,23 +131,10 @@ def _strides(name: str, t: torch.Tensor):
     return t.stride(0), t.stride(1), t.stride(2)
 
 
-def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         *, causal: bool = True,
-                         window: Optional[int] = None,
-                         logit_softcap: float = 0.0,
-                         return_lse: bool = False):
-    """q: (B, Sq, H, D); k, v: (B, Sk, Hkv, D); one dtype, f32 or bf16,
-    on one CUDA device; D a multiple of 8 up to 256, H a multiple of Hkv;
-    any Sq and Sk.  Positions are the implicit aranges, so ``causal`` is
-    top-left aligned.  Returns (B, Sq, H, D) in q's dtype, the function
-    of ``flash_attention_ref`` (its sums in another order), and with
-    ``return_lse`` also the rows' logsumexp (the module docstring's,
-    :func:`~.ref.flash_attention_lse_ref`'s).  The kernel is
-    :func:`choose_path`'s; ``last_path`` records it."""
-    global last_path
+def _check(q, k, v, window, logit_softcap):
+    """The forward's input checks, on any device: ``(B, Sq, H, D, Sk,
+    Hkv)`` or a raise."""
     dev = q.device
-    if dev.type != "cuda":
-        raise ValueError(f"flash_attention_cuda needs CUDA tensors, got {dev}")
     if q.dtype not in SUPPORTED_DTYPES:
         raise TypeError(f"flash_attention: unsupported dtype {q.dtype} "
                         f"(kernel takes {SUPPORTED_DTYPES})")
@@ -176,6 +166,27 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if max(B, Sq, Sk, H) > INT32_MAX or max(B, H) > 65535:
         raise ValueError(f"flash_attention: shape {tuple(q.shape)} / "
                          f"{tuple(k.shape)} beyond the kernel's grid")
+    return B, Sq, H, D, Sk, Hkv
+
+
+def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         *, causal: bool = True,
+                         window: Optional[int] = None,
+                         logit_softcap: float = 0.0,
+                         return_lse: bool = False):
+    """q: (B, Sq, H, D); k, v: (B, Sk, Hkv, D); one dtype, f32 or bf16,
+    on one CUDA device; D a multiple of 8 up to 256, H a multiple of Hkv;
+    any Sq and Sk.  Positions are the implicit aranges, so ``causal`` is
+    top-left aligned.  Returns (B, Sq, H, D) in q's dtype, the function
+    of ``flash_attention_ref`` (its sums in another order), and with
+    ``return_lse`` also the rows' logsumexp (the module docstring's,
+    :func:`~.ref.flash_attention_lse_ref`'s).  The kernel is
+    :func:`choose_path`'s; ``last_path`` records it."""
+    global last_path
+    dev = q.device
+    if dev.type != "cuda":
+        raise ValueError(f"flash_attention_cuda needs CUDA tensors, got {dev}")
+    B, Sq, H, D, Sk, Hkv = _check(q, k, v, window, logit_softcap)
     out = torch.empty((B, Sq, H, D), dtype=q.dtype, device=dev)
     lse = (torch.empty((B, H, Sq), dtype=torch.float32, device=dev)
            if return_lse else None)
@@ -210,6 +221,28 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            f"({err})")
     last_path = path
     LAUNCHES["flash_attention"] += 1
+    return (out, lse) if return_lse else out
+
+
+def flash_attention_meta(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         *, causal: bool = True,
+                         window: Optional[int] = None,
+                         logit_softcap: float = 0.0,
+                         return_lse: bool = False):
+    """The kernel's shape function, for ``meta`` tensors: the checks
+    :func:`flash_attention_cuda` makes (so what raises on the card raises
+    here) and empty outputs of its shapes and dtypes, the f32 (B, H, Sq)
+    logsumexp included.  Computes nothing and launches nothing."""
+    if q.device.type != "meta":
+        raise ValueError(f"flash_attention_meta needs meta tensors, got "
+                         f"{q.device}")
+    B, Sq, H, D, Sk, Hkv = _check(q, k, v, window, logit_softcap)
+    out = q.new_empty((B, Sq, H, D))
+    lse = (q.new_empty((B, H, Sq), dtype=torch.float32) if return_lse
+           else None)
+    if B and Sq and H:
+        for n, t in (("q", q), ("k", k), ("v", v)):
+            _strides(n, t)
     return (out, lse) if return_lse else out
 
 
@@ -254,27 +287,10 @@ def _bwd_lib() -> ctypes.CDLL:
     return lib
 
 
-def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
-                             v: torch.Tensor, out: torch.Tensor,
-                             lse: torch.Tensor, dout: torch.Tensor, *,
-                             causal: bool = True,
-                             window: Optional[int] = None,
-                             logit_softcap: float = 0.0
-                             ) -> Tuple[torch.Tensor, torch.Tensor,
-                                        torch.Tensor]:
-    """The gradient of :func:`flash_attention_cuda` at q, k, v (its
-    shapes, dtypes and options) given its output ``out``, its logsumexp
-    ``lse`` (f32 (B, H, Sq), log2 units: what the forward returns with
-    ``return_lse=True``) and the cotangent ``dout`` (q's shape):
-    ``(dq, dk, dv)`` in q's dtype, through :func:`bwd_path`'s kernels
-    (``last_bwd_path`` records it).  Operands of any stride are copied
-    dense (and 16-byte aligned) first; what the forward does not take
-    raises here too."""
-    global last_bwd_path
+def _check_bwd(q, k, v, out, lse, dout, window, logit_softcap):
+    """The backward's input checks, on any device: ``(B, Sq, H, D, Sk,
+    Hkv)`` or a raise."""
     dev = q.device
-    if dev.type != "cuda":
-        raise ValueError(f"flash_attention_bwd_cuda needs CUDA tensors, got "
-                         f"{dev}")
     if q.dtype not in SUPPORTED_DTYPES:
         raise TypeError(f"flash_attention_bwd: unsupported dtype {q.dtype} "
                         f"(kernel takes {SUPPORTED_DTYPES})")
@@ -316,6 +332,32 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
         raise ValueError(f"flash_attention_bwd: lse must be f32 "
                          f"{(B, H, Sq)} on {dev}, got {lse.dtype} "
                          f"{tuple(lse.shape)} on {lse.device}")
+    return B, Sq, H, D, Sk, Hkv
+
+
+def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, out: torch.Tensor,
+                             lse: torch.Tensor, dout: torch.Tensor, *,
+                             causal: bool = True,
+                             window: Optional[int] = None,
+                             logit_softcap: float = 0.0
+                             ) -> Tuple[torch.Tensor, torch.Tensor,
+                                        torch.Tensor]:
+    """The gradient of :func:`flash_attention_cuda` at q, k, v (its
+    shapes, dtypes and options) given its output ``out``, its logsumexp
+    ``lse`` (f32 (B, H, Sq), log2 units: what the forward returns with
+    ``return_lse=True``) and the cotangent ``dout`` (q's shape):
+    ``(dq, dk, dv)`` in q's dtype, through :func:`bwd_path`'s kernels
+    (``last_bwd_path`` records it).  Operands of any stride are copied
+    dense (and 16-byte aligned) first; what the forward does not take
+    raises here too."""
+    global last_bwd_path
+    dev = q.device
+    if dev.type != "cuda":
+        raise ValueError(f"flash_attention_bwd_cuda needs CUDA tensors, got "
+                         f"{dev}")
+    B, Sq, H, D, Sk, Hkv = _check_bwd(q, k, v, out, lse, dout, window,
+                                      logit_softcap)
     q, k, v, out, dout, lse = (
         t if t.is_contiguous() and t.data_ptr() % 16 == 0
         else t.clone(memory_format=torch.contiguous_format)
@@ -352,18 +394,34 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
     return dq, dk, dv
 
 
+def flash_attention_bwd_meta(q, k, v, out, lse, dout, *, causal: bool = True,
+                             window: Optional[int] = None,
+                             logit_softcap: float = 0.0):
+    """The backward's shape function, for ``meta`` tensors: the checks of
+    :func:`flash_attention_bwd_cuda` and empty dq, dk, dv (dense, q's
+    dtype)."""
+    if q.device.type != "meta":
+        raise ValueError(f"flash_attention_bwd_meta needs meta tensors, got "
+                         f"{q.device}")
+    _check_bwd(q, k, v, out, lse, dout, window, logit_softcap)
+    return tuple(torch.empty(t.shape, dtype=q.dtype, device=q.device)
+                 for t in (q, k, v))
+
+
 class FlashAttentionFn(torch.autograd.Function):
     """``flash_attention_cuda`` with ``flash_attention_bwd_cuda`` as its
-    gradient; q, k and v are saved with the output and the forward's
-    logsumexp, which the backward reads (a remat recompute runs the
-    forward kernel again)."""
+    gradient (on ``meta`` tensors their shape functions); q, k and v are
+    saved with the output and the forward's logsumexp, which the backward
+    reads (a remat recompute runs the forward kernel again).  The
+    backward is one ``flash_attention_bwd`` call for a recorder
+    (``kernels/work.py``)."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, logit_softcap):
-        out, lse = flash_attention_cuda(q, k, v, causal=causal,
-                                        window=window,
-                                        logit_softcap=logit_softcap,
-                                        return_lse=True)
+        fwd = (flash_attention_meta if q.device.type == "meta"
+               else flash_attention_cuda)
+        out, lse = fwd(q, k, v, causal=causal, window=window,
+                       logit_softcap=logit_softcap, return_lse=True)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.opts = dict(causal=causal, window=window,
                         logit_softcap=logit_softcap)
@@ -372,6 +430,13 @@ class FlashAttentionFn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
-        dq, dk, dv = flash_attention_bwd_cuda(q, k, v, out, lse, dout,
-                                              **ctx.opts)
-        return dq, dk, dv, None, None, None
+        bwd = (flash_attention_bwd_meta if q.device.type == "meta"
+               else flash_attention_bwd_cuda)
+        o = ctx.opts
+        with work.kernel_call("flash_attention_bwd",
+                              lambda: work.flash_attention_bwd_work(
+                                  q, k, causal=o["causal"],
+                                  window=o["window"])) as outs:
+            grads = bwd(q, k, v, out, lse, dout, **o)
+            outs.append(grads)
+        return (*grads, None, None, None)

@@ -12,7 +12,8 @@ nothing.
 the output, launches on the current stream and counts the launch in
 ``LAUNCHES``.  The plain PyTorch version of the same function is
 :func:`hot_gather_ref` (``kernels/ref.py``); ``kernels/ops.py`` chooses
-between them by the tensors' device.
+between them by the tensors' device; :func:`hot_gather_meta` is the
+shape function for ``meta`` tensors.
 """
 from __future__ import annotations
 
@@ -42,14 +43,10 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def hot_gather_cuda(table: torch.Tensor, hot_rows: torch.Tensor,
-                    hot_ids: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """table: (V, D) f32/bf16; hot_rows: (Hn, D) of the same dtype;
-    hot_ids: (Hn,) int32; idx: (T,) int32; all contiguous on one CUDA
-    device.  Returns (T, D) equal to ``hot_gather_ref`` bit for bit."""
+def _check(table, hot_rows, hot_ids, idx):
+    """The wrapper's input checks, on any device: ``(V, D)`` or a
+    raise."""
     dev = table.device
-    if dev.type != "cuda":
-        raise ValueError(f"hot_gather_cuda needs CUDA tensors, got {dev}")
     if table.dtype not in SUPPORTED_DTYPES:
         raise TypeError(f"hot_gather: unsupported dtype {table.dtype} "
                         f"(kernel takes {SUPPORTED_DTYPES})")
@@ -74,6 +71,18 @@ def hot_gather_cuda(table: torch.Tensor, hot_rows: torch.Tensor,
     V, D = table.shape
     if V == 0:
         raise ValueError("hot_gather: empty table")
+    return V, D
+
+
+def hot_gather_cuda(table: torch.Tensor, hot_rows: torch.Tensor,
+                    hot_ids: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """table: (V, D) f32/bf16; hot_rows: (Hn, D) of the same dtype;
+    hot_ids: (Hn,) int32; idx: (T,) int32; all contiguous on one CUDA
+    device.  Returns (T, D) equal to ``hot_gather_ref`` bit for bit."""
+    dev = table.device
+    if dev.type != "cuda":
+        raise ValueError(f"hot_gather_cuda needs CUDA tensors, got {dev}")
+    V, D = _check(table, hot_rows, hot_ids, idx)
     T = idx.shape[0]
     out = torch.empty((T, D), dtype=table.dtype, device=dev)
     if T == 0 or D == 0:
@@ -90,3 +99,14 @@ def hot_gather_cuda(table: torch.Tensor, hot_rows: torch.Tensor,
         raise RuntimeError(f"hot_gather launch failed: {msg} ({err})")
     LAUNCHES["hot_gather"] += 1
     return out
+
+
+def hot_gather_meta(table: torch.Tensor, hot_rows: torch.Tensor,
+                    hot_ids: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """The kernel's shape function, for ``meta`` tensors: the checks of
+    :func:`hot_gather_cuda` and an empty (T, D) output."""
+    if table.device.type != "meta":
+        raise ValueError(f"hot_gather_meta needs meta tensors, got "
+                         f"{table.device}")
+    _, D = _check(table, hot_rows, hot_ids, idx)
+    return table.new_empty((idx.shape[0], D))

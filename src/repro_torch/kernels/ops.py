@@ -3,8 +3,20 @@
 Each op dispatches by where its tensors lie: a CUDA tensor always takes
 the hand-written kernel (which raises on what it does not take — there
 is no fallback), a CPU tensor takes the plain PyTorch version from
-``ref.py`` (bitwise the same semantics).  ``force="kernel"`` asserts the
-kernel path and raises on CPU tensors.
+``ref.py`` (bitwise the same semantics), and a ``meta`` tensor the
+kernel's shape function (``*_meta`` beside each wrapper: the wrapper's
+checks, then empty outputs of its shapes and dtypes; it computes
+nothing), so a step traced on ``meta`` raises where the card would.
+``force="kernel"`` asserts the kernel path and raises on CPU tensors.
+
+Under a recorder (``launch/op_analysis.py``) every call, on any device,
+is one call of its kernel with the work ``kernels/work.py`` gives it,
+and nothing that runs inside it is counted.  On the host with grad,
+the plain version then runs inside an autograd function whose backward
+is the plain gradient (``flash_attention_bwd_ref``,
+``ssd_scan_bwd_ref``), so that the backward too is one kernel call, as
+on the card; without a recorder autograd runs through the plain version
+as ever.
 
 Under autograd on the card, ``flash_attention`` and ``ssd_scan`` go
 through ``FlashAttentionFn`` and ``SsdScanFn``, whose backwards are the
@@ -22,21 +34,92 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from . import ref as _ref
-from .flash_attention import FlashAttentionFn, flash_attention_cuda
-from .hot_gather import LAUNCHES, hot_gather_cuda
-from .ssd_scan import SsdScanFn, ssd_scan_cuda
+from . import work
+from .flash_attention import (FlashAttentionFn, flash_attention_cuda,
+                              flash_attention_meta)
+from .hot_gather import LAUNCHES, hot_gather_cuda, hot_gather_meta
+from .ssd_scan import SsdScanFn, ssd_scan_cuda, ssd_scan_meta
 
 
-def _use_kernel(t: torch.Tensor, force: Optional[str]) -> bool:
+def _route(t: torch.Tensor, force: Optional[str]) -> str:
+    """``"kernel"`` (a CUDA tensor), ``"meta"`` (the shape function) or
+    ``"plain"`` (a host tensor)."""
     if force not in (None, "kernel"):
         raise ValueError(f"force must be None or 'kernel', got {force!r}")
     if t.device.type == "cuda":
-        return True
+        return "kernel"
+    if t.device.type == "meta":
+        return "meta"
     if force == "kernel":
         raise RuntimeError(
             f"force='kernel' needs CUDA tensors; got a tensor on {t.device} "
             f"(the CUDA kernels do not run on the host)")
-    return False
+    return "plain"
+
+
+def _needs_grad(*ts) -> bool:
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in ts)
+
+
+def _dense(x):
+    """A plain version's outputs laid out as the kernel writes its own
+    (dense), so that what follows them dispatches the same operations."""
+    if isinstance(x, (tuple, list)):
+        return type(x)(_dense(t) for t in x)
+    return None if x is None else x.contiguous()
+
+
+class _PlainFlashFn(torch.autograd.Function):
+    """The plain attention with its plain gradient as one backward call:
+    the host's path under a recorder (the module docstring)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, logit_softcap, block):
+        ctx.save_for_backward(q, k, v)
+        ctx.opts = dict(causal=causal, window=window,
+                        logit_softcap=logit_softcap)
+        ctx.block = block
+        return _dense(_ref.flash_attention_ref(q, k, v, block=block,
+                                               **ctx.opts))
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v = ctx.saved_tensors
+        o = ctx.opts
+        with work.kernel_call("flash_attention_bwd",
+                              lambda: work.flash_attention_bwd_work(
+                                  q, k, causal=o["causal"],
+                                  window=o["window"])) as outs:
+            grads = _dense(_ref.flash_attention_bwd_ref(
+                q, k, v, dout, block=ctx.block, **o))
+            outs.append(grads)
+        return (*grads, None, None, None, None)
+
+
+class _PlainSsdFn(torch.autograd.Function):
+    """The plain scan with its plain gradient as one backward call: the
+    host's path under a recorder (the module docstring)."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, Bm, Cm, init_state, chunk):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(x, dt, A, Bm, Cm, init_state)
+        ctx.chunk = chunk
+        return _dense(_ref.ssd_scan_ref(x, dt, A, Bm, Cm, chunk,
+                                        init_state=init_state))
+
+    @staticmethod
+    def backward(ctx, dy, dfinal):
+        x, dt, A, Bm, Cm, s0 = ctx.saved_tensors
+        with work.kernel_call("ssd_scan_bwd", lambda: work.ssd_scan_bwd_work(
+                x, Bm, chunk=ctx.chunk)) as outs:
+            grads = _dense(_ref.ssd_scan_bwd_ref(
+                x, dt, A, Bm, Cm, ctx.chunk,
+                torch.zeros_like(x) if dy is None else dy, dfinal,
+                init_state=s0))
+            outs.append(grads)
+        return (*grads, None)
 
 
 def flash_attention(q, k, v, *, causal: bool = True,
@@ -59,28 +142,42 @@ def flash_attention(q, k, v, *, causal: bool = True,
     ``attend_blocked``'s from its own running max and sum.  Partials over
     disjoint key ranges combine with weights ``exp2(lse - max)`` (the
     sequence-parallel decode).  No autograd on this form."""
-    if _use_kernel(q, force):
-        if return_lse:
-            return flash_attention_cuda(q, k, v, causal=causal,
-                                        window=window,
-                                        logit_softcap=logit_softcap,
-                                        return_lse=True)
-        if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
-                                        or v.requires_grad):
-            return FlashAttentionFn.apply(q, k, v, causal, window,
-                                          logit_softcap)
-        return flash_attention_cuda(q, k, v, causal=causal, window=window,
-                                    logit_softcap=logit_softcap)
-    return _ref.flash_attention_ref(q, k, v, causal=causal, window=window,
-                                    logit_softcap=logit_softcap, block=block,
-                                    return_lse=return_lse)
+    route = _route(q, force)
+    grad = not return_lse and _needs_grad(q, k, v)
+    opts = dict(causal=causal, window=window, logit_softcap=logit_softcap)
+    with work.kernel_call("flash_attention",
+                          lambda: work.flash_attention_work(
+                              q, k, causal=causal, window=window,
+                              return_lse=return_lse or grad)) as outs:
+        if route == "plain" and work.RECORDER is not None:
+            res = (_PlainFlashFn.apply(q, k, v, causal, window,
+                                       logit_softcap, block) if grad
+                   else _dense(_ref.flash_attention_ref(
+                       q, k, v, block=block, return_lse=return_lse, **opts)))
+        elif route == "plain":
+            res = _ref.flash_attention_ref(q, k, v, block=block,
+                                           return_lse=return_lse, **opts)
+        elif grad:
+            res = FlashAttentionFn.apply(q, k, v, causal, window,
+                                         logit_softcap)
+        else:
+            fn = (flash_attention_cuda if route == "kernel"
+                  else flash_attention_meta)
+            res = fn(q, k, v, return_lse=return_lse, **opts)
+        outs.append(res)
+    return res
 
 
 def hot_gather(table, hot_rows, hot_ids, idx, *,
                force: Optional[str] = None) -> torch.Tensor:
-    if _use_kernel(table, force):
-        return hot_gather_cuda(table, hot_rows, hot_ids, idx)
-    return _ref.hot_gather_ref(table, hot_rows, hot_ids, idx)
+    route = _route(table, force)
+    fn = {"kernel": hot_gather_cuda, "meta": hot_gather_meta,
+          "plain": _ref.hot_gather_ref}[route]
+    with work.kernel_call("hot_gather", lambda: work.hot_gather_work(
+            table, hot_rows, hot_ids, idx)) as outs:
+        out = fn(table, hot_rows, hot_ids, idx)
+        outs.append(out)
+    return out
 
 
 def ssd_scan(x, dt, A, Bm, Cm, *, chunk: int, init_state=None,
@@ -93,14 +190,25 @@ def ssd_scan(x, dt, A, Bm, Cm, *, chunk: int, init_state=None,
     ``SsdScanFn``, whose backward is the ``ssd_scan_bwd`` kernel; every
     other call is the plain launch.  On the host autograd runs through the
     plain version."""
-    if _use_kernel(x, force):
-        if torch.is_grad_enabled() and any(
-                t is not None and t.requires_grad
-                for t in (x, dt, A, Bm, Cm, init_state)):
-            return SsdScanFn.apply(x, dt, A, Bm, Cm, init_state, chunk)
-        return ssd_scan_cuda(x, dt, A, Bm, Cm, chunk=chunk,
-                             init_state=init_state)
-    return _ref.ssd_scan_ref(x, dt, A, Bm, Cm, chunk, init_state=init_state)
+    route = _route(x, force)
+    grad = _needs_grad(x, dt, A, Bm, Cm, init_state)
+    with work.kernel_call("ssd_scan", lambda: work.ssd_scan_work(
+            x, Bm, chunk=chunk, init=init_state is not None,
+            scratch=grad)) as outs:
+        if route == "plain" and work.RECORDER is not None:
+            res = (_PlainSsdFn.apply(x, dt, A, Bm, Cm, init_state, chunk)
+                   if grad else _dense(_ref.ssd_scan_ref(
+                       x, dt, A, Bm, Cm, chunk, init_state=init_state)))
+        elif route == "plain":
+            res = _ref.ssd_scan_ref(x, dt, A, Bm, Cm, chunk,
+                                    init_state=init_state)
+        elif grad:
+            res = SsdScanFn.apply(x, dt, A, Bm, Cm, init_state, chunk)
+        else:
+            fn = ssd_scan_cuda if route == "kernel" else ssd_scan_meta
+            res = fn(x, dt, A, Bm, Cm, chunk=chunk, init_state=init_state)
+        outs.append(res)
+    return res
 
 
 def ssd_decode(x, dt, A, Bm, Cm, state, *, force: Optional[str] = None):

@@ -16,7 +16,9 @@ launch in ``LAUNCHES``.  Unlike the TPU kernel it takes any number of
 groups G that divides H, any H and a ragged last chunk; what it does not
 take raises.  The plain PyTorch version of the same function is
 :func:`ssd_scan_ref` (``kernels/ref.py``); ``kernels/ops.py`` chooses
-between them by the tensors' device.
+between them by the tensors' device.  :func:`ssd_scan_meta` and
+:func:`ssd_scan_bwd_meta` are the shape functions for ``meta`` tensors
+(the wrappers' checks, then empty outputs of their shapes and dtypes).
 
 :func:`ssd_scan_bwd_cuda` is the gradient, ``csrc/ssd_scan_bwd.cu``
 (its plain version :func:`~.ref.ssd_scan_bwd_ref`, its arithmetic
@@ -31,7 +33,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from . import build
+from . import build, work
 from .hot_gather import LAUNCHES
 from .ref import ssd_scan_ref  # noqa: F401  (the plain version)
 
@@ -79,24 +81,13 @@ def ssd_scan_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     forward's ``dacs`` (B, H, nc, Q), each chunk's running sum of dt A,
     and ``states`` (B, H, nc, P, N), the state entering each chunk, which
     the backward reads."""
+    _on("cuda", "ssd_scan_cuda", x)
     _check(x, dt, A, Bm, Cm, chunk)
     Bsz, S, H, P = x.shape
     G, N = Bm.shape[2], Bm.shape[3]
     dev = x.device
-    if init_state is not None:
-        if init_state.dtype != torch.float32 or \
-                tuple(init_state.shape) != (Bsz, H, P, N):
-            raise ValueError(f"ssd_scan: init_state must be float32 "
-                             f"{(Bsz, H, P, N)}")
-        if not init_state.is_contiguous():
-            raise ValueError("ssd_scan: init_state is not contiguous")
-        if init_state.device != dev:
-            raise ValueError(f"ssd_scan: init_state on {init_state.device}, "
-                             f"x on {dev}")
-    x_sb, x_ss = _rows("x", x, H * P)
-    dt_sb, dt_ss = _rows("dt", dt, H)
-    b_sb, b_ss = _rows("Bm", Bm, G * N)
-    c_sb, c_ss = _rows("Cm", Cm, G * N)
+    (x_sb, x_ss), (dt_sb, dt_ss), (b_sb, b_ss), (c_sb, c_ss) = _check_fwd(
+        x, dt, Bm, Cm, init_state)
 
     y = torch.empty((Bsz, S, H, P), dtype=x.dtype, device=dev)
     final = torch.empty((Bsz, H, P, N), dtype=torch.float32, device=dev)
@@ -128,12 +119,57 @@ def ssd_scan_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     return (y, final, dacs, states) if return_scratch else (y, final)
 
 
+def _check_fwd(x, dt, Bm, Cm, init_state):
+    """The forward's checks past :func:`_check`: the initial state's
+    type, shape, layout and device, and the operands' row strides
+    (returned)."""
+    Bsz, S, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    if init_state is not None:
+        if init_state.dtype != torch.float32 or \
+                tuple(init_state.shape) != (Bsz, H, P, N):
+            raise ValueError(f"ssd_scan: init_state must be float32 "
+                             f"{(Bsz, H, P, N)}")
+        if not init_state.is_contiguous():
+            raise ValueError("ssd_scan: init_state is not contiguous")
+        if init_state.device != x.device:
+            raise ValueError(f"ssd_scan: init_state on {init_state.device}, "
+                             f"x on {x.device}")
+    return (_rows("x", x, H * P), _rows("dt", dt, H),
+            _rows("Bm", Bm, G * N), _rows("Cm", Cm, G * N))
+
+
+def ssd_scan_meta(x, dt, A, Bm, Cm, *, chunk: int, init_state=None,
+                  return_scratch: bool = False):
+    """The kernel's shape function, for ``meta`` tensors: the checks of
+    :func:`ssd_scan_cuda` and empty outputs of its shapes and dtypes (y
+    in x's dtype, the f32 final state, and with ``return_scratch`` the
+    f32 ``dacs`` and ``states``).  Computes nothing."""
+    _on("meta", "ssd_scan_meta", x)
+    _check(x, dt, A, Bm, Cm, chunk)
+    _check_fwd(x, dt, Bm, Cm, init_state)
+    Bsz, S, H, P = x.shape
+    N = Bm.shape[3]
+    nc = -(-S // chunk)
+    f32 = torch.float32
+    y = x.new_empty((Bsz, S, H, P))
+    final = x.new_empty((Bsz, H, P, N), dtype=f32)
+    if not return_scratch:
+        return y, final
+    return (y, final, x.new_empty((Bsz, H, nc, chunk), dtype=f32),
+            x.new_empty((Bsz, H, nc, P, N), dtype=f32))
+
+
+def _on(kind: str, who: str, x) -> None:
+    if x.device.type != kind:
+        raise ValueError(f"{who} needs {'CUDA' if kind == 'cuda' else kind} "
+                         f"tensors, got {x.device}")
+
+
 def _check(x, dt, A, Bm, Cm, chunk: int) -> None:
-    """The checks the forward and the backward share: device, dtypes,
-    shapes and the kernels' envelope."""
+    """The checks the forward and the backward share, on any device:
+    dtypes, shapes, devices and the kernels' envelope."""
     dev = x.device
-    if dev.type != "cuda":
-        raise ValueError(f"ssd_scan_cuda needs CUDA tensors, got {dev}")
     if x.dtype not in SUPPORTED_DTYPES:
         raise TypeError(f"ssd_scan: unsupported dtype {x.dtype} "
                         f"(kernel takes {SUPPORTED_DTYPES})")
@@ -200,24 +236,13 @@ def ssd_scan_bwd_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     dB, dC, dinit)``: dx, dB and dC in x's dtype (dB and dC summed over
     the heads of each group), ddt, dA and dinit (B, H, P, N) f32 — the
     function of ``ssd_scan_bwd_ref``."""
-    _check(x, dt, A, Bm, Cm, chunk)
+    _on("cuda", "ssd_scan_bwd_cuda", x)
+    _check_bwd(x, dt, A, Bm, Cm, dacs, states, final, dy, dfinal, chunk)
     Bsz, S, H, P = x.shape
     G, N = Bm.shape[2], Bm.shape[3]
     dev = x.device
     nc = -(-S // chunk)
     f32 = torch.float32
-    if dy.dtype != x.dtype or tuple(dy.shape) != (Bsz, S, H, P):
-        raise ValueError(f"ssd_scan_bwd: dy must be {x.dtype} "
-                         f"{(Bsz, S, H, P)}, got {dy.dtype} "
-                         f"{tuple(dy.shape)}")
-    for name, t, shape in (("dacs", dacs, (Bsz, H, nc, chunk)),
-                           ("states", states, (Bsz, H, nc, P, N)),
-                           ("final", final, (Bsz, H, P, N)),
-                           ("dfinal", dfinal, (Bsz, H, P, N))):
-        if t is not None and (t.dtype != f32 or tuple(t.shape) != shape
-                              or t.device != dev):
-            raise ValueError(f"ssd_scan_bwd: {name} must be float32 {shape} "
-                             f"on {dev}")
     dy = dy.contiguous()
     dfinal = None if dfinal is None else dfinal.contiguous()
     dacs, states, final = (t.contiguous() for t in (dacs, states, final))
@@ -266,17 +291,60 @@ def ssd_scan_bwd_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     return dx, ddt, dA, dB, dC, dinit
 
 
+def _check_bwd(x, dt, A, Bm, Cm, dacs, states, final, dy, dfinal,
+               chunk: int) -> None:
+    """The backward's checks, on any device: the forward's, then the
+    cotangents' and the saved scratch's types, shapes and devices."""
+    _check(x, dt, A, Bm, Cm, chunk)
+    Bsz, S, H, P = x.shape
+    N = Bm.shape[3]
+    nc = -(-S // chunk)
+    dev = x.device
+    if dy.dtype != x.dtype or tuple(dy.shape) != (Bsz, S, H, P):
+        raise ValueError(f"ssd_scan_bwd: dy must be {x.dtype} "
+                         f"{(Bsz, S, H, P)}, got {dy.dtype} "
+                         f"{tuple(dy.shape)}")
+    for name, t, shape in (("dacs", dacs, (Bsz, H, nc, chunk)),
+                           ("states", states, (Bsz, H, nc, P, N)),
+                           ("final", final, (Bsz, H, P, N)),
+                           ("dfinal", dfinal, (Bsz, H, P, N))):
+        if t is not None and (t.dtype != torch.float32
+                              or tuple(t.shape) != shape
+                              or t.device != dev):
+            raise ValueError(f"ssd_scan_bwd: {name} must be float32 {shape} "
+                             f"on {dev}")
+
+
+def ssd_scan_bwd_meta(x, dt, A, Bm, Cm, dacs, states, final, dy, dfinal, *,
+                      chunk: int):
+    """The backward's shape function, for ``meta`` tensors: the checks of
+    :func:`ssd_scan_bwd_cuda` and empty ``(dx, ddt, dA, dB, dC, dinit)``
+    of its shapes and dtypes."""
+    _on("meta", "ssd_scan_bwd_meta", x)
+    _check_bwd(x, dt, A, Bm, Cm, dacs, states, final, dy, dfinal, chunk)
+    Bsz, S, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    f32 = torch.float32
+    e = lambda shape, dtype: x.new_empty(shape, dtype=dtype)
+    return (e((Bsz, S, H, P), x.dtype), e((Bsz, S, H), f32), e((H,), f32),
+            e((Bsz, S, G, N), x.dtype), e((Bsz, S, G, N), x.dtype),
+            e((Bsz, H, P, N), f32))
+
+
 class SsdScanFn(torch.autograd.Function):
-    """``ssd_scan_cuda`` with ``ssd_scan_bwd_cuda`` as its gradient; the
-    inputs are saved as the forward took them (strided views of one
-    projection stay views) with the forward's ``dacs``, ``states`` and
-    final state, which the backward reads (a remat recompute runs the
-    forward kernel again)."""
+    """``ssd_scan_cuda`` with ``ssd_scan_bwd_cuda`` as its gradient (on
+    ``meta`` tensors their shape functions); the inputs are saved as the
+    forward took them (strided views of one projection stay views) with
+    the forward's ``dacs``, ``states`` and final state, which the
+    backward reads (a remat recompute runs the forward kernel again).
+    The backward is one ``ssd_scan_bwd`` call for a recorder
+    (``kernels/work.py``)."""
 
     @staticmethod
     def forward(ctx, x, dt, A, Bm, Cm, init_state, chunk):
         ctx.set_materialize_grads(False)
-        y, final, dacs, states = ssd_scan_cuda(
+        fwd = ssd_scan_meta if x.device.type == "meta" else ssd_scan_cuda
+        y, final, dacs, states = fwd(
             x, dt, A, Bm, Cm, chunk=chunk, init_state=init_state,
             return_scratch=True)
         ctx.save_for_backward(x, dt, A, Bm, Cm, dacs, states, final)
@@ -288,9 +356,14 @@ class SsdScanFn(torch.autograd.Function):
         x, dt, A, Bm, Cm, dacs, states, final = ctx.saved_tensors
         if dy is None:
             dy = torch.zeros_like(x)
-        dx, ddt, dA, dB, dC, dinit = ssd_scan_bwd_cuda(
-            x, dt, A, Bm, Cm, dacs, states, final, dy, dfinal,
-            chunk=ctx.chunk)
+        bwd = (ssd_scan_bwd_meta if x.device.type == "meta"
+               else ssd_scan_bwd_cuda)
+        with work.kernel_call("ssd_scan_bwd", lambda: work.ssd_scan_bwd_work(
+                x, Bm, chunk=ctx.chunk)) as outs:
+            grads = bwd(x, dt, A, Bm, Cm, dacs, states, final, dy, dfinal,
+                        chunk=ctx.chunk)
+            outs.append(grads)
+        dx, ddt, dA, dB, dC, dinit = grads
         need = ctx.needs_input_grad
         return (dx if need[0] else None, ddt if need[1] else None,
                 dA if need[2] else None, dB if need[3] else None,

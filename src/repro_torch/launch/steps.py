@@ -7,6 +7,7 @@ from typing import Optional, Sequence
 
 import torch
 
+from ..distributed import compat
 from ..distributed.compat import Sharded
 from ..distributed.meshctx import use_policy
 from ..models.model import Model
@@ -65,7 +66,10 @@ def make_train_step(model: Model, opt_cfg: AdamWConfig,
                else None)
 
     def cut(key, g):
-        return g if flat_sh is None else flat_sh[key].cut(g)
+        if flat_sh is None or flat_sh[key].replicated:
+            return g
+        compat.record_collective("reduce-scatter", [g])
+        return flat_sh[key].cut(g)
 
     def grads_of(params, batch):
         params.zero_grad(set_to_none=True)
@@ -118,14 +122,19 @@ def make_train_step(model: Model, opt_cfg: AdamWConfig,
 def _map_blocks(fn, x):
     """``fn`` of a tensor, or of each block of a Sharded gradient."""
     if isinstance(x, Sharded):
-        return Sharded([fn(t) for t in x.shards], x.dim, x.grid)
+        out = []
+        for t, c in zip(x.shards, x.block_coords()):
+            with compat.at(c):
+                out.append(fn(t))
+        return x.like(out)
     return fn(x)
 
 
 def _add_blocks(acc, x) -> None:
     if isinstance(acc, Sharded):
-        for a, t in zip(acc.shards, x.shards):
-            a.add_(t)
+        for a, t, c in zip(acc.shards, x.shards, acc.block_coords()):
+            with compat.at(c):
+                a.add_(t)
     else:
         acc.add_(x)
 

@@ -205,9 +205,11 @@ def n_seq_shards(pol, B: int, mla: bool = False) -> int:
 
 
 def _seq_shards(pol, B: int, cap: int, lo: int, hi: int, mla: bool):
-    """Yield ``(b, rows, a, e, device)`` per sequence shard with visible
-    slots, in shard order: batch chunk ``b`` (rows ``rows``), cache
-    slots ``[a, e)`` = the shard's range intersected with ``[lo, hi)``."""
+    """Yield ``(b, rows, a, e, device, coord)`` per sequence shard with
+    visible slots, in shard order: batch chunk ``b`` (rows ``rows``),
+    cache slots ``[a, e)`` = the shard's range intersected with
+    ``[lo, hi)``, at mesh coordinate ``coord``, where the caller's loop
+    body runs (``compat.at``, for a recorder)."""
     mesh = pol.mesh
     batch_axes, seq_axes = _seq_split(pol, B, mla)
     nb, ns = mesh.axes_size(batch_axes), mesh.axes_size(seq_axes)
@@ -216,7 +218,9 @@ def _seq_shards(pol, B: int, cap: int, lo: int, hi: int, mla: bool):
         b, s = divmod(i, ns)
         a, e = max(s * L, lo), min((s + 1) * L, hi)
         if a < e:
-            yield b, slice(b * Bl, (b + 1) * Bl), a, e, mesh.device_at(c)
+            with compat.at(c):
+                yield (b, slice(b * Bl, (b + 1) * Bl), a, e,
+                       mesh.device_at(c), c)
 
 
 def _gqa_decode_seq_parallel(pol, q, k, v, start: int, *, window,
@@ -233,7 +237,7 @@ def _gqa_decode_seq_parallel(pol, q, k, v, start: int, *, window,
     lo = max(0, hi - window) if window is not None else 0
     home = q.device
     parts: dict = {}
-    for b, rows, a, e, dev in _seq_shards(pol, B, cap, lo, hi, False):
+    for b, rows, a, e, dev, _ in _seq_shards(pol, B, cap, lo, hi, False):
         out, lse = ops.flash_attention(
             q[rows].to(dev), k[rows, a:e].to(dev), v[rows, a:e].to(dev),
             causal=False, window=None, logit_softcap=logit_softcap,
@@ -265,21 +269,27 @@ def _mla_decode_seq_parallel(pol, q_lat, q_rope, ckv, k_rope, start: int,
     B, cap = q_lat.shape[0], ckv.shape[1]
     home = q_lat.device
     shards = []
-    for b, rows, a, e, dev in _seq_shards(pol, B, cap, 0, start + 1, True):
+    for b, rows, a, e, dev, at in _seq_shards(pol, B, cap, 0, start + 1,
+                                              True):
         c = ckv[rows, a:e].to(dev)
         logits = (dot_f32("bshr,btr->bhst", q_lat[rows].to(dev), c)
                   + dot_f32("bshr,btr->bhst", q_rope[rows].to(dev),
                             k_rope[rows, a:e].to(dev))) * scale
-        shards.append((b, c, logits))
+        shards.append((b, c, logits, at))
     outs = []
     for b in sorted({s[0] for s in shards}):
-        mine = [(c, lg) for bb, c, lg in shards if bb == b]
-        m_glob = compat.pmax([lg.amax(dim=-1) for _, lg in mine], home)
+        mine = [(c, lg, at) for bb, c, lg, at in shards if bb == b]
+        maxes = []
+        for _, lg, at in mine:
+            with compat.at(at):
+                maxes.append(lg.amax(dim=-1))
+        m_glob = compat.pmax(maxes, home)
         ls, accs = [], []
-        for c, lg in mine:
-            p = torch.exp(lg - m_glob.to(lg.device)[..., None])
-            ls.append(p.sum(dim=-1))
-            accs.append(dot_f32("bhst,btr->bshr", p.to(c.dtype), c))
+        for c, lg, at in mine:
+            with compat.at(at):
+                p = torch.exp(lg - m_glob.to(lg.device)[..., None])
+                ls.append(p.sum(dim=-1))
+                accs.append(dot_f32("bhst,btr->bshr", p.to(c.dtype), c))
         l_glob = compat.psum(ls, home)
         acc = compat.psum(accs, home)
         outs.append(acc / l_glob.clamp_min(1e-30).permute(0, 2, 1)[..., None])

@@ -48,11 +48,10 @@ same rows per expert and agree bit for bit.
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from ..distributed import compat
 from .config import MoEConfig, ModelConfig
@@ -95,12 +94,30 @@ def route(w_router, x2d: torch.Tensor, top_k: int, bias=None):
 
 def load_balance_loss(logits: torch.Tensor, ids: torch.Tensor,
                       n_experts: int) -> torch.Tensor:
-    """Switch-style auxiliary loss (per-shard; caller averages)."""
+    """Switch-style auxiliary loss (per-shard; caller averages).  The
+    reference sums a one-hot of the ids; the counts here are the same
+    integers (exact in f32), by a scatter that does the same work on
+    every device (``F.one_hot`` checks its ids' range on the host first,
+    on the CPU)."""
     probs = torch.softmax(logits, dim=-1)                    # (T,E)
     density_proxy = probs.mean(dim=0)                        # (E,)
-    onehot = F.one_hot(ids.long(), n_experts).float()
-    density = onehot.sum(dim=(0, 1)) / ids.numel()           # (E,)
+    density = (_counts(ids.reshape(-1).long(), n_experts).float()
+               / ids.numel())                                # (E,)
     return n_experts * (density * density_proxy).sum()
+
+
+def host_sizes(counts: torch.Tensor, total: int) -> List[int]:
+    """The per-expert row counts ``counts`` (n,) read to the host: the one
+    device-to-host read of a MoE layer.  A ``meta`` tensor (a dry run's
+    trace) has no values: there the ``total`` routed rows are split
+    evenly over the n groups, the first ``total % n`` one row larger (a
+    balanced router; the expert products' FLOPs do not depend on the
+    split, and every expert's weights are touched)."""
+    if counts.device.type != "meta":
+        return counts.tolist()
+    n = counts.numel()
+    q, r = divmod(int(total), n)
+    return [q + 1 if i < r else q for i in range(n)]
 
 
 def _expert_compute(xs: torch.Tensor, group_sizes: Sequence[int],
@@ -155,8 +172,9 @@ def moe_ffn_local(params, x2d: torch.Tensor, moe: MoEConfig,
     group_sizes = torch.zeros(E, dtype=torch.long, device=x2d.device
                               ).scatter_add_(0, flat_ids,
                                              torch.ones_like(flat_ids))
-    y = _dispatch(params, x2d, gates, flat_ids, group_sizes.tolist(),
-                  range(E), K, act)
+    y = _dispatch(params, x2d, gates, flat_ids,
+                  host_sizes(group_sizes, flat_ids.numel()), range(E), K,
+                  act)
     aux = load_balance_loss(logits, ids, E) if aux_loss else 0.0
     return y, {"aux_loss": aux, "dropped": 0.0,
                "expert_counts": group_sizes.to(torch.int32)}
@@ -223,20 +241,24 @@ def _shard_route(x, wr, br, moe: MoEConfig, n_model: int, cap: int):
                          device=x.device)
     send_x[slot[keep]] = x[(order // K)[keep]]
     send_id[slot[keep]] = (s_ids % E_l)[keep]
+    dropped = N - sum(min(c, cap) for c in host_sizes(cnt, N))
     return dict(gates=gates, ids=ids, logits=logits, order=order,
                 slot=slot, keep=keep, send_x=send_x, send_id=send_id,
-                dropped=int((~keep).sum()))
+                dropped=dropped)
 
 
-def _shard_experts(rx, rid, w1, w3, w2, act: str, cap_e: Optional[int]):
+def _shard_experts(rx, rid, w1, w3, w2, act: str, cap_e: Optional[int],
+                   n_rows: int):
     """Stage 2, one expert shard: run its experts on the rows it received
-    (``rid`` the local expert id, -1 for an empty slot); returns the rows
-    in received order (empty slots zero) and the rows dropped."""
+    (``rid`` the local expert id, -1 for an empty slot; ``n_rows`` the
+    rows a balanced router sends it, for a trace on ``meta``); returns
+    the rows in received order (empty slots zero) and the rows
+    dropped."""
     E_l = w1.shape[0]
     valid = rid >= 0
     cid = torch.where(valid, rid, E_l)
     lorder = torch.argsort(cid, stable=True)
-    gs = _counts(cid, E_l + 1)[:E_l].tolist()
+    gs = host_sizes(_counts(cid, E_l + 1)[:E_l], n_rows)
     ly, dropped = _expert_groups(rx[lorder], gs, w1, w3, w2, act, cap_e)
     ry = torch.empty_like(ly)
     ry[lorder] = ly
@@ -270,25 +292,33 @@ def _moe_all_to_all(params, x2d, moe: MoEConfig, act: str, pol):
             None if br is None else br.to(d), moe, n_model, cap), dev=d),
         mesh, axes)
     devs = [s["dev"] for s in st]
+    coords = mesh.shard_coords(axes)
     ys, dropped = [None] * n_tok, sum(s["dropped"] for s in st)
+    # rows a balanced router sends one expert shard (what a trace on
+    # ``meta`` runs): each of its n_model senders' share, up to ``cap``
+    n_rows = n_model * min(cap, -(-T_l * K // n_model))
     for g in range(n_tok // n_model):        # one batch shard's group
         mine = range(g * n_model, (g + 1) * n_model)
         rx = compat.all_to_all([st[i]["send_x"] for i in mine])
         rid = compat.all_to_all([st[i]["send_id"] for i in mine])
         back = []
         for mi, i in enumerate(mine):
-            w = _expert_slice(params, mi, E_l, devs[i])
-            ry, d = _shard_experts(rx[mi], rid[mi], *w, act, cap_e)
+            with compat.at(coords[i]):
+                w = _expert_slice(params, mi, E_l, devs[i])
+                ry, d = _shard_experts(rx[mi], rid[mi], *w, act, cap_e,
+                                       n_rows)
             back.append(ry)
             dropped += d
         by = compat.all_to_all(back)
         for mi, i in enumerate(mine):
             s = st[i]
-            yk = by[mi][s["slot"]] * s["keep"][:, None].to(by[mi].dtype)
-            y = torch.empty_like(yk)
-            y[s["order"]] = yk
-            ys[i] = (y.reshape(T_l, K, -1) * s["gates"][..., None].to(
-                y.dtype)).sum(dim=1).to(x2d.dtype)
+            with compat.at(coords[i]):
+                yk = by[mi][s["slot"]] * s["keep"][:, None].to(
+                    by[mi].dtype)
+                y = torch.empty_like(yk)
+                y[s["order"]] = yk
+                ys[i] = (y.reshape(T_l, K, -1) * s["gates"][..., None].to(
+                    y.dtype)).sum(dim=1).to(x2d.dtype)
     aux = compat.psum([load_balance_loss(s["logits"], s["ids"], E)
                        for s in st], home) / n_tok
     counts = compat.psum([_counts(s["ids"].reshape(-1).long(), E)
@@ -320,7 +350,8 @@ def _moe_psum(params, x2d, moe: MoEConfig, act: str, pol):
         cid = torch.where(owned, flat % E_l, 0)
         order = torch.argsort(cid + torch.where(owned, 0, E_l),
                               stable=True)
-        gs = _counts(torch.where(owned, cid, E_l), E_l + 1)[:E_l].tolist()
+        gs = host_sizes(_counts(torch.where(owned, cid, E_l), E_l + 1)[:E_l],
+                        T * K // n_model)
         ys, dropped = _expert_groups(
             x[order // K], gs, *_expert_slice(params, me, E_l, dev), act,
             cap_e)

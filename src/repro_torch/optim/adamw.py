@@ -36,6 +36,7 @@ from dataclasses import dataclass
 
 import torch
 
+from ..distributed import compat
 from ..distributed.compat import Replicated, Sharded, split_grid
 from ..distributed.fault import LostStepError
 from ..models.params import flat_tree, unflat_tree
@@ -76,10 +77,12 @@ def init_opt_state(params, shardings=None) -> dict:
     ``meta`` only shapes), step 0.  ``shardings`` (the ``"opt"`` part of
     ``distributed.sharding.train_state_shardings``): ``master``, ``m``
     and ``v`` are placed by it leaf by leaf, ``step`` on the mesh's home
-    device."""
+    device.  On ``meta`` the step is a host scalar: the update reads it
+    on the host, and a ``meta`` tensor has no value."""
     flat = {k: p.detach() for k, p in flat_tree(params).items()}
     dev = next(iter(flat.values())).device
     if shardings is not None:
+        home = shardings["step"].mesh.home
         sh = flat_tree(shardings["master"])
         master = {k: sh[k].place(p, torch.float32) for k, p in flat.items()}
         return {
@@ -87,7 +90,7 @@ def init_opt_state(params, shardings=None) -> dict:
             "m": unflat_tree({k: _zeros_like(t) for k, t in master.items()}),
             "v": unflat_tree({k: _zeros_like(t) for k, t in master.items()}),
             "step": torch.zeros((), dtype=torch.int32,
-                                device=shardings["step"].mesh.home),
+                                device=_step_device(home)),
         }
     return {
         "master": unflat_tree({k: p.to(torch.float32, copy=True)
@@ -96,14 +99,22 @@ def init_opt_state(params, shardings=None) -> dict:
                           for k, p in flat.items()}),
         "v": unflat_tree({k: torch.zeros_like(p, dtype=torch.float32)
                           for k, p in flat.items()}),
-        "step": torch.zeros((), dtype=torch.int32, device=dev),
+        "step": torch.zeros((), dtype=torch.int32, device=_step_device(dev)),
     }
+
+
+def _step_device(dev) -> torch.device:
+    dev = torch.device(dev)
+    return torch.device("cpu") if dev.type == "meta" else dev
 
 
 def _zeros_like(x):
     if isinstance(x, Sharded):
-        return Sharded([torch.zeros_like(t) for t in x.shards], x.dim,
-                       x.grid)
+        out = []
+        for t, c in zip(x.shards, x.block_coords()):
+            with compat.at(c):
+                out.append(torch.zeros_like(t))
+        return x.like(out)
     if isinstance(x, Replicated):
         return Replicated({d: torch.zeros_like(t)
                            for d, t in x.copies.items()})
@@ -118,6 +129,14 @@ def _blocks(x) -> list:
     if isinstance(x, Replicated):
         return [x.value]
     return [x]
+
+
+def _coords(x) -> tuple:
+    """The mesh coordinate of each of ``_blocks(x)`` (None: unknown),
+    where a recorder counts the block's update."""
+    if isinstance(x, Sharded):
+        return x.block_coords()
+    return (None,)
 
 
 def _grad_blocks(g, like) -> list:
@@ -162,10 +181,12 @@ def global_norm(tree) -> torch.Tensor:
     device."""
     total = None
     for _, g in sorted(flat_tree(tree).items()):    # the reference's order
-        for b in _blocks(g):                        # then shard order
-            for c in _chunks(b):
-                s = c.double().square().sum()
-                total = s if total is None else total + s.to(total.device)
+        for b, at in zip(_blocks(g), _coords(g)):   # then shard order
+            with compat.at(at):
+                for c in _chunks(b):
+                    s = c.double().square().sum()
+                    total = (s if total is None
+                             else total + s.to(total.device))
     return total.sqrt().float()
 
 
@@ -194,19 +215,12 @@ def adamw_update(cfg: AdamWConfig, grads, opt_state, params=None):
         for key, g in sorted(flat_g.items()):
             ma_leaf = flat_ma[key]
             blocks = zip(_grad_blocks(g, ma_leaf), _blocks(ma_leaf),
-                         _blocks(flat_m[key]), _blocks(flat_v[key]))
-            for gb, mab, mb, vb in blocks:
-                sc = scale.to(mab.device)
-                parts = zip(_chunks(gb), _chunks(mab), _chunks(mb),
-                            _chunks(vb))
-                for gc, ma, m, v in parts:
-                    # the reference's operations, one rounding each
-                    gc = gc.float() * sc
-                    m.mul_(cfg.b1).add_(gc * (1 - cfg.b1))
-                    v.mul_(cfg.b2).add_(gc.square_().mul_(1 - cfg.b2))
-                    denom = (v / bc2).sqrt_().add_(cfg.eps)
-                    upd = (m / bc1).div_(denom).add_(ma * cfg.weight_decay)
-                    ma.sub_(upd.mul_(lr_f))
+                         _blocks(flat_m[key]), _blocks(flat_v[key]),
+                         _coords(ma_leaf))
+            for gb, mab, mb, vb, at in blocks:
+                with compat.at(at):
+                    _update_block(cfg, gb, mab, mb, vb, scale, bc1, bc2,
+                                  lr_f)
             for leaf in (ma_leaf, flat_m[key], flat_v[key]):
                 _sync_copies(leaf)
             if flat_p is not None:
@@ -220,6 +234,21 @@ def adamw_update(cfg: AdamWConfig, grads, opt_state, params=None):
         params = unflat_tree({k: _whole(flat_ma[k]).to(g.dtype, copy=True)
                               for k, g in flat_g.items()})
     return params, opt_state, {"grad_norm": gnorm, "lr": lr}
+
+
+def _update_block(cfg: AdamWConfig, gb, mab, mb, vb, scale, bc1: float,
+                  bc2: float, lr_f: float) -> None:
+    """One block's update in place, chunk by chunk."""
+    sc = scale.to(mab.device)
+    parts = zip(_chunks(gb), _chunks(mab), _chunks(mb), _chunks(vb))
+    for gc, ma, m, v in parts:
+        # the reference's operations, one rounding each
+        gc = gc.float() * sc
+        m.mul_(cfg.b1).add_(gc * (1 - cfg.b1))
+        v.mul_(cfg.b2).add_(gc.square_().mul_(1 - cfg.b2))
+        denom = (v / bc2).sqrt_().add_(cfg.eps)
+        upd = (m / bc1).div_(denom).add_(ma * cfg.weight_decay)
+        ma.sub_(upd.mul_(lr_f))
 
 
 def _whole(x) -> torch.Tensor:

@@ -9,7 +9,9 @@ traffic and the tables, not on the weights).  The same holds in the
 ``fused`` mode (``step_many`` windows) and the ``frontend`` mode (the
 request frontend's windows replayed on the oracle), and the reference's
 own quick cells of those modes, phi3.5-MoE fused and seamless frontend,
-pass.
+pass (mamba2's ``fused`` and ``frontend`` reports are held in
+``test_torch_conformance_modes.py``, a file of their own so that a
+second worker takes them).
 
 The cross-process fingerprint CLI: ``python -m
 repro_torch.testing.fingerprint`` under another ``PYTHONHASHSEED``
@@ -107,18 +109,6 @@ def _has_teeth(report):
     assert report["events"] >= 50 and report["steps"] >= 30
     assert report["recompiles"] >= 3 and report["mispredicts"] >= 2
     assert report["deopt_steps"] >= report["mispredicts"]
-
-
-@pytest.mark.parametrize("mode", ["fused", "frontend"])
-def test_mamba2_report_equals_the_reference_in_mode(mode):
-    report = run_conformance("mamba2-1.3b", mode, seed=0, device="cpu")
-    _has_teeth(report)
-    assert ("ssm_state", "ssd_fastpath") in report["impls_seen"]
-    if mode == "fused":    # a window serves several steps
-        assert report["compares"] < report["steps"]
-    ref = j_run_conformance("mamba2-1.3b", mode, seed=0)
-    assert {k: report[k] for k in REPORT_KEYS} == \
-        {k: ref[k] for k in REPORT_KEYS}
 
 
 @pytest.mark.parametrize("arch,mode,impl", [

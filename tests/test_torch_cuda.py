@@ -2022,3 +2022,107 @@ def test_restore_onto_a_mesh_of_three_on_the_card_is_bit_equal(cuda,
         assert s.holds(leaf), key
         split += isinstance(leaf, Sharded) and len(leaf.shards) == 3
     assert split > 0
+
+
+# ---------------------------------------------------------------------------
+# the kernels' shape functions (the dry run's route) against the kernels
+# ---------------------------------------------------------------------------
+
+def _meta(t):
+    """``t`` as a meta tensor of its shape, strides and dtype."""
+    return None if t is None else torch.empty_strided(
+        t.shape, t.stride(), dtype=t.dtype, device="meta")
+
+
+def _same_layout(a, b):
+    return (tuple(a.shape) == tuple(b.shape) and a.dtype == b.dtype
+            and a.device.type == "meta")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Sq,Sk,H,Hkv,D,lse", [
+    (2, 64, 64, 8, 2, 64, False), (2, 1, 300, 8, 1, 128, True),
+    (1, 200, 200, 4, 4, 256, True), (2, 16, 40, 6, 3, 40, False)])
+def test_flash_attention_shape_function_matches_the_kernel(
+        cuda, B, Sq, Sk, H, Hkv, D, lse, dtype):
+    q, k, v = _fa_inputs(B, Sq, Sk, H, Hkv, D, dtype, cuda)
+    got = fa_mod.flash_attention_cuda(q, k, v, return_lse=lse)
+    want = fa_mod.flash_attention_meta(_meta(q), _meta(k), _meta(v),
+                                       return_lse=lse)
+    for g, w in zip(got if lse else (got,), want if lse else (want,)):
+        assert _same_layout(w, g)
+    out, lse_t = fa_mod.flash_attention_cuda(q, k, v, return_lse=True)
+    dout = torch.randn_like(out)
+    grads = fa_mod.flash_attention_bwd_cuda(q, k, v, out, lse_t, dout)
+    mgrads = fa_mod.flash_attention_bwd_meta(*(_meta(t) for t in (
+        q, k, v, out, lse_t, dout)))
+    for g, w in zip(grads, mgrads):
+        assert _same_layout(w, g)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("init", [False, True])
+def test_ssd_scan_shape_function_matches_the_kernel(cuda, dtype, init):
+    from repro_torch.kernels import ssd_scan as ssd_mod
+    x, dt, A, Bm, Cm, s0 = _ssd_inputs(2, 100, 8, 16, 32, 2, dtype, cuda,
+                                       init=init)
+    got = ssd_mod.ssd_scan_cuda(x, dt, A, Bm, Cm, chunk=32, init_state=s0,
+                                return_scratch=True)
+    want = ssd_mod.ssd_scan_meta(*(_meta(t) for t in (x, dt, A, Bm, Cm)),
+                                 chunk=32, init_state=_meta(s0),
+                                 return_scratch=True)
+    for g, w in zip(got, want):
+        assert _same_layout(w, g)
+    y, final, dacs, states = got
+    dy = torch.randn_like(y)
+    grads = ssd_mod.ssd_scan_bwd_cuda(x, dt, A, Bm, Cm, dacs, states, final,
+                                      dy, None, chunk=32)
+    mgrads = ssd_mod.ssd_scan_bwd_meta(
+        *(_meta(t) for t in (x, dt, A, Bm, Cm, dacs, states, final, dy)),
+        None, chunk=32)
+    for g, w in zip(grads, mgrads):
+        assert _same_layout(w, g)
+
+
+@pytest.mark.cuda
+def test_hot_gather_shape_function_matches_the_kernel(cuda):
+    from repro_torch.kernels.hot_gather import hot_gather_meta
+    table, hot_ids, idx = _inputs(512, 64, 8, 100, torch.bfloat16, cuda)
+    rows = table.index_select(0, hot_ids)
+    got = ops.hot_gather(table, rows, hot_ids, idx)
+    assert _same_layout(hot_gather_meta(*(_meta(t) for t in (
+        table, rows, hot_ids, idx))), got)
+
+
+@pytest.mark.cuda
+def test_shape_functions_raise_where_the_kernels_raise(cuda):
+    """Each case raises on the card, and its shape function raises the
+    same error type on meta tensors of the same layout."""
+    from repro_torch.kernels import hot_gather as hg_mod
+    from repro_torch.kernels import ssd_scan as ssd_mod
+    q, k, v = _fa_inputs(1, 8, 8, 4, 2, 64, torch.bfloat16, cuda)
+    x, dt, A, Bm, Cm, _ = _ssd_inputs(1, 16, 4, 8, 8, 1, torch.float32,
+                                      cuda)
+    table, hot_ids, idx = _inputs(64, 8, 4, 16, torch.float32, cuda)
+    rows = table.index_select(0, hot_ids)
+    cases = [
+        (fa_mod.flash_attention_cuda, fa_mod.flash_attention_meta,
+         (q, k.float(), v), {}),                            # mixed dtypes
+        (fa_mod.flash_attention_cuda, fa_mod.flash_attention_meta,
+         (q[..., :60], k[..., :60], v[..., :60]), {}),      # D % 8
+        (fa_mod.flash_attention_cuda, fa_mod.flash_attention_meta,
+         (q[:, :, :3], k, v), {}),                          # H % Hkv
+        (ssd_mod.ssd_scan_cuda, ssd_mod.ssd_scan_meta,
+         (x, dt, A, Bm, Cm), {"chunk": 2048}),              # chunk > 1024
+        (ssd_mod.ssd_scan_cuda, ssd_mod.ssd_scan_meta,
+         (x, dt.bfloat16(), A, Bm, Cm), {"chunk": 8}),      # dt not f32
+        (hg_mod.hot_gather_cuda, hg_mod.hot_gather_meta,
+         (table, rows, hot_ids, idx.long()), {}),           # int64 ids
+    ]
+    for kern, shape_fn, args, kw in cases:
+        with pytest.raises((TypeError, ValueError)) as on_card:
+            kern(*args, **kw)
+        with pytest.raises(on_card.type):
+            shape_fn(*(_meta(t) for t in args), **kw)

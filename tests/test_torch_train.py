@@ -184,9 +184,12 @@ ENCDEC_GRAD_TOL = 5e-4
     ("mamba2-1.3b", None, False, GRAD_TOL),
     ("jamba-v0.1-52b", None, False, JAMBA_GRAD_TOL),
     ("seamless-m4t-medium", None, False, ENCDEC_GRAD_TOL),
+    ("llama3-8b", None, False, GRAD_TOL),
+    ("deepseek-7b", None, False, GRAD_TOL),
 ], ids=["starcoder2", "phi3.5-moe", "phi3.5-moe-hot-hit",
         "phi3.5-moe-hot-miss", "pixtral-media", "deepseek-v2-mla",
-        "gemma2-softcaps", "mamba2-ssd", "jamba-hybrid", "seamless-encdec"])
+        "gemma2-softcaps", "mamba2-ssd", "jamba-hybrid", "seamless-encdec",
+        "llama3", "deepseek-7b"])
 def test_loss_and_grads_match_the_reference(arch, hot, media, tol,
                                             monkeypatch):
     jm, jp, tm, tp = _reference(arch)
