@@ -239,6 +239,22 @@
    output within ``FA_TOL["path_normwise"]`` and the logsumexp within
    ``FA_LSE_TOL`` + ``FA_LSE_REL`` |lse|.  Each layer is then held to the same layer on one
    device, teacher-forced, within ``MESH_LAYER_TOL``.
+13c. Mesh-dense phase (``[mesh-dense]``): ``MESH_DENSE``, gemma2-9b at
+   every width and depth (42 layers, bf16), B 2 x 6144 prefill and 32
+   greedy decode steps, first on one device, then partitioned by the
+   reference's rules over a (data 2, model 2) debug mesh of cuda:0
+   (``MeshPolicy(rules=)``, params placed leaf by leaf so that no second
+   whole copy is held): the batch over data; query and kv heads, MLP
+   columns and vocab rows over model; ``flash_attention`` on each
+   coordinate's heads at prefill and once per KV shard at decode.  The
+   last decode step's KV-shard calls are held to ``flash_attention_ref``
+   (as in ``[mesh-model]``), a second prefill and two decode steps must
+   give the first's bits, and each layer is held to the same layer on
+   one device, teacher-forced, within ``MESH_LAYER_TOL``.  It prints the
+   prefill ms (first call and warm) and decode ms/step of both, the
+   peak GiB of each, the mesh's ``flash_attention`` launches (added to
+   the kernels line) and the final logits' normwise distance from one
+   device's.
 14. Train-kernel phase (``[train-kernel]``): ``flash_attention_bwd``
    (``csrc/flash_attention_bwd.cu``) against the plain backward
    (autograd through ``flash_attention_ref``) on ``BWD_SHAPES``: the
@@ -3831,6 +3847,232 @@ def mesh_model_phase(torch, ops, spec, smi) -> int:
     return served
 
 
+# gemma2-9b at every published width and depth (42 layers, bf16; window,
+# both softcaps, tied table, D 256), partitioned over a (data 2, model 2)
+# debug mesh of cuda:0 by the reference's rules: on it q_heads (16), kv
+# heads (8), mlp and vocab split over model, the batch over data
+MESH_DENSE = dict(arch="gemma2-9b", batch=2, prompt=6144, decode=32, seed=0)
+
+
+def _last_row(torch, logits):
+    """The last position's logits (B, V) on the first block's device, from
+    a tensor or a Sharded split over (rows, vocab)."""
+    from repro_torch.distributed.compat import Sharded
+    if not isinstance(logits, Sharded):
+        return logits[:, -1]
+    return Sharded([b[:, -1] for b in logits.shards], (0, 1),
+                   logits.grid).gather(logits.shards[0].device)
+
+
+def mesh_dense_phase(torch, ops, smi) -> int:
+    """``[mesh-dense]``: MESH_DENSE on one device, then partitioned over
+    the mesh (params placed leaf by leaf, so no second whole copy is
+    held): a prefill of B x S and greedy decode steps each, timed (the
+    mesh's the main path: ``flash_attention`` on every coordinate's
+    heads at prefill and once per KV shard at decode).  The mesh's last
+    decode step's KV-shard calls are held to ``flash_attention_ref``
+    (``seq_parallel_decode_check``); a second mesh prefill and two decode
+    steps must give the first's bits; each layer is held to the same
+    layer on one device, teacher-forced over fresh caches, within
+    ``MESH_LAYER_TOL``; the final logits' normwise distance is printed
+    (gemma2 is not chaotic in depth).  Returns the main path's
+    ``flash_attention`` launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.compat import Sharded
+    from repro_torch.distributed.meshctx import MeshPolicy, use_policy
+    from repro_torch.distributed.sharding import make_rules, place_cache, \
+        place_params
+    from repro_torch.distributed.tensor_parallel import TPRun
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models.layers import embed
+    from repro_torch.models.model import Model, greedy
+    from repro_torch.models.params import flat_tree, unflat_tree
+    from repro_torch.models.transformer import init_layer_cache, \
+        layer_forward, layer_forward_tp
+
+    d = MESH_DENSE
+    cfg = get_config(d["arch"])
+    model = Model(cfg)
+    B, S, N = d["batch"], d["prompt"], d["decode"]
+    cap = S + N
+    tag = f"[mesh-dense] {cfg.name}"
+    pol = MeshPolicy(mesh=make_debug_mesh(2, 2, device="cuda"),
+                     rules=make_rules(False, fsdp=False))
+    params = model.init(d["seed"], device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(d["seed"])
+    prompt = torch.randint(0, cfg.vocab, (B, S), generator=gen,
+                           device="cuda", dtype=torch.int32)
+    print(f"{tag}: {cfg.n_layers} layers at every published width, bf16, "
+          f"B {B} x {S} prefill + {N} greedy decode steps, on one device "
+          f"and partitioned over {pol.mesh} (tensor_parallel layout)")
+
+    def serve(p, cache, pol, steps, capture=False, keep=False):
+        """prefill + ``steps`` greedy decode steps: (prefill ms, decode
+        ms by step, tokens fed, last-row logits of the prefill and of
+        each step, the prefill's logits where ``keep``); ``capture``
+        keeps the last step's KV-shard calls."""
+        rows, toks, times = [], [], []
+        with use_policy(pol):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            logits, cache = model.prefill(p, cache, {"tokens": prompt})
+            tok = greedy(logits)
+            torch.cuda.synchronize()
+            pre = (time.perf_counter() - t) * 1e3
+            rows.append(_last_row(torch, logits).float())
+            kept = logits if keep else None
+            del logits
+            for j in range(steps):
+                toks.append(tok)
+                if capture and j == steps - 1:
+                    ops.flash_attention = keep_shard_call
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                logits, cache = model.decode_step(p, cache, tok, S + j)
+                tok = greedy(logits)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t) * 1e3)
+                rows.append(_last_row(torch, logits).float())
+                del logits
+        return pre, times, toks, rows, kept
+
+    real_fa, shard_calls = ops.flash_attention, []
+
+    def keep_shard_call(q, k, v, **kw):
+        if kw.get("return_lse"):
+            shard_calls.append((q.clone(), k.clone(), v.clone(), kw))
+        return real_fa(q, k, v, **kw)
+
+    # one device, the whole params; a second prefill, warm
+    torch.cuda.reset_peak_memory_stats()
+    pre1, steps1, toks1, rows1, _ = serve(
+        params, model.init_cache(B, cap, device="cuda"), None, N)
+    gc.collect()
+    warm1 = serve(params, model.init_cache(B, cap, device="cuda"), None,
+                  0)[0]
+    peak1 = torch.cuda.max_memory_allocated() / 2**30
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the mesh: params placed leaf by leaf, each whole leaf dropped
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    placed = place_params(params, pol.mesh, pol.rules)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    place_s = time.perf_counter() - t
+    ops.reset_launches()
+    try:
+        cache = place_cache(model.init_cache(B, cap, device="cuda"),
+                            pol.mesh, pol.rules)
+        pre_m, steps_m, toks_m, rows_m, _ = serve(placed, cache, pol, N,
+                                                  capture=True)
+    finally:
+        ops.flash_attention = real_fa
+    served = ops.launches().get("flash_attention", 0)
+    peak_m = torch.cuda.max_memory_allocated() / 2**30
+    del cache
+    check(all(bool(torch.isfinite(r).all()) for r in rows_m),
+          f"{tag}: non-finite logits on the mesh")
+    check(served > 0, f"{tag}: flash_attention never launched on the mesh")
+    same_toks = sum(int(torch.equal(a, b)) for a, b in zip(toks1, toks_m))
+
+    def dist(a, b):
+        return ((a - b).abs().max() / b.abs().max()).item()
+    agree = 0
+    while agree < N and torch.equal(toks1[agree], toks_m[agree]):
+        agree += 1
+    print(f"{tag}: prefill ms (first call) mesh {pre_m:.3f}, one device "
+          f"{pre1:.3f}; decode ms/step (median of {N}) mesh "
+          f"{statistics.median(steps_m):.3f}, one device "
+          f"{statistics.median(steps1):.3f}; peak GiB mesh {peak_m:.2f} "
+          f"(placing the params {place_s:.1f} s), one device {peak1:.2f}; "
+          f"flash_attention launches on the mesh {served} on {smi}")
+    print(f"{tag}: greedy tokens equal to one device's at {same_toks} of "
+          f"{N} steps (the first {agree} in a row); logits vs one "
+          f"device, normwise: the prefill's last row "
+          f"{dist(rows_m[0], rows1[0]):.3e}, the last step fed the same "
+          f"tokens ({agree} decode steps in) "
+          f"{dist(rows_m[agree], rows1[agree]):.3e}")
+    check(bool(shard_calls), f"{tag}: the decode made no return_lse call")
+    seq_parallel_decode_check(torch, tag, real_fa, shard_calls)
+    del shard_calls
+
+    # call == call: a second prefill and two decode steps on a fresh cache
+    first = serve(placed, place_cache(model.init_cache(
+        B, cap, device="cuda"), pol.mesh, pol.rules), pol, 2, keep=True)
+    again = serve(placed, place_cache(model.init_cache(
+        B, cap, device="cuda"), pol.mesh, pol.rules), pol, 2, keep=True)
+    bits = (all(torch.equal(a, b) for a, b in zip(first[4].shards,
+                                                  again[4].shards))
+            and all(torch.equal(a, b) for a, b in zip(first[3], again[3])))
+    warm_m = statistics.median([first[0], again[0]])
+    del first, again
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"{tag}: a second prefill and 2 decode steps give the first's "
+          f"logits bit for bit: {bits}; warm prefill ms mesh {warm_m:.3f} "
+          f"(median of 2), one device {warm1:.3f}")
+    check(bits, f"{tag}: two mesh calls gave other bits")
+
+    # teacher-forced, layer by layer, over the one device's greedy tokens
+    run_cache = place_cache(model.init_cache(B, cap, device="cuda"),
+                            pol.mesh, pol.rules)
+    run = TPRun(pol, B, placed, run_cache)
+    flat = flat_tree(placed)
+
+    def whole_layer(key, i):
+        out = {}
+        for k, leaf in flat.items():
+            if not k.startswith(f"blocks/{key}/"):
+                continue
+            k = k[len(f"blocks/{key}/"):]
+            out[k] = (Sharded([b[i] for b in leaf.shards],
+                              tuple(x - 1 for x in leaf.dims), leaf.grid)
+                      .gather("cuda") if isinstance(leaf, Sharded)
+                      else leaf.value[i] if hasattr(leaf, "copies")
+                      else leaf[i])
+        return unflat_tree(out)
+
+    def mesh_rows(ys):
+        return torch.cat([ys[g[0]] for g in run.groups])
+
+    errs = []
+    tokens = torch.cat([prompt] + toks1, dim=1)
+    with torch.no_grad():
+        x = embed({"table": flat["embed/table"].gather("cuda")}, tokens)
+        for i in range(cfg.n_periods):
+            for pos, sp in enumerate(cfg.pattern):
+                key = f"pos{pos}"
+                lp = whole_layer(key, i)
+                c1 = init_layer_cache(cfg, sp, B, cap, "cuda")
+                row, outs = [], []
+                for start, n in [(0, S)] + [(S + j, 1) for j in range(N)]:
+                    xin = x[:, start:start + n]
+                    y1, _, _ = layer_forward(lp, cfg, sp, xin, start, c1,
+                                             aux_loss=False)
+                    ym = mesh_rows(layer_forward_tp(
+                        run, cfg, sp, key, i, run.split_rows(xin), start,
+                        cap))
+                    row.append(dist(ym.float(), y1.float()))
+                    outs.append(y1)
+                errs.append(row)
+                x = torch.cat(outs, dim=1)
+                del lp, c1, outs
+    del run, run_cache
+    prefill = [round(r[0], 5) for r in errs]
+    decode = [round(max(r[1:]), 5) for r in errs]
+    worst = max(max(r) for r in errs)
+    print(f"{tag}: teacher-forced mesh vs one device, normwise, by layer: "
+          f"prefill {prefill}, decode (max over {N} steps) {decode} (tol "
+          f"{MESH_LAYER_TOL})")
+    check(worst <= MESH_LAYER_TOL, f"{tag}: a mesh layer is {worst} from "
+          f"one device's (tol {MESH_LAYER_TOL})")
+    return served
+
+
 # phi3.5-MoE at every published width, TRAIN_MOE's cut (2 of 32 layers),
 # trained on a (data 2, model 2) mesh of cuda:0 with fsdp rules and the
 # ZeRO-sliced optimizer.  Capacity factor 4 (the reference's own no-drop
@@ -4504,6 +4746,12 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
     print(f"[mesh-model] phase {time.perf_counter() - t:.1f} s")
+    # the dense stack partitioned over a mesh, after the mesh models'
+    t = time.perf_counter()
+    launches["flash_attention"] += mesh_dense_phase(torch, ops, smi)
+    print(f"[mesh-dense] phase {time.perf_counter() - t:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
     # training, after the mesh models' params are gone
     err["flash_attention_bwd"], timing["flash_attention_bwd"] = \
         train_kernel_phase(torch, smi)

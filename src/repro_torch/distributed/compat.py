@@ -18,6 +18,10 @@ inside it.  Here one Python process drives every coordinate of a
   device and reduces them **in shard order**, with no float atomics and
   no process group, so a call gives the same bits every time.  A body
   that needs a collective mid-way is written as two stages around it.
+  :func:`all_reduce` and :func:`exchange` give every member of a group
+  its own result (the partitioned dense layers' row-parallel sums and
+  their head / sequence all-to-alls), each member's work at its
+  coordinate.
 
 Copies between distinct devices go through ``Tensor.to``; nothing here
 assumes the devices differ.
@@ -46,11 +50,16 @@ _NOWHERE = contextlib.nullcontext()
 
 def at(coord):
     """A context that runs its body at mesh coordinate ``coord`` for the
-    active recorder (none: the recorder's home coordinate)."""
+    active recorder (none: the recorder's home coordinate).  ``coord``
+    may be a tuple of coordinates instead: one body that stands for each
+    of them, counted at every one (``distributed/tensor_parallel.py``'s
+    class dispatch on a ``meta`` mesh)."""
     rec = _work.RECORDER
     if rec is None or coord is None:
         return _NOWHERE
-    return rec.at(tuple(coord))
+    if coord and isinstance(coord[0], tuple):
+        return rec.at(coord)
+    return rec.at((coord,))
 
 
 def record_collective(kind: str, xs) -> None:
@@ -326,6 +335,63 @@ def all_to_all(xs: Sequence[torch.Tensor], split_dim: int = 0,
     blocks = [x.chunk(n, split_dim) for x in xs]
     return [torch.cat([blocks[i][j].to(xs[j].device) for i in range(n)],
                       concat_dim) for j in range(n)]
+
+
+def all_reduce(xs: Sequence[torch.Tensor], coords: Sequence,
+               devices: Sequence[torch.device]) -> List[torch.Tensor]:
+    """The sum of ``xs`` for every member, as a reduce-scatter then an
+    all-gather: member j sums block j of the flattened operands left to
+    right at its coordinate (in f32 for a 16-bit dtype, rounded once), then
+    each member concatenates the blocks on its device.  Every element is
+    summed in shard order, so each member's result is the same bits every
+    call.  ``coords[j]``: member j's coordinate (or the coordinates it
+    stands for, :func:`at`)."""
+    record_collective("all-reduce", xs)
+    n, shape, dtype = len(xs), xs[0].shape, xs[0].dtype
+    acc = (torch.float32 if dtype in (torch.bfloat16, torch.float16)
+           else dtype)
+    chunks = []
+    for x, c in zip(xs, coords):
+        with at(c):
+            chunks.append(x.reshape(-1).tensor_split(n))
+    parts = []
+    for j in range(n):
+        with at(coords[j]):
+            s = None
+            for ch in chunks:
+                b = ch[j].to(devices[j])
+                s = b.to(acc) if s is None else s + b
+            parts.append(s.to(dtype))
+    out = []
+    for j in range(n):
+        with at(coords[j]):
+            out.append(torch.cat([p.to(devices[j]) for p in parts])
+                       .view(shape))
+    return out
+
+
+def exchange(pieces: Sequence[Sequence[Tuple[int, torch.Tensor]]],
+             coords: Sequence, devices: Sequence[torch.device], dim: int,
+             kind: str = "all-to-all") -> List[Any]:
+    """A general all-to-all within one group: ``pieces[j]`` lists
+    ``(i, t)``, the tensors member j receives, in order, each ``t`` held
+    by member i.  Member j concatenates its pieces along ``dim`` on its
+    device at its coordinate (None where it receives nothing; a lone
+    piece of its own stays a view).  Each piece sent to another member
+    counts to its sender under ``kind``."""
+    record_collective(kind, [t for j, ps in enumerate(pieces)
+                             for i, t in ps if i != j])
+    out = []
+    for j, ps in enumerate(pieces):
+        with at(coords[j]):
+            if not ps:
+                out.append(None)
+            elif len(ps) == 1 and ps[0][0] == j:
+                out.append(ps[0][1])
+            else:
+                out.append(torch.cat([t.to(devices[j]) for _, t in ps],
+                                     dim))
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -20,11 +20,24 @@ axis, an optional sequence axis).  A :class:`MeshPolicy` installed with
 mesh branches the reference writes itself: the expert-parallel MoE
 (``models.moe.moe_ffn_sharded``) and the sequence-parallel decode
 attention (``models.attention``).  With no policy every module runs its
-single-device path.  Dense layers run replicated: the reference leaves
-their tensor parallelism to XLA's SPMD partitioner, which has no PyTorch
-counterpart here, so :func:`constrain` records no placement and returns
-its input (``distributed.sharding.tree_device_bytes`` reports the
-placement the rules would give).
+single-device path.
+
+Dense layers.  The reference leaves their tensor parallelism to XLA's
+SPMD partitioner, which has no PyTorch counterpart; the port writes it
+out.  A policy with a rule table (``rules``, the reference's
+``make_rules``) over a stack whose every layer is GQA attention with a
+dense FFN (``distributed.sharding.dense_layout``: llama3-8b,
+starcoder2-3b, gemma2-9b, deepseek-7b, pixtral-12b) runs ``prefill``
+and ``decode_step`` partitioned by those rules on params, cache and
+batch placed by them (``distributed.sharding.place_params`` /
+``place_cache`` / ``place_batch``): each coordinate computes its batch
+rows, its query heads, its MLP columns and its vocab rows, with
+fixed-order collectives between (``distributed/tensor_parallel.py``).
+Any other stack (MoE, MLA, Mamba, cross-attention), training, and a
+policy without rules keep the dense layers whole on the mesh's home
+device, the explicit branches above splitting what they split.
+:func:`constrain` places nothing: the partitioned loop lays out its
+activations itself, one tensor per coordinate.
 
 Training's hot-expert plan (the reference's ``_MOE_HOT`` global) stays
 an argument of the trainer's step, as elsewhere in the port.
@@ -33,7 +46,7 @@ from __future__ import annotations
 
 import contextlib
 from collections import OrderedDict
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
@@ -143,12 +156,14 @@ class Mesh:
 @dataclass(frozen=True)
 class MeshPolicy:
     """The reference's policy, less what only its SPMD partitioner reads
-    (the rule table, the FSDP and sequence axes, the decode attention
-    implementation, the MoE implementation): the port's explicit
-    branches read the mesh, the batch axes and the model axis."""
+    (the FSDP and sequence axes, the decode attention implementation,
+    the MoE implementation): the port's explicit branches read the mesh,
+    the batch axes and the model axis, and the partitioned dense layers
+    the rule table (``rules``; None keeps them on the home device)."""
     mesh: Optional[Mesh] = None
     batch_axes: Tuple[str, ...] = ("data",)   # activations' batch sharding
-    model_axis: str = "model"                 # EP / sequence-split axis
+    model_axis: str = "model"                 # TP / EP / sequence axis
+    rules: Optional[dict] = field(default=None, compare=False)
 
     @property
     def n_model(self) -> int:
@@ -214,9 +229,11 @@ def constrain(x: torch.Tensor,
               logical_axes: Tuple[Optional[str], ...]) -> torch.Tensor:
     """The reference's activation sharding constraint, at the same
     points of the model code.  The port has no SPMD partitioner to pin:
-    activations stay whole on the mesh's home device and only the
-    explicit mesh branches split them, so this checks the logical axes
-    against ``x``'s rank and returns ``x`` unchanged."""
+    on the home layout activations stay whole on the mesh's home device
+    (the explicit branches split what they split), and the partitioned
+    dense loop holds one tensor per coordinate, laid out by its own
+    code.  So this checks the logical axes against ``x``'s rank and
+    returns ``x`` unchanged."""
     if len(logical_axes) != x.dim():
         raise ValueError(f"constrain: {len(logical_axes)} logical axes "
                          f"for a tensor of rank {x.dim()}")

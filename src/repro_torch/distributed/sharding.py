@@ -19,10 +19,16 @@ What the port does with a spec: the serving data plane lays out its
 state and batches by :func:`plane_state_shardings` /
 :func:`plane_batch_shardings` (tables replicated, sketches and batches
 split on ``"data"``); the expert-parallel MoE and the sequence-parallel
-decode split their operands by hand.  Dense weights and activations are
-not partitioned (there is no SPMD partitioner): :func:`tree_device_bytes`
-reports the per-device bytes the rules *would* give, the figure the
-reference's dry run plans memory with.
+decode split their operands by hand.  For serving a stack whose every
+layer is dense GQA attention (:func:`dense_layout` says
+``"tensor_parallel"``), :func:`place_params`, :func:`place_cache` and
+:func:`place_batch` lay params, KV cache and batch out by the specs,
+each block on its coordinate's device, and ``Model.prefill`` /
+``decode_step`` run partitioned on them
+(``distributed/tensor_parallel.py``).  Every other stack, and training's
+dense layers, stay whole on the mesh's home device (``"home"``);
+:func:`tree_device_bytes` reports the per-device bytes the rules give,
+the figure the reference's dry run plans memory with.
 
 Training places its state by the rules too (ZeRO): :class:`NamedSharding`
 is a spec on a mesh, the reference's ``NamedSharding``;
@@ -42,7 +48,8 @@ from typing import Any, Dict, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from ..models.params import flat_tree, leaf_slots, unflat_tree
+from ..models.params import ParamTree, flat_tree, leaf_slots, \
+    unflat_tree
 from . import compat
 from .meshctx import Mesh
 
@@ -124,6 +131,16 @@ def _map_pspecs(fn, tree):
     if isinstance(tree, (list, tuple)):
         return type(tree)(_map_pspecs(fn, v) for v in tree)
     raise TypeError(f"not a PSpec tree leaf: {type(tree).__name__}")
+
+
+def logical_axes(tree_pspec, prefix: str = "") -> Dict[str, tuple]:
+    """``{"a/b/c": axes}`` of a PSpec tree (``flat_tree``'s keys)."""
+    if is_pspec(tree_pspec):
+        return {prefix[:-1]: tree_pspec.axes}
+    out = {}
+    for k, v in tree_pspec.items():
+        out.update(logical_axes(v, f"{prefix}{k}/"))
+    return out
 
 
 def shardings_for(tree_pspec, mesh: Mesh, rules: Rules):
@@ -281,6 +298,23 @@ compat.Replicated` for a spec that splits nothing."""
                 and leaf.grid == self.grid
                 and leaf.devices == self.devices)
 
+    def index_at(self, coord) -> int:
+        """The block held at mesh coordinate ``coord`` (every coordinate
+        that differs only along axes the spec does not use holds the same
+        block)."""
+        return self.mesh.axis_index(coord, self.axes)
+
+    def range_at(self, coord, dim: int, size: int) -> Tuple[int, int]:
+        """``[lo, hi)`` of dimension ``dim`` (of length ``size``) in the
+        block held at ``coord``."""
+        entry = self.spec[dim] if dim < len(self.spec) else None
+        if entry is None:
+            return 0, size
+        axes = entry if isinstance(entry, tuple) else (entry,)
+        n = size // self.mesh.axes_size(axes)
+        k = self.mesh.axis_index(coord, axes)
+        return k * n, (k + 1) * n
+
     def cut(self, x: torch.Tensor):
         """``x`` (a whole value, e.g. a gradient) as this sharding's
         blocks, each on its device: views of ``x`` where a block lies on
@@ -358,10 +392,11 @@ CACHE_AXES: Dict[Tuple[str, str], Tuple[Optional[str], ...]] = {
 def cache_pspecs(cache) -> Dict[str, Any]:
     """A cache tree (``Model.init_cache``) as a PSpec tree of nested
     dicts with the reference's logical axes; the host-side entries
-    (``filled``, ``enc_len``) are left out."""
+    (``filled``, ``enc_len``) are left out.  A placed leaf (``Sharded`` /
+    ``Replicated``) counts by its whole shape."""
     out = {}
     for key, v in flat_tree(cache).items():
-        if not isinstance(v, torch.Tensor):
+        if not hasattr(v, "shape"):
             continue
         entry, leaf = key.split("/")[-2:]
         base = CACHE_AXES[(entry, leaf)]
@@ -425,6 +460,87 @@ def place_train_state(state: dict, shardings: dict) -> dict:
             box[name] = sh[key].place(whole)
             del whole
     return state
+
+
+# ---------------------------------------------------------------------------
+# Serving placement of a dense stack (the tensor-parallel layout)
+# ---------------------------------------------------------------------------
+
+def dense_layout(cfg, policy) -> str:
+    """``"tensor_parallel"`` when ``policy`` carries a mesh and a rule
+    table and every layer of ``cfg`` is GQA self-attention with a dense
+    FFN (no MoE, MLA, Mamba, cross-attention or encoder); else
+    ``"home"``, the dense layers whole on the mesh's home device."""
+    if policy is None or policy.mesh is None or policy.rules is None:
+        return "home"
+    dense = (not cfg.encdec and cfg.mla is None and cfg.moe is None
+             and not cfg.first_k_dense
+             and all(sp.kind == "attn" and sp.ffn == "dense"
+                     and not sp.cross_attn for sp in cfg.pattern))
+    return "tensor_parallel" if dense else "home"
+
+
+def serving_shardings(params, cache, mesh: Mesh, rules: Rules):
+    """``(param shardings, cache shardings)``: :class:`NamedSharding`
+    trees by ``param_pspecs`` / ``cache_pspecs`` under ``rules`` (the
+    cache's host-side entries have none)."""
+    return (named_shardings(shardings_for(param_pspecs(params), mesh,
+                                          rules), mesh),
+            named_shardings(shardings_for(cache_pspecs(cache), mesh,
+                                          rules), mesh))
+
+
+@torch.no_grad()
+def _place_leaves(tree, shardings) -> Dict[str, Any]:
+    """``{key: placed leaf}`` for every leaf that has a sharding, one at a
+    time, each source leaf dropped from ``tree`` once its blocks are built
+    (a ParamTree's parameter set to None), so the peak is the tree plus
+    one leaf."""
+    sh = flat_tree(shardings)
+    out = {}
+    for box, name, key in list(leaf_slots(tree)):
+        if key not in sh:
+            continue
+        leaf = box[name]
+        out[key] = leaf if sh[key].holds(leaf) else sh[key].place(leaf)
+        if isinstance(box, ParamTree):
+            setattr(box, name, None)
+        else:
+            box[name] = None
+        del leaf
+    return out
+
+
+def place_params(params, mesh: Mesh, rules: Rules) -> Dict[str, Any]:
+    """A params tree laid out by its specs under ``rules`` (nested dicts:
+    a split leaf a :class:`~repro_torch.distributed.compat.Sharded` of
+    its blocks, each on its coordinate's device; an unsplit one a
+    :class:`~repro_torch.distributed.compat.Replicated`), leaf by leaf:
+    each whole leaf is dropped from ``params`` once it is placed."""
+    sh = named_shardings(shardings_for(param_pspecs(params), mesh, rules),
+                         mesh)
+    return unflat_tree(_place_leaves(params, sh))
+
+
+def place_cache(cache, mesh: Mesh, rules: Rules) -> dict:
+    """A cache tree (``Model.init_cache``) laid out by its specs under
+    ``rules``, in place, leaf by leaf (each whole leaf dropped once
+    placed); the host-side entries (``filled``, ``enc_len``) stay."""
+    sh = named_shardings(shardings_for(cache_pspecs(cache), mesh, rules),
+                         mesh)
+    placed = _place_leaves(cache, sh)
+    for box, name, key in list(leaf_slots(cache)):
+        if key in placed:
+            box[name] = placed.pop(key)
+    return cache
+
+
+def place_batch(batch: dict, mesh: Mesh, rules: Rules) -> dict:
+    """A batch's tensors laid out by :func:`batch_shardings` (the batch
+    dim split over the batch axes where it divides)."""
+    specs = batch_shardings(batch, mesh, rules)
+    return {k: NamedSharding(mesh, specs[k]).place(v) if v.dim() else v
+            for k, v in batch.items()}
 
 
 def gather_to_host(tree) -> Dict[str, torch.Tensor]:

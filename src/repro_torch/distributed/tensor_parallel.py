@@ -1,0 +1,251 @@
+"""The per-coordinate program of a partitioned dense stack.
+
+The reference leaves a dense layer's tensor parallelism to XLA's SPMD
+partitioner, which runs one program per device on the blocks the rules
+give it.  The port writes that program out: one Python process runs it
+for every coordinate of the mesh in turn, each on its own blocks, with
+the fixed-order collectives of ``distributed/compat.py`` between the
+stages.  :class:`TPRun` is one call's view of the mesh: the coordinates
+it runs, their batch rows and model shards, every placed param and cache
+leaf's block at each coordinate (checked against its spec first), and
+the collectives over each model group.  The model code
+(``models/layers.py``, ``models/attention.py``, ``models/transformer.py``)
+holds its activations as ``{coordinate: tensor}``.
+
+Class dispatch.  On a ``meta`` mesh the blocks hold no values, and every
+coordinate that differs from another only along the batch axes computes
+the same shapes: its rows are other rows of equal count, and every spec
+this layout accepts splits nothing else over those axes (checked, the
+cache's ``pos`` aside: it is written at every coordinate).  So
+the dry run traces one model group, the coordinates at 0 on every other
+axis, and the recorder counts each of its bodies at every coordinate it
+stands for (``compat.at`` with a tuple of coordinates).
+``CLASS_DISPATCH = False`` traces every coordinate instead; the tests
+hold the two to the same counts.  On a card or the host every
+coordinate runs.
+"""
+from __future__ import annotations
+
+from typing import Callable, Dict, List, Tuple
+
+import torch
+
+from ..models.params import flat_tree, unflat_tree
+from . import compat
+from .meshctx import MeshPolicy
+from .sharding import NamedSharding, batch_shardings, cache_pspecs, \
+    logical_axes, param_pspecs, serving_shardings
+
+CLASS_DISPATCH = True     # on a meta mesh, one model group for all rows
+
+Coord = Tuple[int, ...]
+
+
+def _axes(entry) -> Tuple[str, ...]:
+    if entry is None:
+        return ()
+    return entry if isinstance(entry, tuple) else (entry,)
+
+
+class TPRun:
+    """One partitioned call over ``policy``'s mesh with a batch of ``B``
+    rows, on ``params`` and ``cache`` placed by the policy's rules
+    (``sharding.place_params`` / ``place_cache``; a leaf laid out
+    otherwise raises ``ValueError``).
+
+    * ``coords``: the coordinates the call runs, row-major; ``members[c]``
+      what ``c`` counts for (``c`` itself, or its class on ``meta``).
+    * ``groups``: ``coords`` cut into model groups (equal off the model
+      axis), each in model order: the members of one collective.
+    * ``rows(c)``: ``c``'s batch rows; ``B_l`` rows a coordinate.
+    * ``params[c]`` / ``cache[c]``: nested dicts of ``c``'s blocks of
+      every leaf (stacked leaves whole: index a layer with ``[i]``);
+      ``param_sh`` / ``cache_sh`` the leaves' :class:`NamedSharding`\\ s.
+    """
+
+    def __init__(self, policy: MeshPolicy, B: int, params, cache):
+        mesh, rules = policy.mesh, policy.rules
+        self.mesh, self.model_axis = mesh, policy.model_axis
+        if self.model_axis not in mesh.shape:
+            raise ValueError(f"the mesh {dict(mesh.shape)} has no model "
+                             f"axis {self.model_axis!r}")
+        self._mi = mesh.axis_names.index(self.model_axis)
+        self.n_model = mesh.shape[self.model_axis]
+        row = batch_shardings({"rows": torch.empty((B,), device="meta")},
+                              mesh, rules)["rows"]
+        self.row_axes = _axes(row[0]) if row else ()
+        self.n_rows = mesh.axes_size(self.row_axes)
+        self.B_l = B // self.n_rows
+        self.rules = rules
+        self.param_sh, self.cache_sh = serving_shardings(params, cache,
+                                                         mesh, rules)
+        pflat, cflat = flat_tree(params), flat_tree(cache)
+        psh, csh = flat_tree(self.param_sh), flat_tree(self.cache_sh)
+        for flat, sh, pspecs, is_cache in (
+                (pflat, psh, param_pspecs(params), False),
+                (cflat, csh, cache_pspecs(cache), True)):
+            axes = logical_axes(pspecs)
+            for key, s in sh.items():
+                self._check(key, flat[key], s, axes[key], is_cache)
+
+        every = mesh.coords()
+        if mesh.home.type == "meta" and CLASS_DISPATCH:
+            self.coords = tuple(mesh.shard_coords((self.model_axis,)))
+            self.members = {c: tuple(d for d in every
+                                     if d[self._mi] == c[self._mi])
+                            for c in self.coords}
+        else:
+            self.coords = tuple(every)
+            self.members = {c: c for c in self.coords}
+        groups: Dict[Coord, List[Coord]] = {}
+        for c in self.coords:
+            off = c[:self._mi] + c[self._mi + 1:]
+            groups.setdefault(off, []).append(c)
+        self.groups = [sorted(g, key=self.m) for g in groups.values()]
+        self._cflat, self._csh = cflat, csh
+        self.params = {c: unflat_tree({k: self._block(pflat[k], s, c)
+                                       for k, s in psh.items()})
+                       for c in self.coords}
+        self.cache = {c: unflat_tree({k: self._block(cflat[k], s, c)
+                                      for k, s in csh.items()})
+                      for c in self.coords}
+
+    # -- placement ---------------------------------------------------------
+    def _check(self, key: str, leaf, sh: NamedSharding, logical,
+               is_cache: bool) -> None:
+        """``leaf`` lies as ``sh`` places it, and ``sh`` splits its
+        ``"batch"`` dim over the rows' axes alone and every other dim over
+        the model axis or nothing (what the per-row program and class
+        dispatch assume).  One exception: a cache leaf without a batch
+        dim, the cache's ``pos``, may split over the rows' axes too (its
+        blocks are written at every coordinate, :meth:`every`).  A param
+        split over the batch axes (the FSDP rules) raises
+        ``NotImplementedError``: serving on FSDP-split params is not
+        ported."""
+        if not sh.holds(leaf):
+            raise ValueError(
+                f"{key}: {leaf!r} is not placed by its spec {sh.spec} on "
+                f"{self.mesh} (distributed.sharding.place_params / "
+                f"place_cache / place_batch lay a tree out)")
+        own = set(self.row_axes) | {self.model_axis}
+        for d, entry in enumerate(sh.spec):
+            axes = _axes(entry)
+            if logical[d] == "batch":
+                ok = axes == self.row_axes
+            elif is_cache and "batch" not in logical:   # the positions
+                ok = set(axes) <= own
+            else:
+                ok = axes in ((), (self.model_axis,))
+            if ok:
+                continue
+            if not is_cache:
+                raise NotImplementedError(
+                    f"{key}: spec {sh.spec} splits dim {d} over {axes}; the "
+                    f"partitioned dense loop splits params over "
+                    f"{self.model_axis!r} alone (serving on FSDP-split "
+                    f"params, make_rules(fsdp=True), is not ported)")
+            raise NotImplementedError(
+                f"{key}: spec {sh.spec} splits dim {d} over {axes}; the "
+                f"partitioned dense loop splits the batch rows over "
+                f"{self.row_axes} and everything else over "
+                f"{self.model_axis!r} alone (a batch that does not "
+                f"divide the batch axes is not ported)")
+
+    def _block(self, leaf, sh: NamedSharding, c: Coord):
+        dev = self.device(c)
+        if isinstance(leaf, compat.Sharded):
+            return leaf.shards[sh.index_at(c)].to(dev)
+        if isinstance(leaf, compat.Replicated):
+            return leaf.on(dev)
+        return leaf.to(dev)
+
+    # -- coordinates -------------------------------------------------------
+    def device(self, c: Coord) -> torch.device:
+        return self.mesh.device_at(c)
+
+    def m(self, c: Coord) -> int:
+        """``c``'s index along the model axis."""
+        return c[self._mi]
+
+    def rows(self, c: Coord) -> slice:
+        r = self.mesh.axis_index(c, self.row_axes)
+        return slice(r * self.B_l, (r + 1) * self.B_l)
+
+    def each(self, fn: Callable[[Coord], object]) -> dict:
+        """``{c: fn(c)}`` over ``coords``, each body at its coordinate."""
+        out = {}
+        for c in self.coords:
+            with compat.at(self.members[c]):
+                out[c] = fn(c)
+        return out
+
+    def every(self, fn: Callable[[Coord], object]) -> None:
+        """``fn(c)`` at every coordinate of the mesh, class dispatch or
+        not: for writes whose blocks differ along the batch axes (the
+        cache's positions)."""
+        for c in self.mesh.coords():
+            with compat.at(c):
+                fn(c)
+
+    def cache_block(self, key: str, c: Coord):
+        """Coordinate ``c``'s block of the placed cache leaf ``key``
+        (``flat_tree``'s key), for any coordinate of the mesh."""
+        return self._block(self._cflat[key], self._csh[key], c)
+
+    def split_rows(self, x) -> dict:
+        """A batch input as each coordinate's rows on its device: a whole
+        tensor cut, or a tensor placed by ``sharding.place_batch`` read
+        block by block (one placed otherwise raises)."""
+        if isinstance(x, torch.Tensor):
+            return self.each(lambda c: x[self.rows(c)].to(self.device(c)))
+        sh = NamedSharding(self.mesh, batch_shardings(
+            {"x": x}, self.mesh, self.rules)["x"])
+        self._check("batch", x, sh, ("batch",) + (None,) * (x.ndim - 1),
+                    False)
+        return self.each(lambda c: self._block(x, sh, c))
+
+    # -- collectives over each model group, in model order ---------------
+    def all_reduce(self, xs: dict) -> dict:
+        out = {}
+        for g in self.groups:
+            out.update(zip(g, compat.all_reduce(
+                [xs[c] for c in g], [self.members[c] for c in g],
+                [self.device(c) for c in g])))
+        return out
+
+    def exchange(self, want: Callable, dim: int,
+                 kind: str = "all-to-all") -> dict:
+        """``want(c, group)`` lists ``(src, tensor)`` pairs, the pieces
+        ``c`` receives from the members of its group (``src`` a member,
+        the tensor its); ``c`` gets them concatenated along ``dim``
+        (``compat.exchange``)."""
+        out = {}
+        for g in self.groups:
+            pos = {c: j for j, c in enumerate(g)}
+            pieces = []
+            for c in g:
+                with compat.at(self.members[c]):
+                    pieces.append([(pos[s], t) for s, t in want(c, g)])
+            out.update(zip(g, compat.exchange(
+                pieces, [self.members[c] for c in g],
+                [self.device(c) for c in g], dim, kind)))
+        return out
+
+    def assemble(self, xs: dict, dim: int, split: bool) -> compat.Sharded:
+        """Per-coordinate blocks of a value split over the rows (dim 0)
+        and, where ``split``, over the model axis along ``dim`` (the
+        logits: batch and vocab) as one Sharded, blocks in (row, model)
+        order; on ``meta`` under class dispatch the traced rows' blocks
+        stand for every row shard's."""
+        n_m = self.n_model if split else 1
+        by = {}
+        for c in self.coords:
+            r = self.mesh.axis_index(c, self.row_axes)
+            by.setdefault((r, self.m(c) if split else 0), c)
+        blocks, coords = [], []
+        for r in range(self.n_rows):
+            for j in range(n_m):
+                c = by.get((r, j), by.get((0, j)))
+                blocks.append(xs[c])
+                coords.append(c)
+        return compat.Sharded(blocks, (0, dim), (self.n_rows, n_m), coords)

@@ -39,9 +39,20 @@ argument, output and peak live bytes (the counterpart of
 ``compiled.memory_analysis()``) against the card's 80 GB.  XLA's raw
 ``cost_analysis`` and ``--save-hlo`` have no counterpart.
 
-The port runs dense layers replicated on the mesh's home device
-(``distributed/meshctx.py``), so the home coordinate carries the dense
-work of the whole global batch: that is what these records measure.
+Layouts (the record's ``"layout"``).  A serving cell of a stack whose
+every layer is dense GQA attention (llama3-8b, starcoder2-3b,
+gemma2-9b, deepseek-7b, pixtral-12b) runs ``"tensor_parallel"``: the
+policy carries the rules, and params, cache and batch are placed by
+them (``distributed.sharding.place_params`` / ``place_cache`` /
+``place_batch``), so each coordinate computes its batch rows, query
+heads, MLP columns and vocab rows, and holds only its blocks
+(``distributed/tensor_parallel.py``; one model group is traced and
+counted for every row shard).  Every other cell runs ``"home"``: the
+dense layers whole on the mesh's home device, which then carries the
+dense work of the whole global batch (the MoE, MLA, Mamba and
+cross-attention stacks, and every train cell).  ``load_balance`` is the
+most loaded coordinate's FLOPs and HBM bytes over their means over the
+coordinates.
 """
 from __future__ import annotations
 
@@ -60,8 +71,11 @@ from ..configs import (ARCH_IDS, SHAPES, applies, batch_specs, cache_dims,
                        get_config)
 from ..distributed import compat
 from ..distributed.meshctx import MeshPolicy, use_policy
-from ..distributed.sharding import (cache_pspecs, make_rules, param_pspecs,
-                                    tree_device_bytes,
+from ..distributed.sharding import (batch_shardings, cache_pspecs,
+                                    dense_layout, make_rules,
+                                    named_shardings, param_pspecs,
+                                    place_batch, place_cache, place_params,
+                                    serving_shardings, tree_device_bytes,
                                     train_state_shardings, PSpec)
 from ..models.model import Model
 from ..models.params import flat_tree, trainable
@@ -181,9 +195,28 @@ def _resident(tree, home, per: dict) -> None:
             per[home] = per.get(home, 0) + leaf.numel() * leaf.element_size()
 
 
+def placed_bytes(tree, shardings, mesh) -> dict:
+    """``{coord: bytes}`` a tree placed by ``shardings`` (a tree of
+    :class:`NamedSharding`, keyed as ``flat_tree``) holds at every
+    coordinate of ``mesh``: each coordinate the block its spec gives it
+    (a replicated leaf whole)."""
+    per: dict = {}
+    flat = flat_tree(tree)
+    for key, sh in flat_tree(shardings).items():
+        leaf = flat[key]
+        for c in mesh.coords():
+            t = (leaf.shards[sh.index_at(c)]
+                 if isinstance(leaf, compat.Sharded) else
+                 leaf.value if isinstance(leaf, compat.Replicated) else leaf)
+            per[c] = per.get(c, 0) + t.numel() * t.element_size()
+    return per
+
+
 def _prepare(model, cfg, shape, policy, rules, device):
-    """The step to trace, its arguments, and the record's memory-model
-    fields (the module docstring's ``meta``-only steps)."""
+    """The step to trace, its arguments, the record's memory-model
+    fields, and ``{coord: argument bytes}`` (None: ``resident_bytes``
+    of the arguments), per the module docstring's layouts and
+    ``meta``-only steps."""
     mesh, batch_axes = policy.mesh, policy.batch_axes
     params = model.init(device=device)
     b_specs = batch_specs(cfg, shape)
@@ -198,20 +231,45 @@ def _prepare(model, cfg, shape, policy, rules, device):
                                microbatches=mm["microbatches"],
                                grad_shardings=sh["opt"]["master"],
                                policy=policy)
-        return (lambda: step(state, batch)), (state, batch), mm
+        return (lambda: step(state, batch)), (state, batch), mm, None
     B, cap, enc_cap = cache_dims(cfg, shape)
     cache = model.init_cache(B, cap, device=device, enc_cap=enc_cap)
     mm = memory_model(cfg, shape, mesh, rules, batch_axes, params, cache)
+    held = None
+    if dense_layout(cfg, policy) == "tensor_parallel":
+        psh, csh = serving_shardings(params, cache, mesh, policy.rules)
+        params = place_params(params, mesh, policy.rules)
+        cache = place_cache(cache, mesh, policy.rules)
+        bsh = named_shardings(batch_shardings(batch, mesh, policy.rules),
+                              mesh)
+        batch = place_batch(batch, mesh, policy.rules)
+        held = {}
+        for tree, sh in ((params, psh), (cache, csh), (batch, bsh)):
+            for c, n in placed_bytes(tree, sh, mesh).items():
+                held[c] = held.get(c, 0) + n
     if shape.kind == "prefill":
         prefill = make_prefill_step(model)
         return (lambda: prefill(params, cache, batch)), (params, cache,
-                                                         batch), mm
+                                                         batch), mm, held
     cache["filled"] = shape.seq_len - 1
     if "enc_len" in cache:
         cache["enc_len"] = enc_cap
     decode = make_decode_step(model)
     return (lambda: decode(params, cache, batch["tokens"],
-                           shape.seq_len - 1)), (params, cache, batch), mm
+                           shape.seq_len - 1)), (params, cache, batch), mm, \
+        held
+
+
+def load_balance(ana: dict, n_coords: int) -> dict:
+    """The analysed (most loaded) coordinate's FLOPs and HBM bytes over
+    their means over the mesh's ``n_coords`` coordinates (one that
+    reported nothing counts 0)."""
+    per = ana["per_coordinate"].values()
+    out = {}
+    for key in ("flops", "hbm_bytes"):
+        mean = sum(p[key] for p in per) / n_coords
+        out[key] = ana[key] / mean if mean else 1.0
+    return out
 
 
 def _masks_keep_all(device):
@@ -243,11 +301,15 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
     mesh = make_production_mesh(multi_pod=multi_pod, device=device)
     n_chips = mesh.size
     batch_axes, rules = _layout(cfg, shape, multi_pod)
-    policy = MeshPolicy(mesh=mesh, batch_axes=batch_axes)
+    # the rules partition the dense layers of a serving step only
+    policy = MeshPolicy(mesh=mesh, batch_axes=batch_axes,
+                        rules=None if shape.kind == "train" else rules)
+    rec["layout"] = dense_layout(cfg, policy)
 
     model = Model(cfg)
     t0 = time.time()
-    step, args, mm = _prepare(model, cfg, shape, policy, rules, device)
+    step, args, mm, held = _prepare(model, cfg, shape, policy, rules,
+                                    device)
     params = args[0]["params"] if shape.kind == "train" else args[0]
     n_active = active_params(param_pspecs(params), cfg)
     rec["n_active_params"] = n_active
@@ -267,8 +329,9 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
     ana = op_analysis.analyze(recorder)
     rec["analyze_s"] = time.time() - t2
     coord = tuple(int(i) for i in ana["coordinate"].split(","))
-    arg_bytes = resident_bytes(args, (0,) * len(mesh.axis_names)).get(
-        coord, 0)
+    if held is None:
+        held = resident_bytes(args, (0,) * len(mesh.axis_names))
+    arg_bytes = held.get(coord, 0)
     peak = arg_bytes + ana["peak_live_bytes"]
     rec["memory"] = {
         "coordinate": ana["coordinate"],
@@ -284,6 +347,7 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
     rec["per_collective"] = ana["per_collective"]
     rec["kernels"] = ana["kernels"]
     rec["per_coordinate"] = ana["per_coordinate"]
+    rec["load_balance"] = load_balance(ana, mesh.size)
     rec["roofline"] = op_analysis.roofline(ana)
     rec["n_chips"] = n_chips
     rec["model_flops_per_chip"] = rec["model_flops_global"] / n_chips

@@ -32,7 +32,10 @@ Counting rules, per operation:
   not counted.
 * Coordinates: an operation counts to the mesh coordinate of the
   ``compat.shard_map`` body (or per-block loop) it runs in, else to the
-  mesh's home coordinate, where the port runs everything else.
+  mesh's home coordinate, where the port runs everything else.  A body
+  that stands for several coordinates (``Recorder.at``: the
+  partitioned dense loop's class dispatch on ``meta``) counts its
+  operations, kernel calls, collective bytes and live storage at each.
 * Collectives (``compat.psum`` / ``pmax`` / ``all_gather`` /
   ``all_to_all`` and the gradient cut of ``launch/steps.py``) count each
   shard's operand bytes to the coordinate that made it, under the
@@ -180,11 +183,14 @@ class Recorder(TorchDispatchMode):
         self.host = host
         self.home: Tuple[int, ...] = (
             () if mesh is None else (0,) * len(mesh.axis_names))
-        self.coord: Optional[Tuple[int, ...]] = None
+        # the coordinates an operation counts to: the home one, the
+        # coordinate of the body it runs in, or every coordinate a class
+        # body stands for (``at``)
+        self.targets: Tuple[Tuple[int, ...], ...] = (self.home,)
         self.coords: Dict[Tuple[int, ...], _Coord] = defaultdict(_Coord)
         self.kernels: Dict[str, dict] = {}
         self._suppress = 0
-        self._live: Dict[int, list] = {}    # storage -> [refs, coord, bytes]
+        self._live: Dict[int, list] = {}    # storage -> [refs, targets, bytes]
         self._refs: Dict = {}               # weakref to a tensor -> storage
         self._info: Dict = {}
         self._meta_memo: Dict = {}
@@ -202,20 +208,20 @@ class Recorder(TorchDispatchMode):
         finally:
             _work.RECORDER = self._prev
 
-    @property
-    def current(self) -> Tuple[int, ...]:
-        return self.home if self.coord is None else self.coord
-
     @contextlib.contextmanager
-    def at(self, coord: Tuple[int, ...]):
-        prev, self.coord = self.coord, tuple(coord)
+    def at(self, coords):
+        """A body that stands for each of ``coords`` (a tuple of
+        coordinates, most often one): everything it does counts at every
+        one of them (its FLOPs, bytes, kernel calls and collective bytes,
+        and the storage it allocates, live at each)."""
+        prev, self.targets = self.targets, tuple(map(tuple, coords))
         try:
             yield
         finally:
-            self.coord = prev
+            self.targets = prev
 
     # -- live bytes -------------------------------------------------------
-    def _track(self, t: torch.Tensor, coord, new: bool = True) -> None:
+    def _track(self, t: torch.Tensor, targets, new: bool = True) -> None:
         """``t`` holds its storage live until it is freed; ``new=False``
         (a view's result) only where the storage is already tracked."""
         st = t.untyped_storage()
@@ -224,10 +230,11 @@ class Recorder(TorchDispatchMode):
         if ent is None and not new:
             return
         if ent is None:
-            ent = self._live[key] = [0, coord, st.nbytes()]
-            c = self.coords[coord]
-            c.live += ent[2]
-            c.peak = max(c.peak, c.live)
+            ent = self._live[key] = [0, targets, st.nbytes()]
+            for coord in targets:
+                c = self.coords[coord]
+                c.live += ent[2]
+                c.peak = max(c.peak, c.live)
         ent[0] += 1
         ref = weakref.ref(t, self._release)
         self._refs[ref] = key
@@ -240,11 +247,12 @@ class Recorder(TorchDispatchMode):
         ent[0] -= 1
         if ent[0] == 0:
             del self._live[key]
-            self.coords[ent[1]].live -= ent[2]
+            for coord in ent[1]:
+                self.coords[coord].live -= ent[2]
 
-    def _coord_of(self, t: torch.Tensor):
+    def _targets_of(self, t: torch.Tensor):
         ent = self._live.get(t.untyped_storage()._cdata)
-        return self.current if ent is None else ent[1]
+        return self.targets if ent is None else ent[1]
 
     # -- what the step reports --------------------------------------------
     @contextlib.contextmanager
@@ -261,27 +269,31 @@ class Recorder(TorchDispatchMode):
             yield outs
         finally:
             self._suppress -= 1
-        coord = self.current
-        c = self.coords[coord]
-        c.flops.update(work.flops)
-        c.hbm_bytes += work.bytes
+        targets = self.targets
         k = self.kernels.setdefault(name, {"calls": 0, "flops": 0.0,
                                            "flops_by_class": Counter(),
                                            "bytes": 0.0})
-        k["calls"] += 1
-        k["flops"] += work.total_flops
-        k["flops_by_class"].update(work.flops)
-        k["bytes"] += work.bytes
+        for coord in targets:
+            c = self.coords[coord]
+            c.flops.update(work.flops)
+            c.hbm_bytes += work.bytes
+            k["calls"] += 1
+            k["flops"] += work.total_flops
+            k["flops_by_class"].update(work.flops)
+            k["bytes"] += work.bytes
         for t in _tensors(outs):
-            self._track(t, coord)
+            self._track(t, targets)
 
     def collective(self, kind: str, xs) -> None:
         """A collective over the per-shard operands ``xs``: each shard's
-        bytes to the coordinate that made it."""
+        bytes to the coordinate that made it (to each, for a class
+        body's)."""
         if self._suppress:
             return
         for x in _tensors(list(xs)):
-            self.coords[self._coord_of(x)].per_collective[kind] += _nbytes(x)
+            n = _nbytes(x)
+            for coord in self._targets_of(x):
+                self.coords[coord].per_collective[kind] += n
 
     # -- the op stream ----------------------------------------------------
     def _op_info(self, func):
@@ -335,23 +347,27 @@ class Recorder(TorchDispatchMode):
         if self.host is not None and all(t.device.type == self.host
                                          for t in ins + outs):
             return out
-        coord = self.current
-        c = self.coords[coord]
-        c.ops += 1
+        targets = self.targets
+        flops = nbytes = 0
         if flop_fn is not None:
-            c.flops[_work.flop_class(ins[0].dtype)] += flop_fn(
-                *args, **kwargs, out_val=out)
+            flops = flop_fn(*args, **kwargs, out_val=out)
+            cls = _work.flop_class(ins[0].dtype)
         if not free and any(t.dim() for t in ins + outs):
             if name in _WRITE_ONLY:
-                c.hbm_bytes += sum(map(_nbytes, outs))
+                nbytes = sum(map(_nbytes, outs))
             elif name == "copy_":
-                c.hbm_bytes += _nbytes(args[0]) + _nbytes(args[1])
+                nbytes = _nbytes(args[0]) + _nbytes(args[1])
             else:
-                c.hbm_bytes += sum(map(_nbytes, ins)) + sum(map(_nbytes,
-                                                                outs))
+                nbytes = sum(map(_nbytes, ins)) + sum(map(_nbytes, outs))
+        for coord in targets:
+            c = self.coords[coord]
+            c.ops += 1
+            if flop_fn is not None:
+                c.flops[cls] += flops
+            c.hbm_bytes += nbytes
         if not inplace:         # a view (``_unsafe_view`` too) holds it
             for t in outs:
-                self._track(t, coord, new=not aliases)
+                self._track(t, targets, new=not aliases)
         return out
 
 

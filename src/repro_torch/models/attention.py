@@ -59,9 +59,19 @@ The cache itself stays whole on the mesh's home device, and each shard
 reads its slots in place (a copy only where a shard's device differs).
 Batch rows split over the batch axes when they divide; otherwise (batch
 1) the ``"data"`` axis joins the model axis in splitting the sequence.
+
+Partitioned (:func:`gqa_forward_tp`, the tensor-parallel layout of
+``distributed/tensor_parallel.py``): each coordinate projects its query
+heads and the kv heads they read, writes the cache's placed blocks
+(heads to sequence, one all-to-all each for k and v), attends its heads
+at prefill, and at decode attends every head (q all-gathered over the
+model axis) over its own block's visible slots, the blocks' partials of
+its heads combined as above; ``wo``'s partials are summed over the
+model axis.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional
 
@@ -246,15 +256,21 @@ def _gqa_decode_seq_parallel(pol, q, k, v, start: int, *, window,
     outs = []
     for b in sorted(parts):
         lses = [lse for _, lse in parts[b]]                  # (Bl, H, 1)
-        m = compat.pmax(lses, home)
-        num, den = None, None
-        for out, lse in parts[b]:
-            w = torch.exp2(lse - m)
-            t = out.float() * w.permute(0, 2, 1)[..., None]
-            num = t if num is None else num + t
-            den = w if den is None else den + w
-        outs.append(num / den.permute(0, 2, 1)[..., None])
+        outs.append(_lse_combine(parts[b], compat.pmax(lses, home)))
     return torch.cat(outs).to(q.dtype)
+
+
+def _lse_combine(parts, m: torch.Tensor) -> torch.Tensor:
+    """KV shards' partials ``(out (B, 1, H, hd), lse (B, H, 1))``, in
+    shard order, combined in f32 with weights ``exp2(lse - m)``, ``m``
+    their maximum."""
+    num, den = None, None
+    for out, lse in parts:
+        w = torch.exp2(lse - m)
+        t = out.float() * w.permute(0, 2, 1)[..., None]
+        num = t if num is None else num + t
+        den = w if den is None else den + w
+    return num / den.permute(0, 2, 1)[..., None]
 
 
 def _mla_decode_seq_parallel(pol, q_lat, q_rope, ckv, k_rope, start: int,
@@ -370,6 +386,210 @@ def gqa_forward(params, cfg: ModelConfig, x: torch.Tensor, start: int = 0,
         cache = {"k": ck, "v": cv, "pos": cpos}
     out = out.reshape(B, S, H * hd) @ wo.reshape(H * hd, -1)
     return out, cache
+
+
+# ---------------------------------------------------------------------------
+# GQA over the partitioned layout
+# ---------------------------------------------------------------------------
+
+def _tp_heads(run, cfg: ModelConfig, sh) -> dict:
+    """``{c: (q0, q1, k0, k1)}``: the query heads ``[q0, q1)`` whose
+    ``wq`` block coordinate c holds, and the kv heads ``[k0, k1)`` they
+    read (``h // G``).  Where ``wk`` is split, its block must be those kv
+    heads; where it is replicated, c projects only them.  Raises where
+    the local query heads do not map onto the local kv heads by one
+    group size (a split the zoo's configs never make)."""
+    H, Hkv = cfg.n_heads, cfg.n_kv_heads
+    G = H // Hkv
+    out = {}
+    for c in run.coords:
+        q0, q1 = sh["wq"].range_at(c, 2, H)
+        k0, k1 = q0 // G, (q1 - 1) // G + 1
+        n = q1 - q0
+        if not ((q0 % G == 0 and n % G == 0) or (G % n == 0
+                                                and k1 - k0 == 1)):
+            raise NotImplementedError(
+                f"query heads {q0}..{q1 - 1} of {H} straddle kv groups of "
+                f"{G} unevenly")
+        b0, b1 = sh["wk"].range_at(c, 2, Hkv)
+        if (b0, b1) != (0, Hkv) and (b0, b1) != (k0, k1):
+            raise ValueError(f"wk's block holds kv heads {b0}..{b1 - 1}, "
+                             f"its query heads read {k0}..{k1 - 1}")
+        out[c] = (q0, q1, k0, k1)
+    return out
+
+
+def gqa_forward_tp(run, cfg: ModelConfig, p: dict, sh, h: dict, start: int,
+                   *, window: Optional[int], kv: dict, kv_sh, pos_at,
+                   cap: int) -> dict:
+    """:func:`gqa_forward` over a cache, partitioned
+    (``distributed/tensor_parallel.py``): ``h[c]`` is coordinate c's
+    rows (B_l, S, D), ``p[c]`` its blocks of the layer's ``wq`` / ``wk``
+    / ``wv`` / ``wo``, ``kv[c]`` its blocks of the layer's ``k`` / ``v``
+    cache (B_l, L, Hb, hd), ``pos_at(c)`` any coordinate's block of its
+    ``pos`` (written at every coordinate), ``sh`` / ``kv_sh`` the
+    stacked leaves' shardings, ``cap`` the cache's slots.  Returns
+    ``{c: (B_l, S, D)}``.
+
+    * q is column-parallel: c projects its query heads, and its kv heads
+      (:func:`_tp_heads`), and applies RoPE to both.
+    * The cache is written by blocks: c's block holds its rows, a range
+      of slots and of kv heads (with ``seq_kv`` on the model axis, every
+      head of a slice of slots), so it receives, from the members of its
+      model group that projected them, the new positions' k and v of
+      its heads (its own first, else the first holder in model order) in
+      one all-to-all each.
+    * Prefill: ``ops.flash_attention`` on the local heads over the new
+      keys, as the cache stores them.
+    * Decode (S == 1), where the cache splits its slots over the model
+      axis (each block then holds every kv head): q's heads are
+      all-gathered over the group, each coordinate attends every head
+      over its block's visible slots (``[lo, start + 1)``; none: no
+      call) through ``ops.flash_attention(return_lse=True)``, and each
+      receives every block's partials of its own heads and combines them
+      in model order with weights ``exp2(lse - max)``.  Where the slots
+      are whole (a capacity the model axis does not divide), each block
+      holds every slot of its kv heads (split with the query heads, or
+      all of them), and c attends its own heads over it alone.
+    * ``wo`` is row-parallel: c's partial output over its heads, summed
+      over the group (one all-reduce); an unsplit ``wo`` needs none."""
+    if start > 0 and next(iter(h.values())).shape[1] > 1:
+        raise NotImplementedError(
+            "chunked prefill (start > 0 with S > 1 over a cache) has no "
+            "caller and is not ported: ROADMAP Queue 1 item 8")
+    heads = _tp_heads(run, cfg, sh)
+    Hkv, hd, theta = cfg.n_kv_heads, cfg.head_dim_, cfg.rope_theta
+    softcap = cfg.attn_logit_softcap
+    ksh, psh = kv_sh["k"], kv_sh["pos"]
+
+    def project(c):
+        x, w = h[c], p[c]
+        B, S, d = x.shape
+        q0, q1, k0, k1 = heads[c]
+        b0 = sh["wk"].range_at(c, 2, Hkv)[0]
+        pos = torch.arange(start, start + S, dtype=torch.int32,
+                           device=x.device)
+        q = (x @ w["wq"].reshape(d, -1)).reshape(B, S, q1 - q0, hd)
+        k, v = project_kv({"wk": w["wk"][:, k0 - b0:k1 - b0],
+                           "wv": w["wv"][:, k0 - b0:k1 - b0]}, x)
+        return (apply_rope(q, pos, theta), apply_rope(k, pos, theta), v)
+    qkv = run.each(project)
+    S = next(iter(qkv.values()))[0].shape[1]
+
+    def slots(c):
+        a, e = ksh.range_at(c, 2, cap)
+        return a, e, max(a, start), min(e, start + S)
+
+    def pieces(which):
+        def want(c, group):
+            a, e, p0, p1 = slots(c)
+            if p0 >= p1:
+                return []
+            hb0, hb1 = ksh.range_at(c, 3, Hkv)
+            out, hh = [], hb0
+            while hh < hb1:
+                src = c if heads[c][2] <= hh < heads[c][3] else next(
+                    g for g in group if heads[g][2] <= hh < heads[g][3])
+                k0, end = heads[src][2], min(hb1, heads[src][3])
+                out.append((src, qkv[src][which][:, p0 - start:p1 - start,
+                                                 hh - k0:end - k0]))
+                hh = end
+            return out
+        return want
+    new_k = run.exchange(pieces(1), 2)
+    new_v = run.exchange(pieces(2), 2)
+
+    def write(c):
+        a, e, p0, p1 = slots(c)
+        if p0 < p1:
+            kv[c]["k"][:, p0 - a:p1 - a] = new_k[c].to(kv[c]["k"].dtype)
+            kv[c]["v"][:, p0 - a:p1 - a] = new_v[c].to(kv[c]["v"].dtype)
+    run.each(write)
+
+    def write_pos(c):
+        a, e = psh.range_at(c, 1, cap)
+        w0, w1 = max(a, start), min(e, start + S)
+        if w0 < w1:
+            blk = pos_at(c)
+            blk[w0 - a:w1 - a] = torch.arange(w0, w1, dtype=torch.int32,
+                                              device=blk.device)
+    run.every(write_pos)
+
+    if S > 1:
+        def attend(c):
+            q, k, v = qkv[c]
+            dt = kv[c]["k"].dtype
+            return ops.flash_attention(q, k.to(dt), v.to(dt), causal=True,
+                                       window=window, logit_softcap=softcap)
+        out = run.each(attend)
+    else:
+        out = _gqa_decode_tp(run, cfg, heads, qkv, kv, ksh, slots, start,
+                             window=window, logit_softcap=softcap)
+
+    def project_out(c):
+        o = out[c]
+        B = o.shape[0]
+        wo = p[c]["wo"]
+        return o.reshape(B, S, -1) @ wo.reshape(-1, wo.shape[-1])
+    y = run.each(project_out)
+    return run.all_reduce(y) if sh["wo"].spec else y
+
+
+def _gqa_decode_tp(run, cfg: ModelConfig, heads: dict, qkv: dict, kv: dict,
+                   ksh, slots, start: int, *, window, logit_softcap) -> dict:
+    """:func:`gqa_forward_tp`'s one-token attention over the placed
+    blocks (``ksh`` the cache's ``k`` sharding, stacked); returns
+    ``{c: (B_l, 1, Hl, hd)}`` in q's dtype."""
+    H, Hkv = cfg.n_heads, cfg.n_kv_heads
+    hi = start + 1
+    lo = max(0, hi - window) if window is not None else 0
+    if len(ksh.spec) < 3 or ksh.spec[2] is None:
+        # every slot in each block: c's own heads over the kv heads they
+        # read, which its block holds (split alongside them, or whole)
+        def own(c):
+            q0, q1, k0, k1 = heads[c]
+            b0, b1 = ksh.range_at(c, 3, Hkv)
+            if not b0 <= k0 < k1 <= b1:
+                raise ValueError(
+                    f"the cache block at {c} holds kv heads {b0}..{b1 - 1}, "
+                    f"its query heads read {k0}..{k1 - 1}")
+            k = kv[c]["k"][:, lo:hi, k0 - b0:k1 - b0]
+            v = kv[c]["v"][:, lo:hi, k0 - b0:k1 - b0]
+            return ops.flash_attention(
+                qkv[c][0], k, v, causal=False, window=None,
+                logit_softcap=logit_softcap).to(qkv[c][0].dtype)
+        return run.each(own)
+    if any(q1 - q0 < H for q0, q1, _, _ in heads.values()):
+        qf = run.exchange(lambda c, g: [(s, qkv[s][0]) for s in g], 2,
+                          "all-gather")
+    else:
+        qf = {c: qkv[c][0] for c in run.coords}
+
+    def attend(c):
+        a, e, _, _ = slots(c)
+        s0, s1 = max(a, lo), min(e, hi)
+        if s0 >= s1:
+            return None
+        return ops.flash_attention(
+            qf[c], kv[c]["k"][:, s0 - a:s1 - a], kv[c]["v"][:, s0 - a:s1 - a],
+            causal=False, window=None, logit_softcap=logit_softcap,
+            return_lse=True)
+    part = run.each(attend)
+
+    # each coordinate's own heads of every block's (out, lse), stacked
+    # in model order on a new leading dim
+    outs = run.exchange(lambda c, g: [
+        (s, part[s][0][:, :, heads[c][0]:heads[c][1]][None]) for s in g
+        if part[s] is not None], 0)
+    lses = run.exchange(lambda c, g: [
+        (s, part[s][1][:, heads[c][0]:heads[c][1]][None]) for s in g
+        if part[s] is not None], 0)
+
+    def combine(c):
+        ls = list(lses[c])
+        return _lse_combine(list(zip(outs[c], ls)), functools.reduce(
+            torch.maximum, ls)).to(qkv[c][0].dtype)
+    return run.each(combine)
 
 
 # ---------------------------------------------------------------------------

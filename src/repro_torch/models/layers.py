@@ -80,6 +80,27 @@ def embed(params, tokens: torch.Tensor) -> torch.Tensor:
     return rows.reshape(*tokens.shape, table.shape[1])
 
 
+def embed_tp(run, sh, tables: dict, tokens: dict, vocab: int) -> dict:
+    """The vocab-parallel lookup of the partitioned layout
+    (``distributed/tensor_parallel.py``): ``tables[c]`` is coordinate
+    c's block of the (``vocab``, D) table, ``sh`` its sharding, and
+    ``tokens[c]`` c's rows' ids.  Where the spec splits the vocab over
+    the model axis, each coordinate looks up the ids in its range, zeros
+    the rest, and the model group sums the blocks: one term of each sum
+    is the row and the others zeros, so the result is the single-device
+    lookup bit for bit.  A replicated table is read whole."""
+    if not sh.spec:
+        return run.each(lambda c: embed({"table": tables[c]}, tokens[c]))
+
+    def local(c):
+        lo, hi = sh.range_at(c, 0, vocab)
+        ids = tokens[c].long() - lo
+        mine = (ids >= 0) & (ids < hi - lo)
+        rows = embed({"table": tables[c]}, ids.clamp(0, hi - lo - 1))
+        return torch.where(mine[..., None], rows, 0.0)
+    return run.all_reduce(run.each(local))
+
+
 def init_unembed(ini: Initializer, d: int, vocab: int):
     return {"w": ini.normal((d, vocab))}
 
@@ -101,6 +122,19 @@ def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
 def unembed(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     logits = x @ params["w"]
     return softcap(logits, cfg.final_logit_softcap)
+
+
+def unembed_tp(run, w: dict, x: dict, cfg: ModelConfig,
+               tied: bool) -> dict:
+    """Each coordinate's logits over its block of the vocab: ``w[c]`` is
+    its block of ``unembed``'s (D, V) or, ``tied``, of the embedding's
+    (V, D) table; the final softcap is elementwise, so it stays local.
+    No collective: the logits stay split over the vocab, as the
+    reference's ``constrain(logits, ("batch", None, "vocab"))``."""
+    def local(c):
+        return softcap(x[c] @ (w[c].t() if tied else w[c]),
+                       cfg.final_logit_softcap)
+    return run.each(local)
 
 
 # ---------------------------------------------------------------------------
@@ -151,3 +185,14 @@ def ffn(params, x: torch.Tensor, act: str = "silu") -> torch.Tensor:
     else:
         h = _act(up, act)
     return h @ params["w_down"]
+
+
+def ffn_tp(run, params: dict, down_sh, x: dict, act: str = "silu") -> dict:
+    """:func:`ffn` of the partitioned layout: ``params[c]`` holds
+    coordinate c's columns of ``w_up`` / ``w_gate`` and rows of
+    ``w_down`` (the ``mlp`` split over the model axis), so each computes
+    a partial output over its columns, and the model group sums the
+    partials (one all-reduce).  Unsplit weights give each coordinate the
+    whole output, with no sum."""
+    out = run.each(lambda c: ffn(params[c], x[c], act))
+    return run.all_reduce(out) if down_sh.spec else out

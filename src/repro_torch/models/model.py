@@ -32,6 +32,15 @@ encoder layer's and a cross-attention layer's included, goes through
 step is a plain single-token update).  An MLA layer (deepseek-v2)
 attends in plain PyTorch, the reference's blocked loop
 (``models/attention.py::mla_forward``), and launches no kernel.
+Under a policy with rules (``distributed/meshctx.py``), a stack whose
+every layer is GQA attention with a dense FFN (llama3-8b, starcoder2-3b,
+gemma2-9b, deepseek-7b, pixtral-12b) runs ``prefill`` and
+``decode_step`` partitioned over the mesh, on params and a cache placed
+by ``distributed.sharding.place_params`` / ``place_cache`` (a leaf
+placed otherwise raises; the batch may come whole or placed by
+``place_batch``): the logits then come back as a ``compat.Sharded``
+split over (batch rows, vocab), and :func:`greedy` picks from it
+without gathering it.
 Caches are written in place (``models/attention.py`` says why), so a
 consumed cache is not a fresh one; over a stack with Mamba layers a step
 restarts at position 0 or continues at the filled position, and never
@@ -62,6 +71,7 @@ from typing import Optional
 import torch
 
 from .. import resolve_device
+from ..distributed.compat import Sharded
 from .config import ModelConfig
 from .encdec import encdec_forward, init_encdec, init_encdec_cache
 from .params import ParamTree, tree_from_numpy
@@ -97,6 +107,37 @@ def params_from_numpy(tree, device="cuda") -> ParamTree:
     decoder-only tree, each layer's ``cross_norm`` and ``cross``
     beside its self-attention)."""
     return ParamTree(tree_from_numpy(tree, resolve_device(device)))
+
+
+def greedy(logits) -> torch.Tensor:
+    """The last position's argmax, (B, 1) int32 on the first block's
+    device.  Logits split over the vocab (a ``compat.Sharded`` of the
+    tensor-parallel layout, blocks over (batch rows, vocab)) take each
+    block's max and pick across the vocab blocks in order, a later block
+    only where it is strictly greater: the whole argmax (the first
+    maximal index), without gathering the logits."""
+    if not isinstance(logits, Sharded):
+        return logits[:, -1].argmax(-1).to(torch.int32)[:, None]
+    R, V = logits.grid
+    home = logits.shards[0].device
+    rows = []
+    for r in range(R):
+        best = idx = None
+        off = 0
+        for j in range(V):
+            blk = logits.shards[r * V + j][:, -1]
+            i = blk.argmax(-1)
+            val = blk.gather(-1, i[:, None])[:, 0].to(home)
+            i = i.to(home) + off
+            if best is None:
+                best, idx = val, i
+            else:
+                take = val > best
+                best, idx = torch.where(take, val, best), torch.where(
+                    take, i, idx)
+            off += blk.shape[-1]
+        rows.append(idx)
+    return torch.cat(rows).to(torch.int32)[:, None]
 
 
 class Model:

@@ -26,6 +26,15 @@ as the reference's, so a step covers S_media + S_text positions from
 ``start`` (the cache's slots and ``filled`` count them) and the logits
 cover every position, the media rows included.
 
+Partitioned (the tensor-parallel layout, ``distributed/\
+tensor_parallel.py``): a stack of GQA layers with dense FFNs served under
+a policy with rules runs :func:`layer_forward_tp` per layer over
+``{coordinate: rows}``, the embedding vocab-parallel, attention
+column-parallel in q and row-parallel in ``wo``, the FFN column- then
+row-parallel, the unembedding split over the vocab, one all-reduce over
+the model axis after each row-parallel product; the cache is written by
+its placed blocks.
+
 Metrics, as the reference's: ``aux_loss`` and ``dropped`` summed over
 the layers, and for a config with ``moe`` set ``expert_counts`` of shape
 (n_periods, E), each period's pattern positions summed.  A dense config
@@ -60,17 +69,21 @@ would attend over zeros), or without either, and a step with S_enc past
 """
 from __future__ import annotations
 
+import operator
 from typing import Optional, Tuple
 
 import torch
 import torch.utils.checkpoint
 
 from ..distributed.meshctx import constrain, get_policy
-from .attention import gqa_forward, init_attention, init_mla_attention, \
-    mla_forward, project_kv
+from ..distributed.sharding import dense_layout
+from ..distributed.tensor_parallel import TPRun
+from .attention import gqa_forward, gqa_forward_tp, init_attention, \
+    init_mla_attention, mla_forward, project_kv
 from .config import LayerSpec, ModelConfig
-from .layers import embed, ffn, init_embedding, init_ffn, init_rmsnorm, \
-    init_unembed, rmsnorm, softcap, unembed
+from .layers import embed, embed_tp, ffn, ffn_tp, init_embedding, \
+    init_ffn, init_rmsnorm, init_unembed, rmsnorm, softcap, unembed, \
+    unembed_tp
 from .moe import init_moe, moe_ffn
 from .params import Initializer, ParamTree, index_tree, stack_draws, \
     stack_pspecs, unbind_tree
@@ -162,6 +175,19 @@ def _check_cross(xkv, enc_out, enc_len: Optional[int]) -> None:
             f"cache's {xkv['k'].shape[-3]} cross-attention slots")
 
 
+def _sublayer(x, norm, body, pre: str, post: Optional[str],
+              add=operator.add):
+    """One pre-norm residual sublayer, ``x + post(body(pre(x)))``: the
+    order of operations every layer kind shares, on one device and
+    partitioned.  ``norm(name, t)`` applies the layer's norm ``name``
+    (``post`` None: none after ``body``); ``add`` the residual sum (the
+    partitioned layout's act on ``{coordinate: tensor}``)."""
+    a = body(norm(pre, x))
+    if post is not None:
+        a = norm(post, a)
+    return add(x, a)
+
+
 def layer_forward(p, cfg: ModelConfig, spec: LayerSpec, x: torch.Tensor,
                   start: int = 0, cache=None, enc_out=None,
                   causal: bool = True, aux_loss: bool = True,
@@ -185,34 +211,43 @@ def layer_forward(p, cfg: ModelConfig, spec: LayerSpec, x: torch.Tensor,
         _check_cross(cache["xkv"] if cache is not None else None, enc_out,
                      enc_len)
     new_cache = {} if cache is not None else None
+
+    def norm(name, t):
+        return rmsnorm(p[name], t, cfg.rms_eps)
+
+    def post(name):
+        return name if cfg.post_norm else None
+
     if spec.kind == "attn":
-        h = rmsnorm(p["attn_norm"], x, cfg.rms_eps)
-        kv = cache["kv"] if cache is not None else None
-        if cfg.mla:
-            a, kvc = mla_forward(p["attn"], cfg, h, start, cache=kv,
-                                 policy=policy)
-        else:
-            a, kvc = gqa_forward(p["attn"], cfg, h, start,
-                                 window=spec.window, cache=kv, causal=causal,
-                                 policy=policy)
-        if cfg.post_norm:
-            a = rmsnorm(p["attn_post_norm"], a, cfg.rms_eps)
-        if new_cache is not None:
-            new_cache["kv"] = kvc
+        def attend(h):
+            kv = cache["kv"] if cache is not None else None
+            if cfg.mla:
+                a, kvc = mla_forward(p["attn"], cfg, h, start, cache=kv,
+                                     policy=policy)
+            else:
+                a, kvc = gqa_forward(p["attn"], cfg, h, start,
+                                     window=spec.window, cache=kv,
+                                     causal=causal, policy=policy)
+            if new_cache is not None:
+                new_cache["kv"] = kvc
+            return a
+        x = _sublayer(x, norm, attend, "attn_norm", post("attn_post_norm"))
     else:
-        h = rmsnorm(p["mamba_norm"], x, cfg.rms_eps)
-        mc = cache["mamba"] if cache is not None else None
-        if mc is not None and x.shape[1] == 1:
-            a, state = mamba_decode(p["mamba"], cfg, h, mc)
-        else:
-            a, state = mamba_forward(p["mamba"], cfg, h, cache=mc)
-        if mc is not None:
-            # lm_forward passes views of the stacked caches and drops what
-            # a layer returns: the state must land in the cache's tensors
-            for name in ("conv", "ssm"):
-                mc[name].copy_(state[name])
-            new_cache["mamba"] = mc
-    x = x + a
+        def mamba(h):
+            mc = cache["mamba"] if cache is not None else None
+            if mc is not None and h.shape[1] == 1:
+                a, state = mamba_decode(p["mamba"], cfg, h, mc)
+            else:
+                a, state = mamba_forward(p["mamba"], cfg, h, cache=mc)
+            if mc is not None:
+                # lm_forward passes views of the stacked caches and drops
+                # what a layer returns: the state must land in the
+                # cache's tensors
+                for name in ("conv", "ssm"):
+                    mc[name].copy_(state[name])
+                new_cache["mamba"] = mc
+            return a
+        x = _sublayer(x, norm, mamba, "mamba_norm", None)
     if spec.cross_attn:
         xc = cache["xkv"] if cache is not None else None
         if enc_out is not None:
@@ -224,22 +259,21 @@ def layer_forward(p, cfg: ModelConfig, spec: LayerSpec, x: torch.Tensor,
         else:
             n = xc["k"].shape[1] if enc_len is None else enc_len
             xk, xv = xc["k"][:, :n], xc["v"][:, :n]
-        h = rmsnorm(p["cross_norm"], x, cfg.rms_eps)
-        a, _ = gqa_forward(p["cross"], cfg, h, start, kv_const=(xk, xv))
-        x = x + a
+        x = _sublayer(x, norm, lambda h: gqa_forward(
+            p["cross"], cfg, h, start, kv_const=(xk, xv))[0], "cross_norm",
+            None)
         if new_cache is not None:
             new_cache["xkv"] = xc
     metrics = {"aux_loss": 0.0, "dropped": 0.0}
     if spec.ffn != "none":
-        h = rmsnorm(p["ffn_norm"], x, cfg.rms_eps)
-        if spec.ffn == "moe":
-            f, metrics = moe_ffn(p["ffn"], h, cfg, aux_loss, hot_experts,
-                                 policy)
-        else:
-            f = ffn(p["ffn"], h, cfg.ffn_act)
-        if cfg.post_norm:
-            f = rmsnorm(p["ffn_post_norm"], f, cfg.rms_eps)
-        x = x + f
+        def feed(h):
+            nonlocal metrics
+            if spec.ffn == "moe":
+                f, metrics = moe_ffn(p["ffn"], h, cfg, aux_loss,
+                                     hot_experts, policy)
+                return f
+            return ffn(p["ffn"], h, cfg.ffn_act)
+        x = _sublayer(x, norm, feed, "ffn_norm", post("ffn_post_norm"))
     return x, new_cache, metrics
 
 
@@ -349,6 +383,76 @@ def _check_step(cache, start: int, S: int, mamba: bool) -> None:
                 "caller and is not ported: ROADMAP Queue 1 item 8")
 
 
+def layer_forward_tp(run, cfg: ModelConfig, spec: LayerSpec, key: str,
+                     i: int, x: dict, start: int, cap: int) -> dict:
+    """One layer of the partitioned layout (``distributed/\
+tensor_parallel.py``): stacked position ``key``, period ``i``, over
+    ``x = {c: (B_l, S, D)}`` and the placed cache's blocks, written in
+    place.  The norms, RoPE, softcaps and residual adds are elementwise
+    and run on each coordinate's rows; attention is
+    ``attention.gqa_forward_tp`` and the FFN ``layers.ffn_tp``, one
+    all-reduce over the model group each."""
+    p = run.each(lambda c: index_tree(run.params[c]["blocks"][key], i))
+    kv = run.each(lambda c: index_tree(run.cache[c]["blocks"][key], i)["kv"])
+    sh = run.param_sh["blocks"][key]
+    eps = cfg.rms_eps
+
+    def norm(name, t):
+        return run.each(lambda c: rmsnorm(p[c][name], t[c], eps))
+
+    def add(t, u):
+        return run.each(lambda c: t[c] + u[c])
+
+    def post(name):
+        return name if cfg.post_norm else None
+
+    x = _sublayer(x, norm, lambda h: gqa_forward_tp(
+        run, cfg, {c: p[c]["attn"] for c in run.coords}, sh["attn"], h,
+        start, window=spec.window, kv=kv,
+        kv_sh=run.cache_sh["blocks"][key]["kv"],
+        pos_at=lambda c: run.cache_block(f"blocks/{key}/kv/pos", c)[i],
+        cap=cap), "attn_norm", post("attn_post_norm"), add)
+    return _sublayer(x, norm, lambda h: ffn_tp(
+        run, {c: p[c]["ffn"] for c in run.coords}, sh["ffn"]["w_down"], h,
+        cfg.ffn_act), "ffn_norm", post("ffn_post_norm"), add)
+
+
+def _lm_forward_tp(params, cfg: ModelConfig, tokens, start: int, cache,
+                   media_embeds, policy):
+    """:func:`lm_forward` of the tensor-parallel layout: the logits as a
+    ``compat.Sharded`` split over the batch rows and the vocab."""
+    B = tokens.shape[0]
+    S = tokens.shape[1] + (media_embeds.shape[1] if media_embeds is not None
+                           else 0)
+    _check_step(cache, start, S, False)
+    run = TPRun(policy, B, params, cache)
+    cap = _capacity(cache)
+    tok = run.split_rows(tokens)
+    x = embed_tp(run, run.param_sh["embed"]["table"],
+                 {c: run.params[c]["embed"]["table"] for c in run.coords},
+                 tok, cfg.padded_vocab)
+    if media_embeds is not None:
+        media = run.split_rows(media_embeds)
+        x = run.each(lambda c: torch.cat([media[c].to(x[c].dtype), x[c]],
+                                         dim=1))
+    for i in range(cfg.n_periods):
+        for pos, spec in enumerate(cfg.pattern):
+            x = layer_forward_tp(run, cfg, spec, f"pos{pos}", i, x, start,
+                                 cap)
+    x = run.each(lambda c: rmsnorm(run.params[c]["final_norm"], x[c],
+                                   cfg.rms_eps))
+    tied = cfg.tie_embeddings
+    # the vocab is dim 0 of the tied table, dim 1 of unembed's w
+    (entry, name), vdim = (("embed", "table"), 0) if tied else \
+        (("unembed", "w"), 1)
+    wsh = run.param_sh[entry][name]
+    logits = unembed_tp(run, {c: run.params[c][entry][name]
+                              for c in run.coords}, x, cfg, tied)
+    split = len(wsh.spec) > vdim and wsh.spec[vdim] is not None
+    cache["filled"] = max(cache["filled"], start + S)
+    return run.assemble(logits, 2, split), cache
+
+
 def lm_forward(params, cfg: ModelConfig, tokens: torch.Tensor,
                start: int = 0, cache=None,
                media_embeds: Optional[torch.Tensor] = None,
@@ -372,9 +476,27 @@ def lm_forward(params, cfg: ModelConfig, tokens: torch.Tensor,
     ``policy`` (default: the installed one, ``meshctx.get_policy()``)
     is threaded to every layer for the mesh branches; the reference's
     activation constraints stand at the same points (``constrain``,
-    which partitions nothing here).  Returns (logits, cache, metrics);
-    the cache is written in place and returned."""
+    which places nothing).  A policy with rules over a stack that
+    ``sharding.dense_layout`` calls ``"tensor_parallel"`` runs prefill
+    and decode partitioned instead (:func:`layer_forward_tp` a layer, on
+    params and a cache placed by the rules): every coordinate its batch
+    rows, query heads, MLP columns and vocab rows, the logits returned
+    as a ``compat.Sharded`` over (rows, vocab) and the metrics zeros;
+    without a cache that layout raises (training's dense layers are not
+    partitioned).  Returns (logits, cache, metrics); the cache is written
+    in place and returned."""
     policy = policy if policy is not None else get_policy()
+    if dense_layout(cfg, policy) == "tensor_parallel":
+        if cache is None:
+            raise NotImplementedError(
+                "the tensor-parallel layout partitions prefill and decode "
+                "(a cache); training's dense half is not ported: run it "
+                "with a policy without rules")
+        logits, cache = _lm_forward_tp(params, cfg, tokens, start, cache,
+                                       media_embeds, policy)
+        zero = torch.zeros((), dtype=torch.float32,
+                           device=logits.shards[0].device)
+        return logits, cache, {"aux_loss": zero, "dropped": zero}
     S = tokens.shape[1] + (media_embeds.shape[1] if media_embeds is not None
                            else 0)
     mamba, enc_len, cross = [], None, _cross_position(cfg)

@@ -45,6 +45,7 @@ from repro_torch.configs import (ARCH_IDS, SHAPES, applies, batch_specs,
 from repro_torch.distributed import compat
 from repro_torch.distributed.compat import abstract_mesh
 from repro_torch.distributed.meshctx import MeshPolicy, use_policy
+from repro_torch.kernels.work import flash_attention_work
 from repro_torch.launch import dryrun
 from repro_torch.launch.mesh import make_debug_mesh, make_production_mesh
 from repro_torch.launch.op_analysis import Recorder, analyze
@@ -346,6 +347,9 @@ def test_moe_on_a_mesh_meta_against_the_host():
 
 @pytest.mark.parametrize("arch,shape", [
     ("llama3-8b", "decode_32k"),
+    ("llama3-8b", "prefill_32k"),
+    ("gemma2-9b", "prefill_32k"),
+    ("gemma2-9b", "decode_32k"),
     ("mamba2-1.3b", "long_500k"),
     ("jamba-v0.1-52b", "prefill_32k"),
     ("mamba2-1.3b", "train_4k"),
@@ -358,13 +362,35 @@ def test_full_width_cell_on_the_production_mesh(arch, shape):
                  if cfg.pattern[i % len(cfg.pattern)].kind == "attn")
     n_ssm = cfg.n_layers - n_attn
     kern = rec["kernels"]
-    if SHAPES[shape].kind == "decode":
+    tp = arch in ("llama3-8b", "gemma2-9b")
+    assert rec["layout"] == ("tensor_parallel" if tp else "home")
+    B, cap, _ = cache_dims(cfg, SHAPES[shape])
+    windows = [cfg.pattern[i % len(cfg.pattern)].window
+               for i in range(cfg.n_layers)
+               if cfg.pattern[i % len(cfg.pattern)].kind == "attn"]
+
+    def kv_shards(window):
+        """The 16 KV shards' indices holding a slot the last position
+        sees (its window, or every slot)."""
+        lo = 0 if window is None else cap - window
+        return [j for j in range(16) if (j + 1) * cap // 16 > lo]
+
+    if tp and SHAPES[shape].kind == "prefill":
+        # every coordinate attends its query heads over its rows
+        assert kern == {"flash_attention": kern["flash_attention"]}
+        assert kern["flash_attention"]["calls"] == n_attn * 256
+        # wo and w_down row-parallel; new k / v from heads to sequence
+        assert rec["per_collective"]["all-reduce"] > 0
+        assert rec["per_collective"]["all-to-all"] > 0
+        assert rec["useful_flop_ratio"] >= 0.3
+    elif SHAPES[shape].kind == "decode":
         # decode: the sequence-parallel flash decode, one call a KV shard
-        # with visible slots, 256 of them at 32k over the (16, 16) mesh
+        # with visible slots (16 data rows each) at 32k over (16, 16)
         assert kern.get("flash_attention", {}).get("calls", 0) == \
-            n_attn * (256 if n_attn else 0)
+            sum(16 * len(kv_shards(w)) for w in windows)
         assert "ssd_scan" not in kern
-        # the shards' logsumexp maxima, combined over the KV shards
+        # partitioned, the row-parallel sums; else the shards' logsumexp
+        # maxima, combined over the KV shards
         assert (rec["per_collective"]["all-reduce"] > 0) == (n_attn > 0)
     elif SHAPES[shape].kind == "prefill":
         assert kern["flash_attention"]["calls"] == n_attn
@@ -376,10 +402,91 @@ def test_full_width_cell_on_the_production_mesh(arch, shape):
         assert kern["ssd_scan"]["calls"] == 2 * K * n_ssm   # remat
         assert kern["ssd_scan_bwd"]["calls"] == K * n_ssm
         assert rec["per_collective"]["reduce-scatter"] > 0  # ZeRO
-    assert rec["memory"]["coordinate"] == "0,0"
+    if tp and any(w is not None for w in windows) \
+            and SHAPES[shape].kind == "decode":
+        # a windowed decode: each windowed layer's attention lies on the
+        # KV shards holding the window (2 of 16), so the coordinates'
+        # FLOPs take two values, the heavy ones on those shards, apart by
+        # exactly the windowed layers' attention over a shard's slots
+        win = [w for w in windows if w is not None]
+        heavy = set(kv_shards(win[0]))
+        assert all(set(kv_shards(w)) == heavy for w in win)
+        flops = {}
+        for key, p in rec["per_coordinate"].items():
+            flops.setdefault(int(key.split(",")[1]) in heavy,
+                             set()).add(p["flops"])
+        assert len(flops[True]) == len(flops[False]) == 1
+        hd, bf16 = cfg.head_dim_, torch.bfloat16
+        q = torch.empty((B // 16, 1, cfg.n_heads, hd), dtype=bf16,
+                        device="meta")
+        k = torch.empty((B // 16, cap // 16, cfg.n_kv_heads, hd),
+                        dtype=bf16, device="meta")
+        attn = flash_attention_work(q, k, causal=False, window=None,
+                                    return_lse=True).total_flops
+        assert flops[True].pop() - flops[False].pop() == len(win) * attn
+        assert rec["load_balance"]["flops"] < 1.31     # 1.304 measured
+    elif tp:
+        # partitioned: the most loaded coordinate does no more than 1.25x
+        # the mean work
+        assert rec["load_balance"]["flops"] <= 1.25
+        assert rec["load_balance"]["hbm_bytes"] <= 1.25
+    if tp:
+        # it holds only its blocks, and fits one card
+        assert rec["memory"]["fits_80gb"]
+        assert rec["memory"]["peak_live_bytes"] < 16e9
+    else:
+        assert rec["memory"]["coordinate"] == "0,0"
     assert 0 < rec["useful_flop_ratio"] < 1
     assert rec["roofline"]["dominant"] in ("compute", "memory",
                                            "collective")
+
+
+@pytest.mark.parametrize("kind", ["prefill", "decode"])
+@pytest.mark.parametrize("arch", ["gemma2-9b", "pixtral-12b"])
+def test_class_dispatch_counts_what_full_dispatch_counts(arch, kind,
+                                                         monkeypatch):
+    """The partitioned step on a (4, 2) meta mesh, traced once with one
+    model group standing for every row shard (the dry run's class
+    dispatch) and once dispatching all 8 coordinates: every coordinate's
+    FLOPs by class, bytes, collective bytes, operation count and peak
+    live bytes, and every kernel's calls and work, are equal (gemma2's
+    window and tied table, pixtral's media; decode at slot 47 of 48, so
+    one KV shard writes)."""
+    from repro_torch.distributed import tensor_parallel
+    from repro_torch.distributed.sharding import (make_rules, place_batch,
+                                                  place_cache, place_params)
+    model = Model(get_config(arch).smoke())
+    mesh = make_debug_mesh(4, 2, device="meta")
+    rules = make_rules(False, fsdp=False)
+    pol = MeshPolicy(mesh=mesh, rules=rules)
+    cfg = model.cfg
+
+    def counts(classes: bool):
+        monkeypatch.setattr(tensor_parallel, "CLASS_DISPATCH", classes)
+        params = place_params(model.init(device="meta"), mesh, rules)
+        cache = place_cache(model.init_cache(8, 48, device="meta"), mesh,
+                            rules)
+        batch = {"tokens": torch.zeros((8, 40 - cfg.num_media_tokens),
+                                       dtype=torch.int32, device="meta")}
+        if cfg.num_media_tokens:
+            batch["media"] = torch.zeros(
+                (8, cfg.num_media_tokens, cfg.d_model), device="meta",
+                dtype=torch.bfloat16)
+        if kind == "decode":
+            cache["filled"] = 47
+            batch = {"tokens": batch["tokens"][:, :1]}
+        batch = place_batch(batch, mesh, rules)
+        if kind == "prefill":
+            step = lambda: make_prefill_step(model)(params, cache, batch)
+        else:
+            step = lambda: make_decode_step(model)(params, cache,
+                                                   batch["tokens"], 47)
+        return _counts(step, mesh, pol)
+
+    full, classes = counts(False), counts(True)
+    assert len(full["per_coordinate"]) == 8
+    assert classes["per_coordinate"] == full["per_coordinate"]
+    assert classes["kernels"] == full["kernels"]
 
 
 def test_skipped_cell_gives_the_reference_reason():
