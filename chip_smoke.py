@@ -255,6 +255,18 @@
    peak GiB of each, the mesh's ``flash_attention`` launches (added to
    the kernels line) and the final logits' normwise distance from one
    device's.
+13d. Mesh-MoE phase (``[mesh-moe]``): ``MESH_MOE``, phi3.5-MoE at every
+   width, 8 of 32 layers, bf16, capacity factor 2, B 2 x 4096 prefill
+   and 32 greedy decode steps, the same two runs and checks as
+   ``[mesh-dense]`` (``mesh_tp_phase``) over the same mesh and rules:
+   on the mesh each coordinate holds 8 of the 16 experts as placed
+   blocks, the prefill's expert body takes its data shard's token slice
+   (all-to-all over the model group) and a decode step's the whole
+   batch's rows (psum over the model group).  The call == call check
+   holds ``expert_counts`` and ``dropped`` too; the teacher-forced
+   layers are held over the tokens both route alike (at most
+   ``FLIP_MAX`` may not, and none may be dropped); it prints the drops
+   of the main path and the experts each layer used.
 14. Train-kernel phase (``[train-kernel]``): ``flash_attention_bwd``
    (``csrc/flash_attention_bwd.cu``) against the plain backward
    (autograd through ``flash_attention_ref``) on ``BWD_SHAPES``: the
@@ -3851,7 +3863,25 @@ def mesh_model_phase(torch, ops, spec, smi) -> int:
 # both softcaps, tied table, D 256), partitioned over a (data 2, model 2)
 # debug mesh of cuda:0 by the reference's rules: on it q_heads (16), kv
 # heads (8), mlp and vocab split over model, the batch over data
-MESH_DENSE = dict(arch="gemma2-9b", batch=2, prompt=6144, decode=32, seed=0)
+MESH_DENSE = dict(arch="gemma2-9b", batch=2, prompt=6144, decode=32, seed=0,
+                  tag="mesh-dense")
+# phi3.5-MoE at every published width, MESH_MODELS' cut (8 of 32 layers,
+# ~21.5 GB of bf16 params) and capacity factor 2, partitioned the same
+# way: its 32 query heads, 8 kv heads and vocab over model, each model
+# coordinate 8 of the 16 experts as placed blocks, the batch over data.
+# The prefill's 2 x 4096 tokens are 4 token shards of 2048 (the
+# all-to-all body); a decode step's 2 tokens take the psum body.  Its
+# random wq and wk give attention scores of ~1,200 with no softcap, so a
+# query's attention is decided among keys whose scores lie within the
+# scores' bf16 resolution (~5) of each other; each coordinate projects
+# its own heads (other GEMM shapes, other last bits than one device's),
+# and that moves layer 0's output at one decode step by 0.0297 of its max
+# on an H100 (PERF.md, the partitioned MoE's findings).  So each layer
+# is also measured against its own bf16 noise (the layer in f32 on the
+# same input, as PIXTRAL_MODEL's ``noise``) and held within
+# MESH_LAYER_TOL or BF16_REL times that noise, whichever is larger
+MESH_MOE = dict(arch="phi3.5-moe-42b-a6.6b", layers=8, batch=2, prompt=4096,
+                decode=32, seed=0, capacity=2.0, tag="mesh-moe", noise=True)
 
 
 def _last_row(torch, logits):
@@ -3864,19 +3894,25 @@ def _last_row(torch, logits):
                    logits.grid).gather(logits.shards[0].device)
 
 
-def mesh_dense_phase(torch, ops, smi) -> int:
-    """``[mesh-dense]``: MESH_DENSE on one device, then partitioned over
-    the mesh (params placed leaf by leaf, so no second whole copy is
-    held): a prefill of B x S and greedy decode steps each, timed (the
-    mesh's the main path: ``flash_attention`` on every coordinate's
-    heads at prefill and once per KV shard at decode).  The mesh's last
-    decode step's KV-shard calls are held to ``flash_attention_ref``
+def mesh_tp_phase(torch, ops, smi, d) -> int:
+    """``[mesh-dense]`` (MESH_DENSE) and ``[mesh-moe]`` (MESH_MOE): the
+    model on one device, then partitioned over the mesh by the
+    reference's serving rules (params placed leaf by leaf, so no second
+    whole copy is held): a prefill of B x S and greedy decode steps
+    each, timed (the mesh's the main path: ``flash_attention`` on every
+    coordinate's heads at prefill and once per KV shard at decode; a MoE
+    layer's expert body on each data shard's own tokens and the
+    coordinate's placed experts).  The mesh's last decode step's KV-shard
+    calls are held to ``flash_attention_ref``
     (``seq_parallel_decode_check``); a second mesh prefill and two decode
-    steps must give the first's bits; each layer is held to the same
-    layer on one device, teacher-forced over fresh caches, within
-    ``MESH_LAYER_TOL``; the final logits' normwise distance is printed
-    (gemma2 is not chaotic in depth).  Returns the main path's
-    ``flash_attention`` launches."""
+    steps must give the first's bits (a MoE stack's ``expert_counts`` and
+    ``dropped`` too); each layer is held to the same layer on one
+    device, teacher-forced over fresh caches, within ``MESH_LAYER_TOL``
+    (a MoE layer over the tokens both route alike: at most ``FLIP_MAX``
+    may not, and neither may drop); the final logits' normwise distance
+    is printed (gemma2 is not chaotic in depth; random-weight phi3.5 is).
+    Returns the main path's ``flash_attention`` launches."""
+    import dataclasses
     from repro_torch.configs import get_config
     from repro_torch.distributed.compat import Sharded
     from repro_torch.distributed.meshctx import MeshPolicy, use_policy
@@ -3890,36 +3926,47 @@ def mesh_dense_phase(torch, ops, smi) -> int:
     from repro_torch.models.transformer import init_layer_cache, \
         layer_forward, layer_forward_tp
 
-    d = MESH_DENSE
-    cfg = get_config(d["arch"])
+    whole = get_config(d["arch"])
+    cfg = whole.replace(n_layers=d.get("layers", whole.n_layers))
+    if cfg.moe is not None:
+        cfg = cfg.replace(moe=dataclasses.replace(
+            cfg.moe, capacity_factor=d["capacity"]))
     model = Model(cfg)
     B, S, N = d["batch"], d["prompt"], d["decode"]
     cap = S + N
-    tag = f"[mesh-dense] {cfg.name}"
+    tag = f"[{d['tag']}] {cfg.name}"
+    moe = cfg.moe is not None
     pol = MeshPolicy(mesh=make_debug_mesh(2, 2, device="cuda"),
                      rules=make_rules(False, fsdp=False))
     params = model.init(d["seed"], device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(d["seed"])
     prompt = torch.randint(0, cfg.vocab, (B, S), generator=gen,
                            device="cuda", dtype=torch.int32)
-    print(f"{tag}: {cfg.n_layers} layers at every published width, bf16, "
-          f"B {B} x {S} prefill + {N} greedy decode steps, on one device "
-          f"and partitioned over {pol.mesh} (tensor_parallel layout)")
+    cut = ("" if cfg.n_layers == whole.n_layers else
+           f" of {whole.n_layers} (depth cut for time)")
+    print(f"{tag}: {cfg.n_layers} layers{cut} at every published width, "
+          f"bf16, B {B} x {S} prefill + {N} greedy decode steps"
+          + (f", MoE capacity factor {d['capacity']}" if moe else "")
+          + f", on one device and partitioned over {pol.mesh} "
+          f"(tensor_parallel layout)")
 
     def serve(p, cache, pol, steps, capture=False, keep=False):
         """prefill + ``steps`` greedy decode steps: (prefill ms, decode
         ms by step, tokens fed, last-row logits of the prefill and of
-        each step, the prefill's logits where ``keep``); ``capture``
-        keeps the last step's KV-shard calls."""
-        rows, toks, times = [], [], []
+        each step, the prefill's logits where ``keep``, each call's
+        metrics of a MoE stack); ``capture`` keeps the last step's
+        KV-shard calls."""
+        rows, toks, times, mets = [], [], [], []
         with use_policy(pol):
             torch.cuda.synchronize()
             t = time.perf_counter()
-            logits, cache = model.prefill(p, cache, {"tokens": prompt})
+            logits, cache, m = model.prefill(p, cache, {"tokens": prompt},
+                                             with_metrics=True)
             tok = greedy(logits)
             torch.cuda.synchronize()
             pre = (time.perf_counter() - t) * 1e3
             rows.append(_last_row(torch, logits).float())
+            mets.append(m)
             kept = logits if keep else None
             del logits
             for j in range(steps):
@@ -3928,13 +3975,15 @@ def mesh_dense_phase(torch, ops, smi) -> int:
                     ops.flash_attention = keep_shard_call
                 torch.cuda.synchronize()
                 t = time.perf_counter()
-                logits, cache = model.decode_step(p, cache, tok, S + j)
+                logits, cache, m = model.decode_step(p, cache, tok, S + j,
+                                                     with_metrics=True)
                 tok = greedy(logits)
                 torch.cuda.synchronize()
                 times.append((time.perf_counter() - t) * 1e3)
                 rows.append(_last_row(torch, logits).float())
+                mets.append(m)
                 del logits
-        return pre, times, toks, rows, kept
+        return pre, times, toks, rows, kept, mets
 
     real_fa, shard_calls = ops.flash_attention, []
 
@@ -3945,7 +3994,7 @@ def mesh_dense_phase(torch, ops, smi) -> int:
 
     # one device, the whole params; a second prefill, warm
     torch.cuda.reset_peak_memory_stats()
-    pre1, steps1, toks1, rows1, _ = serve(
+    pre1, steps1, toks1, rows1, _, _ = serve(
         params, model.init_cache(B, cap, device="cuda"), None, N)
     gc.collect()
     warm1 = serve(params, model.init_cache(B, cap, device="cuda"), None,
@@ -3967,8 +4016,8 @@ def mesh_dense_phase(torch, ops, smi) -> int:
     try:
         cache = place_cache(model.init_cache(B, cap, device="cuda"),
                             pol.mesh, pol.rules)
-        pre_m, steps_m, toks_m, rows_m, _ = serve(placed, cache, pol, N,
-                                                  capture=True)
+        pre_m, steps_m, toks_m, rows_m, _, mets_m = serve(
+            placed, cache, pol, N, capture=True)
     finally:
         ops.flash_attention = real_fa
     served = ops.launches().get("flash_attention", 0)
@@ -3990,6 +4039,17 @@ def mesh_dense_phase(torch, ops, smi) -> int:
           f"{statistics.median(steps1):.3f}; peak GiB mesh {peak_m:.2f} "
           f"(placing the params {place_s:.1f} s), one device {peak1:.2f}; "
           f"flash_attention launches on the mesh {served} on {smi}")
+    if moe:
+        counts = mets_m[0]["expert_counts"]
+        check(counts.shape == (cfg.n_periods, cfg.moe.num_experts)
+              and bool((counts.sum(1) == B * S * cfg.moe.top_k).all()),
+              f"{tag}: the prefill's expert_counts {tuple(counts.shape)} "
+              f"do not count every routed entry")
+        print(f"{tag}: mesh dropped {float(mets_m[0]['dropped']):.0f} "
+              f"entries at the prefill (all-to-all body) and "
+              f"{sum(float(m['dropped']) for m in mets_m[1:]):.0f} over "
+              f"the {N} decode steps (psum body); experts used per layer "
+              f"at the prefill {(counts > 0).sum(1).tolist()}")
     print(f"{tag}: greedy tokens equal to one device's at {same_toks} of "
           f"{N} steps (the first {agree} in a row); logits vs one "
           f"device, normwise: the prefill's last row "
@@ -4007,13 +4067,17 @@ def mesh_dense_phase(torch, ops, smi) -> int:
         B, cap, device="cuda"), pol.mesh, pol.rules), pol, 2, keep=True)
     bits = (all(torch.equal(a, b) for a, b in zip(first[4].shards,
                                                   again[4].shards))
-            and all(torch.equal(a, b) for a, b in zip(first[3], again[3])))
+            and all(torch.equal(a, b) for a, b in zip(first[3], again[3]))
+            and all(torch.equal(a[k], b[k]) for a, b in zip(first[5],
+                                                            again[5])
+                    for k in a))
     warm_m = statistics.median([first[0], again[0]])
     del first, again
     gc.collect()
     torch.cuda.empty_cache()
     print(f"{tag}: a second prefill and 2 decode steps give the first's "
-          f"logits bit for bit: {bits}; warm prefill ms mesh {warm_m:.3f} "
+          f"logits" + (", expert_counts and dropped" if moe else "")
+          + f" bit for bit: {bits}; warm prefill ms mesh {warm_m:.3f} "
           f"(median of 2), one device {warm1:.3f}")
     check(bits, f"{tag}: two mesh calls gave other bits")
 
@@ -4039,7 +4103,61 @@ def mesh_dense_phase(torch, ops, smi) -> int:
     def mesh_rows(ys):
         return torch.cat([ys[g[0]] for g in run.groups])
 
-    errs = []
+    stats = {"dropped": 0.0, "flips": 0, "routed": 0}
+
+    def pair(lp, sp, key, i, xin, start, c1):
+        """One device's layer and the mesh's on ``xin``: (the one
+        device's output, their normwise distance over the tokens both
+        route alike, the one device's top-k ids or None)."""
+        r1, rm = [], []
+        with route_tap(r1):
+            y1, _, _ = layer_forward(lp, cfg, sp, xin, start, c1,
+                                     aux_loss=False)
+        with route_tap(rm):
+            ym, m = layer_forward_tp(run, cfg, sp, key, i,
+                                     run.split_rows(xin), start, cap)
+        ym = mesh_rows(ym)
+        if not r1:
+            return y1, dist(ym.float(), y1.float()), None
+        stats["dropped"] += float(m["dropped"])
+        rows = (ym - y1).abs().amax(-1).reshape(-1).float()
+        T = rows.numel()
+        ids = torch.cat(rm) if sum(t.shape[0] for t in rm) == T else rm[0]
+        flip = (r1[0].sort(-1).values != ids.sort(-1).values).any(-1)
+        stats["flips"] += int(flip.sum())
+        stats["routed"] += T
+        return y1, (rows.masked_fill(flip, 0.0).max()
+                    / y1.abs().max()).item(), r1[0]
+
+    def own_noise(lp, sp, x, outs, ids):
+        """With a spec's ``noise``: the layer's own bf16 noise, the same
+        layer in f32 (its weights cast up) over the whole input with no
+        cache against the one device's bf16 outputs, normwise as
+        ``pair``'s distance over the prefill's rows and at each decode
+        step (its max over the steps), leaving out the tokens the f32
+        router sends elsewhere."""
+        up = lambda t: ({k: up(v) for k, v in t.items()}
+                        if isinstance(t, dict) else t.float())
+        r32 = []
+        with route_tap(r32):
+            y32 = layer_forward(up(lp), cfg, sp, x.float(), 0, None,
+                                aux_loss=False)[0]
+        y1 = torch.cat(outs, dim=1).float()
+        diff = (y1 - y32).abs().amax(-1)                   # (B, S + N)
+        if r32:
+            K = cfg.moe.top_k
+            one = torch.cat([ids[0].reshape(B, S, K)]
+                            + [t.reshape(B, 1, K) for t in ids[1:]], 1)
+            flip = (r32[0].reshape(B, S + N, K).sort(-1).values
+                    != one.sort(-1).values).any(-1)
+            diff = diff.masked_fill(flip, 0.0)
+        pre = (diff[:, :S].max() / y1[:, :S].abs().max()).item()
+        dec = max((diff[:, S + j].max() / y1[:, S + j].abs().max()).item()
+                  for j in range(N))
+        del y32, y1
+        return pre, dec
+
+    errs, noise = [], []
     tokens = torch.cat([prompt] + toks1, dim=1)
     with torch.no_grad():
         x = embed({"table": flat["embed/table"].gather("cuda")}, tokens)
@@ -4048,28 +4166,54 @@ def mesh_dense_phase(torch, ops, smi) -> int:
                 key = f"pos{pos}"
                 lp = whole_layer(key, i)
                 c1 = init_layer_cache(cfg, sp, B, cap, "cuda")
-                row, outs = [], []
+                row, outs, ids = [], [], []
                 for start, n in [(0, S)] + [(S + j, 1) for j in range(N)]:
-                    xin = x[:, start:start + n]
-                    y1, _, _ = layer_forward(lp, cfg, sp, xin, start, c1,
-                                             aux_loss=False)
-                    ym = mesh_rows(layer_forward_tp(
-                        run, cfg, sp, key, i, run.split_rows(xin), start,
-                        cap))
-                    row.append(dist(ym.float(), y1.float()))
+                    y1, e, r = pair(lp, sp, key, i, x[:, start:start + n],
+                                    start, c1)
+                    row.append(e)
                     outs.append(y1)
+                    ids.append(r)
                 errs.append(row)
+                if d.get("noise"):
+                    noise.append(own_noise(lp, sp, x, outs, ids))
                 x = torch.cat(outs, dim=1)
-                del lp, c1, outs
+                del lp, c1, outs, ids
     del run, run_cache
     prefill = [round(r[0], 5) for r in errs]
     decode = [round(max(r[1:]), 5) for r in errs]
-    worst = max(max(r) for r in errs)
+    # the bound a layer is held to: MESH_LAYER_TOL, or where a spec's
+    # ``noise`` finds the layer's own bf16 noise larger, BF16_REL times
+    # that noise
+    tol = [(MESH_LAYER_TOL, MESH_LAYER_TOL) for _ in errs] if not noise \
+        else [(max(MESH_LAYER_TOL, BF16_REL * a),
+               max(MESH_LAYER_TOL, BF16_REL * b)) for a, b in noise]
+    over = [(k, p, dd) for k, (p, dd, (tp, td)) in enumerate(
+        zip(prefill, decode, tol)) if p > tp or dd > td]
+    routed = (f"; tokens routed otherwise {stats['flips']} of "
+              f"{stats['routed']} (tol {FLIP_MAX:.0%}); capacity drops "
+              f"{stats['dropped']:.0f}" if moe else "")
     print(f"{tag}: teacher-forced mesh vs one device, normwise, by layer: "
           f"prefill {prefill}, decode (max over {N} steps) {decode} (tol "
-          f"{MESH_LAYER_TOL})")
-    check(worst <= MESH_LAYER_TOL, f"{tag}: a mesh layer is {worst} from "
-          f"one device's (tol {MESH_LAYER_TOL})")
+          f"{MESH_LAYER_TOL}){routed}")
+    if noise:
+        past = [k for k, (p, dd) in enumerate(zip(prefill, decode))
+                if max(p, dd) > MESH_LAYER_TOL]
+        print(f"{tag}: each layer's own bf16 noise (the layer in f32 on the "
+              f"same input vs one device's bf16), normwise, by layer: "
+              f"prefill {[round(a, 5) for a, _ in noise]}, decode (max "
+              f"over {N} steps) {[round(b, 5) for _, b in noise]}; a layer "
+              f"is held within {MESH_LAYER_TOL} or {BF16_REL} x its own "
+              f"noise, whichever is larger; layers past {MESH_LAYER_TOL}: "
+              f"{past}")
+    check(not over, f"{tag}: mesh layers (index, prefill, decode) {over} "
+          f"are past their bound (tol {MESH_LAYER_TOL}"
+          + (f" or {BF16_REL} x the layer's own bf16 noise" if noise else "")
+          + ")")
+    check(stats["dropped"] == 0,
+          f"{tag}: the mesh dropped {stats['dropped']:.0f} entries")
+    check(stats["flips"] <= FLIP_MAX * max(stats["routed"], 1),
+          f"{tag}: {stats['flips']} of {stats['routed']} tokens routed "
+          f"otherwise")
     return served
 
 
@@ -4746,12 +4890,14 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
     print(f"[mesh-model] phase {time.perf_counter() - t:.1f} s")
-    # the dense stack partitioned over a mesh, after the mesh models'
-    t = time.perf_counter()
-    launches["flash_attention"] += mesh_dense_phase(torch, ops, smi)
-    print(f"[mesh-dense] phase {time.perf_counter() - t:.1f} s")
-    gc.collect()
-    torch.cuda.empty_cache()
+    # the dense stack and the MoE stack partitioned over a mesh, after
+    # the mesh models'
+    for spec in (MESH_DENSE, MESH_MOE):
+        t = time.perf_counter()
+        launches["flash_attention"] += mesh_tp_phase(torch, ops, smi, spec)
+        print(f"[{spec['tag']}] phase {time.perf_counter() - t:.1f} s")
+        gc.collect()
+        torch.cuda.empty_cache()
     # training, after the mesh models' params are gone
     err["flash_attention_bwd"], timing["flash_attention_bwd"] = \
         train_kernel_phase(torch, smi)

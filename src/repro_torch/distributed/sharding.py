@@ -18,15 +18,17 @@ or a tuple of names — with trailing ``None``\\ s trimmed, so it equals
 What the port does with a spec: the serving data plane lays out its
 state and batches by :func:`plane_state_shardings` /
 :func:`plane_batch_shardings` (tables replicated, sketches and batches
-split on ``"data"``); the expert-parallel MoE and the sequence-parallel
-decode split their operands by hand.  For serving a stack whose every
-layer is dense GQA attention (:func:`dense_layout` says
-``"tensor_parallel"``), :func:`place_params`, :func:`place_cache` and
-:func:`place_batch` lay params, KV cache and batch out by the specs,
-each block on its coordinate's device, and ``Model.prefill`` /
-``decode_step`` run partitioned on them
-(``distributed/tensor_parallel.py``).  Every other stack, and training's
-dense layers, stay whole on the mesh's home device (``"home"``);
+split on ``"data"``); the home layout's expert-parallel MoE and
+sequence-parallel decode split their operands by hand.  For serving a
+stack whose every layer is GQA attention with a dense or MoE FFN
+(:func:`dense_layout` says ``"tensor_parallel"``: the dense stacks and
+phi3.5-MoE), :func:`place_params`, :func:`place_cache` and
+:func:`place_batch` lay params (the expert stacks' experts over the
+model axis), KV cache and batch out by the specs, each block on its
+coordinate's device, and ``Model.prefill`` / ``decode_step`` run
+partitioned on them (``distributed/tensor_parallel.py``).  Every other
+stack (MLA, Mamba, cross-attention), and training's dense layers, stay
+whole on the mesh's home device (``"home"``);
 :func:`tree_device_bytes` reports the per-device bytes the rules give,
 the figure the reference's dry run plans memory with.
 
@@ -469,13 +471,14 @@ def place_train_state(state: dict, shardings: dict) -> dict:
 def dense_layout(cfg, policy) -> str:
     """``"tensor_parallel"`` when ``policy`` carries a mesh and a rule
     table and every layer of ``cfg`` is GQA self-attention with a dense
-    FFN (no MoE, MLA, Mamba, cross-attention or encoder); else
-    ``"home"``, the dense layers whole on the mesh's home device."""
+    or MoE FFN (no MLA, Mamba, cross-attention, encoder or dense prefix
+    layers); else ``"home"``, the dense layers whole on the mesh's home
+    device.  Chosen once, at placement: under ``"tensor_parallel"`` the
+    MoE FFN runs on placed expert blocks too."""
     if policy is None or policy.mesh is None or policy.rules is None:
         return "home"
-    dense = (not cfg.encdec and cfg.mla is None and cfg.moe is None
-             and not cfg.first_k_dense
-             and all(sp.kind == "attn" and sp.ffn == "dense"
+    dense = (not cfg.encdec and cfg.mla is None and not cfg.first_k_dense
+             and all(sp.kind == "attn" and sp.ffn in ("dense", "moe")
                      and not sp.cross_attn for sp in cfg.pattern))
     return "tensor_parallel" if dense else "home"
 

@@ -1,4 +1,4 @@
-"""The per-coordinate program of a partitioned dense stack.
+"""The per-coordinate program of a partitioned stack (dense or MoE FFNs).
 
 The reference leaves a dense layer's tensor parallelism to XLA's SPMD
 partitioner, which runs one program per device on the blocks the rules
@@ -8,8 +8,11 @@ the fixed-order collectives of ``distributed/compat.py`` between the
 stages.  :class:`TPRun` is one call's view of the mesh: the coordinates
 it runs, their batch rows and model shards, every placed param and cache
 leaf's block at each coordinate (checked against its spec first), and
-the collectives over each model group.  The model code
-(``models/layers.py``, ``models/attention.py``, ``models/transformer.py``)
+the collectives: over each model group (all-reduce, all-to-all,
+all-gather), over the batch rows (:meth:`TPRun.gather_rows`, the MoE
+decode body's tokens) and over every coordinate (:meth:`TPRun.psum_all`,
+the MoE metrics).  The model code (``models/layers.py``,
+``models/attention.py``, ``models/moe.py``, ``models/transformer.py``)
 holds its activations as ``{coordinate: tensor}``.
 
 Class dispatch.  On a ``meta`` mesh the blocks hold no values, and every
@@ -19,10 +22,13 @@ this layout accepts splits nothing else over those axes (checked, the
 cache's ``pos`` aside: it is written at every coordinate).  So
 the dry run traces one model group, the coordinates at 0 on every other
 axis, and the recorder counts each of its bodies at every coordinate it
-stands for (``compat.at`` with a tuple of coordinates).
-``CLASS_DISPATCH = False`` traces every coordinate instead; the tests
-hold the two to the same counts.  On a card or the host every
-coordinate runs.
+stands for (``compat.at`` with a tuple of coordinates).  A collective
+across model groups reads, for an untraced coordinate, the traced one
+that stands for it (:attr:`TPRun.rep`), and its bytes count at every
+coordinate each traced operand stands for, so each coordinate counts
+what a full dispatch gives it.  ``CLASS_DISPATCH = False`` traces every
+coordinate instead; the tests hold the two to the same counts.  On a
+card or the host every coordinate runs.
 """
 from __future__ import annotations
 
@@ -47,6 +53,13 @@ def _axes(entry) -> Tuple[str, ...]:
     return entry if isinstance(entry, tuple) else (entry,)
 
 
+def _stands_for(members) -> Tuple[Coord, ...]:
+    """The coordinates a ``members`` entry counts for: a class's tuple of
+    coordinates, or one coordinate."""
+    return members if members and isinstance(members[0], tuple) else (
+        members,)
+
+
 class TPRun:
     """One partitioned call over ``policy``'s mesh with a batch of ``B``
     rows, on ``params`` and ``cache`` placed by the policy's rules
@@ -57,7 +70,10 @@ class TPRun:
       what ``c`` counts for (``c`` itself, or its class on ``meta``).
     * ``groups``: ``coords`` cut into model groups (equal off the model
       axis), each in model order: the members of one collective.
-    * ``rows(c)``: ``c``'s batch rows; ``B_l`` rows a coordinate.
+    * ``rows(c)``: ``c``'s batch rows; ``B_l`` rows a coordinate, ``B``
+      in all; ``n_batch`` the policy's batch shards (its ``batch_axes``).
+    * ``rep[d]``: for every coordinate ``d`` of the mesh, the coordinate
+      of ``coords`` that runs its program (``d`` itself, or its class).
     * ``params[c]`` / ``cache[c]``: nested dicts of ``c``'s blocks of
       every leaf (stacked leaves whole: index a layer with ``[i]``);
       ``param_sh`` / ``cache_sh`` the leaves' :class:`NamedSharding`\\ s.
@@ -75,7 +91,9 @@ class TPRun:
                               mesh, rules)["rows"]
         self.row_axes = _axes(row[0]) if row else ()
         self.n_rows = mesh.axes_size(self.row_axes)
-        self.B_l = B // self.n_rows
+        self.B, self.B_l = B, B // self.n_rows
+        self.batch_axes = tuple(policy.batch_axes)
+        self.n_batch = policy.n_batch_shards
         self.rules = rules
         self.param_sh, self.cache_sh = serving_shardings(params, cache,
                                                          mesh, rules)
@@ -97,6 +115,8 @@ class TPRun:
         else:
             self.coords = tuple(every)
             self.members = {c: c for c in self.coords}
+        self.rep = {d: c for c in self.coords for d in _stands_for(
+            self.members[c])}
         groups: Dict[Coord, List[Coord]] = {}
         for c in self.coords:
             off = c[:self._mi] + c[self._mi + 1:]
@@ -121,7 +141,10 @@ class TPRun:
         blocks are written at every coordinate, :meth:`every`).  A param
         split over the batch axes (the FSDP rules) raises
         ``NotImplementedError``: serving on FSDP-split params is not
-        ported."""
+        ported.  An expert stack (a leaf with an ``"experts"`` dim) must
+        split its experts over the model axis, the MoE body's expert
+        shards; any other placement of them raises
+        ``NotImplementedError``."""
         if not sh.holds(leaf):
             raise ValueError(
                 f"{key}: {leaf!r} is not placed by its spec {sh.spec} on "
@@ -136,8 +159,20 @@ class TPRun:
                 ok = set(axes) <= own
             else:
                 ok = axes in ((), (self.model_axis,))
+            if ok and logical[d] == "experts" and axes != (
+                    self.model_axis,):
+                raise NotImplementedError(
+                    f"{key}: spec {sh.spec} keeps the experts whole; the "
+                    f"partitioned MoE body owns them in contiguous blocks "
+                    f"over {self.model_axis!r}, so the rules must put "
+                    f"'experts' there and the model axis must divide them")
             if ok:
                 continue
+            if not is_cache and logical[d] == "experts":
+                raise NotImplementedError(
+                    f"{key}: spec {sh.spec} splits the experts over "
+                    f"{axes}; the partitioned MoE body owns them over "
+                    f"{self.model_axis!r} alone")
             if not is_cache:
                 raise NotImplementedError(
                     f"{key}: spec {sh.spec} splits dim {d} over {axes}; the "
@@ -229,6 +264,45 @@ class TPRun:
             out.update(zip(g, compat.exchange(
                 pieces, [self.members[c] for c in g],
                 [self.device(c) for c in g], dim, kind)))
+        return out
+
+    # -- collectives across model groups -----------------------------------
+    def _at(self, c: Coord, axes: Tuple[str, ...], idx: int) -> Coord:
+        """``c`` moved to row-major index ``idx`` over ``axes``."""
+        out = list(c)
+        for a in reversed(axes):
+            idx, out[self.mesh.axis_names.index(a)] = divmod(
+                idx, self.mesh.shape[a])
+        return tuple(out)
+
+    def gather_rows(self, xs: dict) -> dict:
+        """Every coordinate gets the tensors of the coordinates that hold
+        each row shard at its own place off the row axes (its model index
+        among them), concatenated along dim 0 in row order: the whole
+        batch's rows, an all-gather over the batch axes.  Each operand's
+        bytes count to the coordinates it stands for."""
+        if self.n_rows == 1:
+            return dict(xs)
+        compat.record_collective("all-gather", [xs[c] for c in self.coords])
+        out = {}
+        for c in self.coords:
+            with compat.at(self.members[c]):
+                dev = self.device(c)
+                out[c] = torch.cat([
+                    xs[self.rep[self._at(c, self.row_axes, r)]].to(dev)
+                    for r in range(self.n_rows)])
+        return out
+
+    def psum_all(self, xs: dict) -> torch.Tensor:
+        """The sum of every mesh coordinate's tensor (an untraced one's
+        its class's), left to right in row-major coordinate order, on the
+        mesh's home device."""
+        compat.record_collective("all-reduce", [xs[c] for c in self.coords])
+        home = self.mesh.home
+        out = None
+        for d in self.mesh.coords():
+            x = xs[self.rep[d]].to(home)
+            out = x if out is None else out + x
         return out
 
     def assemble(self, xs: dict, dim: int, split: bool) -> compat.Sharded:

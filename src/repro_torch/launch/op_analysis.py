@@ -39,7 +39,11 @@ Counting rules, per operation:
 * Collectives (``compat.psum`` / ``pmax`` / ``all_gather`` /
   ``all_to_all`` and the gradient cut of ``launch/steps.py``) count each
   shard's operand bytes to the coordinate that made it, under the
-  reference's names.
+  reference's names.  The partitioned loop's collectives across model
+  groups (``TPRun.gather_rows``, ``TPRun.psum_all``: the MoE decode
+  body's tokens and the MoE metrics) count each traced operand at every
+  coordinate its class stands for, so each coordinate counts what a
+  full dispatch gives it; their sums run at the home coordinate.
 * Live bytes: every storage an operation (or a kernel call) allocates
   is live from then until its last tensor, views included, is freed;
   the peak is kept per coordinate.  The step's arguments are not in it (``launch/dryrun.py``

@@ -33,22 +33,25 @@ step is a plain single-token update).  An MLA layer (deepseek-v2)
 attends in plain PyTorch, the reference's blocked loop
 (``models/attention.py::mla_forward``), and launches no kernel.
 Under a policy with rules (``distributed/meshctx.py``), a stack whose
-every layer is GQA attention with a dense FFN (llama3-8b, starcoder2-3b,
-gemma2-9b, deepseek-7b, pixtral-12b) runs ``prefill`` and
-``decode_step`` partitioned over the mesh, on params and a cache placed
-by ``distributed.sharding.place_params`` / ``place_cache`` (a leaf
-placed otherwise raises; the batch may come whole or placed by
-``place_batch``): the logits then come back as a ``compat.Sharded``
-split over (batch rows, vocab), and :func:`greedy` picks from it
-without gathering it.
+every layer is GQA attention with a dense or MoE FFN (llama3-8b,
+starcoder2-3b, gemma2-9b, deepseek-7b, pixtral-12b, phi3.5-MoE) runs
+``prefill`` and ``decode_step`` partitioned over the mesh, on params and
+a cache placed by ``distributed.sharding.place_params`` /
+``place_cache`` (a leaf placed otherwise raises; the batch may come
+whole or placed by ``place_batch``): the logits then come back as a
+``compat.Sharded`` split over (batch rows, vocab), and :func:`greedy`
+picks from it without gathering it; the metrics are the home layout's,
+on the mesh's home device.
 Caches are written in place (``models/attention.py`` says why), so a
 consumed cache is not a fresh one; over a stack with Mamba layers a step
 restarts at position 0 or continues at the filled position, and never
 rolls back (``models/transformer.py``).  ``forward``'s metrics are the reference's
 (``aux_loss``, ``dropped``, and ``expert_counts`` (n_periods, E) for a
 MoE config); ``prefill`` and ``decode_step`` discard them, as the
-reference's do, and so skip the MoE load-balance loss.  A MoE layer
-reads its group sizes on the host once per call.
+reference's do, and so skip the MoE load-balance loss, unless called
+with ``with_metrics=True`` (the controller's hot-expert planning reads
+the counts).  A MoE layer reads its group sizes on the host once per
+call (once per token shard on a mesh).
 
 Training: ``forward`` and ``loss`` run with autograd as the caller has
 it (the trainer's params are ``params.trainable``); ``loss`` is the
@@ -199,15 +202,22 @@ class Model:
         return loss, {**metrics, "ce_loss": loss}
 
     @torch.no_grad()
-    def prefill(self, params, cache, batch):
-        logits, cache, _ = self._run(params, batch, cache, aux_loss=False)
-        return logits, cache
+    def prefill(self, params, cache, batch, with_metrics: bool = False):
+        """(logits, cache), as the reference's; ``with_metrics``: (logits,
+        cache, metrics), the metrics of :meth:`forward` (the MoE layers'
+        load-balance loss computed)."""
+        logits, cache, metrics = self._run(params, batch, cache,
+                                           aux_loss=with_metrics)
+        return (logits, cache, metrics) if with_metrics else (logits, cache)
 
     @torch.no_grad()
-    def decode_step(self, params, cache, tokens, pos):
+    def decode_step(self, params, cache, tokens, pos,
+                    with_metrics: bool = False):
         """tokens: (B, 1) int32; pos: the write index in the cache, a
         Python int (a tensor on the card would cost a host sync).  Raises
-        on a ``pos`` past the cache's filled prefix."""
-        logits, cache, _ = self._run(params, {"tokens": tokens}, cache,
-                                     operator.index(pos), aux_loss=False)
-        return logits, cache
+        on a ``pos`` past the cache's filled prefix.  ``with_metrics`` as
+        :meth:`prefill`'s."""
+        logits, cache, metrics = self._run(
+            params, {"tokens": tokens}, cache, operator.index(pos),
+            aux_loss=with_metrics)
+        return (logits, cache, metrics) if with_metrics else (logits, cache)

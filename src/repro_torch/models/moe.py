@@ -30,7 +30,16 @@ slices, and either
 The collectives are ``distributed.compat``'s, in fixed shard order; the
 expert products stay ``torch.matmul`` per expert, as on the local path.
 
-:func:`moe_ffn` is the transformer's entry: the sharded path when given
+:func:`moe_ffn_tp` is the same two bodies in the partitioned layout
+(``distributed/tensor_parallel.py``, a policy with rules): each
+coordinate holds its E / n_model whole experts as placed blocks, the
+all-to-all body cuts each data shard's own rows into its model group's
+token slices, and the psum body gathers the whole batch's rows over the
+batch axes first, as the reference replicates them; the capacities are
+the ones above, computed from the global token count, so both layouts
+drop the same entries and report the same metrics.
+
+:func:`moe_ffn` is the home layout's entry: the sharded path when given
 a policy with a mesh whose model axis divides the experts, else the
 local path or its hot-expert branch: the trainer passes the hot set down
 explicitly (``make_train_step(hot_experts=)``), where the reference
@@ -55,7 +64,7 @@ import torch
 
 from ..distributed import compat
 from .config import MoEConfig, ModelConfig
-from .layers import _act, ffn, init_ffn
+from .layers import _act, ffn, ffn_tp, init_ffn
 from .params import Initializer
 
 
@@ -270,6 +279,33 @@ def _expert_slice(params, mi: int, E_l: int, dev):
                  for w in ("w1", "w3", "w2"))
 
 
+def _all_to_all_caps(T_l: int, moe: MoEConfig, n_model: int):
+    """The all-to-all body's capacities for token shards of ``T_l``
+    tokens: ``cap``, a sender's slots for each expert shard (GShard),
+    ``cap_e``, an expert's rows when a shard owns more than one (else
+    None), and ``n_rows``, the rows a balanced router sends one expert
+    shard (what a trace on ``meta`` runs: each of its n_model senders'
+    share, up to ``cap``)."""
+    K, E_l = moe.top_k, moe.num_experts // n_model
+    cap = _ceil8(int(max(8, round(T_l * K / n_model
+                                  * moe.capacity_factor))))
+    cap_e = (_ceil8(int(-(-(n_model * cap) // E_l) * 1.25)) if E_l > 1
+             else None)
+    return cap, cap_e, n_model * min(cap, -(-T_l * K // n_model))
+
+
+def _combine(by, s: dict, T_l: int, K: int, dtype) -> torch.Tensor:
+    """Stage 3 of the all-to-all body, one token shard: the rows its
+    packs came back with (``by``, in slot order) to its tokens: slot ->
+    sorted entry -> (token, choice), weighted by the gates and summed
+    over the choices; an entry past its capacity adds zero."""
+    yk = by[s["slot"]] * s["keep"][:, None].to(by.dtype)
+    y = torch.empty_like(yk)
+    y[s["order"]] = yk
+    return (y.reshape(T_l, K, -1) * s["gates"][..., None].to(y.dtype)
+            ).sum(dim=1).to(dtype)
+
+
 def _moe_all_to_all(params, x2d, moe: MoEConfig, act: str, pol):
     """Token-sharded expert parallelism (module docstring, first path);
     returns (y, aux, dropped, counts) on x2d's device."""
@@ -281,10 +317,7 @@ def _moe_all_to_all(params, x2d, moe: MoEConfig, act: str, pol):
     n_tok = mesh.axes_size(axes)
     T, home = x2d.shape[0], x2d.device
     T_l = T // n_tok
-    cap = _ceil8(int(max(8, round(T_l * K / n_model
-                                  * moe.capacity_factor))))
-    cap_e = (_ceil8(int(-(-(n_model * cap) // E_l) * 1.25)) if E_l > 1
-             else None)
+    cap, cap_e, n_rows = _all_to_all_caps(T_l, moe, n_model)
     wr, br = params["w_router"], params.get("b_router")
     st = compat.shard_map(
         lambda i, d: dict(_shard_route(
@@ -294,9 +327,6 @@ def _moe_all_to_all(params, x2d, moe: MoEConfig, act: str, pol):
     devs = [s["dev"] for s in st]
     coords = mesh.shard_coords(axes)
     ys, dropped = [None] * n_tok, sum(s["dropped"] for s in st)
-    # rows a balanced router sends one expert shard (what a trace on
-    # ``meta`` runs): each of its n_model senders' share, up to ``cap``
-    n_rows = n_model * min(cap, -(-T_l * K // n_model))
     for g in range(n_tok // n_model):        # one batch shard's group
         mine = range(g * n_model, (g + 1) * n_model)
         rx = compat.all_to_all([st[i]["send_x"] for i in mine])
@@ -311,20 +341,44 @@ def _moe_all_to_all(params, x2d, moe: MoEConfig, act: str, pol):
             dropped += d
         by = compat.all_to_all(back)
         for mi, i in enumerate(mine):
-            s = st[i]
             with compat.at(coords[i]):
-                yk = by[mi][s["slot"]] * s["keep"][:, None].to(
-                    by[mi].dtype)
-                y = torch.empty_like(yk)
-                y[s["order"]] = yk
-                ys[i] = (y.reshape(T_l, K, -1) * s["gates"][..., None].to(
-                    y.dtype)).sum(dim=1).to(x2d.dtype)
+                ys[i] = _combine(by[mi], st[i], T_l, K, x2d.dtype)
     aux = compat.psum([load_balance_loss(s["logits"], s["ids"], E)
                        for s in st], home) / n_tok
     counts = compat.psum([_counts(s["ids"].reshape(-1).long(), E)
                           for s in st], home).to(torch.int32)
     return (compat.all_gather(ys, 0, home), aux,
             torch.tensor(float(dropped), device=home), counts)
+
+
+def _psum_cap(T: int, moe: MoEConfig, E_l: int) -> Optional[int]:
+    """The psum body's rows an expert takes when a shard owns more than
+    one (else None): twice a balanced share of the T * K entries."""
+    return _ceil8(-(-(T * moe.top_k) // E_l) * 2) if E_l > 1 else None
+
+
+def _psum_part(x, wr, br, w1, w3, w2, moe: MoEConfig, act: str, me: int,
+               cap_e: Optional[int]):
+    """The psum body on one model shard ``me`` owning the experts of
+    ``w1`` / ``w3`` / ``w2``: route all T tokens of ``x``, run the
+    entries routed to its own experts (at most ``cap_e`` an expert, the
+    rest dropped and counted), and combine them with the gates: (its
+    partial output (T, D), dropped, ids, router logits)."""
+    T = x.shape[0]
+    E_l, K = w1.shape[0], moe.top_k
+    n_model = moe.num_experts // E_l
+    gates, ids, logits = route(wr, x, K, br)
+    flat = ids.reshape(-1).long()
+    owned = (flat // E_l) == me
+    cid = torch.where(owned, flat % E_l, 0)
+    order = torch.argsort(cid + torch.where(owned, 0, E_l), stable=True)
+    gs = host_sizes(_counts(torch.where(owned, cid, E_l), E_l + 1)[:E_l],
+                    T * K // n_model)
+    ys, dropped = _expert_groups(x[order // K], gs, w1, w3, w2, act, cap_e)
+    y = torch.empty_like(ys)
+    y[order] = ys
+    part = (y.reshape(T, K, -1) * gates[..., None].to(y.dtype)).sum(dim=1)
+    return part, dropped, ids, logits
 
 
 def _moe_psum(params, x2d, moe: MoEConfig, act: str, pol):
@@ -335,33 +389,16 @@ def _moe_psum(params, x2d, moe: MoEConfig, act: str, pol):
     order.  The reference repeats this on every batch shard; here it
     runs once."""
     mesh, mdl, n_model = pol.mesh, pol.model_axis, pol.n_model
-    E, K = moe.num_experts, moe.top_k
+    E = moe.num_experts
     E_l = E // n_model
     T, home = x2d.shape[0], x2d.device
-    cap_e = _ceil8(-(-(T * K) // E_l) * 2) if E_l > 1 else None
+    cap_e = _psum_cap(T, moe, E_l)
     wr, br = params["w_router"], params.get("b_router")
-
-    def body(me, dev):
-        x = x2d.to(dev)
-        gates, ids, logits = route(wr.to(dev), x, K,
-                                   None if br is None else br.to(dev))
-        flat = ids.reshape(-1).long()
-        owned = (flat // E_l) == me
-        cid = torch.where(owned, flat % E_l, 0)
-        order = torch.argsort(cid + torch.where(owned, 0, E_l),
-                              stable=True)
-        gs = host_sizes(_counts(torch.where(owned, cid, E_l), E_l + 1)[:E_l],
-                        T * K // n_model)
-        ys, dropped = _expert_groups(
-            x[order // K], gs, *_expert_slice(params, me, E_l, dev), act,
-            cap_e)
-        y = torch.empty_like(ys)
-        y[order] = ys
-        part = (y.reshape(T, K, -1) * gates[..., None].to(y.dtype)
-                ).sum(dim=1)
-        return part, dropped, ids, logits
-
-    parts = compat.shard_map(body, mesh, (mdl,))
+    parts = compat.shard_map(
+        lambda me, dev: _psum_part(
+            x2d.to(dev), wr.to(dev), None if br is None else br.to(dev),
+            *_expert_slice(params, me, E_l, dev), moe, act, me, cap_e),
+        mesh, (mdl,))
     y = compat.psum([p[0] for p in parts], home).to(x2d.dtype)
     dropped = sum(p[1] for p in parts)
     _, _, ids, logits = parts[-1]
@@ -388,6 +425,118 @@ def moe_ffn_sharded(params, x2d: torch.Tensor, moe: MoEConfig,
         y, aux, dropped, counts = _moe_psum(params, x2d, moe, act, pol)
     return y, {"aux_loss": aux, "dropped": dropped,
                "expert_counts": counts}
+
+
+# ---------------------------------------------------------------------------
+# The partitioned layout (distributed/tensor_parallel.py): placed blocks
+# ---------------------------------------------------------------------------
+
+def _moe_tp_all_to_all(run, p: dict, h: dict, moe: MoEConfig, act: str,
+                       T: int):
+    """The all-to-all body on each data shard's own rows: coordinate
+    (b, m) routes token slice m of its data shard's B_l * S rows (token
+    shard b * n_model + m of the global batch, the reference's
+    ``P(batch + (model,))``), the packs go to their expert shards and
+    back by two all-to-alls over the model group, each coordinate runs
+    its own experts' blocks, and an all-gather over the group gives
+    every member its data shard's rows again."""
+    if run.row_axes != run.batch_axes:
+        raise NotImplementedError(
+            f"the partitioned MoE's all-to-all body cuts each data "
+            f"shard's rows into its model group's token slices; a batch "
+            f"split over {run.row_axes} rather than the policy's batch "
+            f"axes {run.batch_axes} is not ported")
+    n_model, E, K = run.n_model, moe.num_experts, moe.top_k
+    n_tok = run.n_batch * n_model
+    T_l = T // n_tok
+    cap, cap_e, n_rows = _all_to_all_caps(T_l, moe, n_model)
+    shape = next(iter(h.values())).shape
+
+    def route_slice(c):
+        j = run.m(c)
+        x = h[c].reshape(-1, shape[-1])[j * T_l:(j + 1) * T_l]
+        return _shard_route(x, p[c]["w_router"], p[c].get("b_router"), moe,
+                            n_model, cap)
+    st = run.each(route_slice)
+
+    def to_shards(blocks):
+        """Coordinate c receives block m(c) (``cap`` rows) of each
+        member's ``blocks[member]``, in model order."""
+        return run.exchange(lambda c, g: [
+            (s, blocks[s][run.m(c) * cap:(run.m(c) + 1) * cap])
+            for s in g], 0)
+    rx = to_shards({c: st[c]["send_x"] for c in run.coords})
+    rid = to_shards({c: st[c]["send_id"] for c in run.coords})
+    done = run.each(lambda c: _shard_experts(
+        rx[c], rid[c], p[c]["w1"], p[c]["w3"], p[c]["w2"], act, cap_e,
+        n_rows))
+    by = to_shards({c: done[c][0] for c in run.coords})
+    ys = run.each(lambda c: _combine(by[c], st[c], T_l, K, h[c].dtype))
+    y = run.exchange(lambda c, g: [(s, ys[s]) for s in g], 0, "all-gather")
+    y = run.each(lambda c: y[c].reshape(shape))
+    aux = run.psum_all(run.each(lambda c: load_balance_loss(
+        st[c]["logits"], st[c]["ids"], E))) / n_tok
+    counts = run.psum_all(run.each(lambda c: _counts(
+        st[c]["ids"].reshape(-1).long(), E))).to(torch.int32)
+    dropped = sum(st[run.rep[d]]["dropped"] + done[run.rep[d]][1]
+                  for d in run.mesh.coords())
+    return y, aux, dropped, counts
+
+
+def _moe_tp_psum(run, p: dict, h: dict, moe: MoEConfig, act: str,
+                 T: int):
+    """The psum body, as the reference's: every coordinate gathers the
+    whole batch's T rows over the batch axes, computes its own experts'
+    entries over all T (``cap_e`` from the global T), the model group
+    sums the partials of the coordinate's rows in model order (one
+    all-reduce), and each keeps its rows.  Every data shard repeats the
+    routing, so the metrics are the first model group's: the home
+    coordinate's ``aux`` and counts (every coordinate routes the same
+    tokens alike), and the drops of its group's expert shards."""
+    shape = next(iter(h.values())).shape
+    D, E = shape[-1], moe.num_experts
+    E_l = E // run.n_model
+    cap_e = _psum_cap(T, moe, E_l)
+    xs = run.gather_rows(run.each(lambda c: h[c].reshape(-1, D)))
+    parts = run.each(lambda c: _psum_part(
+        xs[c], p[c]["w_router"], p[c].get("b_router"), p[c]["w1"],
+        p[c]["w3"], p[c]["w2"], moe, act, run.m(c), cap_e))
+    n = shape[0] * shape[1]
+    mine = run.each(lambda c: parts[c][0][
+        run.mesh.axis_index(c, run.row_axes) * n:][:n])
+    y = run.all_reduce(mine)
+    y = run.each(lambda c: y[c].to(h[c].dtype).reshape(shape))
+    _, _, ids, logits = parts[run.coords[0]]
+    aux = load_balance_loss(logits, ids, E)
+    counts = _counts(ids.reshape(-1).long(), E).to(torch.int32)
+    dropped = sum(parts[c][1] for c in run.groups[0])
+    return y, aux, dropped, counts
+
+
+def moe_ffn_tp(run, cfg: ModelConfig, p: dict, sh, h: dict):
+    """:func:`moe_ffn` of the partitioned layout: ``h[c]`` coordinate
+    c's rows (B_l, S, D), ``p[c]`` its blocks of the layer's MoE params
+    (``w1`` / ``w3`` / ``w2`` its own E / n_model whole experts, the
+    router replicated, a shared FFN's MLP columns), ``sh`` their
+    shardings.  The all-to-all body when the global T = B * S splits
+    evenly into batch x model token shards of at least 8 tokens, else
+    the psum body (the reference's test, with the caps of
+    :func:`moe_ffn_sharded`, which drop the same entries).  Returns
+    ``({c: (B_l, S, D)}, metrics)``, the metrics on the mesh's home
+    device: ``aux_loss`` averaged over the token shards, ``dropped`` and
+    ``expert_counts`` summed, as the home layout's."""
+    moe = cfg.moe
+    T = run.B * next(iter(h.values())).shape[1]
+    n_tok = run.n_batch * run.n_model
+    body = (_moe_tp_all_to_all if T % n_tok == 0 and T // n_tok >= 8
+            else _moe_tp_psum)
+    y, aux, dropped, counts = body(run, p, h, moe, cfg.ffn_act, T)
+    if moe.num_shared:
+        shared = ffn_tp(run, {c: p[c]["shared"] for c in run.coords},
+                        sh["shared"]["w_down"], h, cfg.ffn_act)
+        y = run.each(lambda c: y[c] + shared[c])
+    return y, {"aux_loss": aux, "dropped": torch.tensor(
+        float(dropped), device=run.mesh.home), "expert_counts": counts}
 
 
 def moe_ffn(params, x: torch.Tensor, cfg: ModelConfig,

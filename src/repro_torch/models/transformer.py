@@ -27,13 +27,15 @@ as the reference's, so a step covers S_media + S_text positions from
 cover every position, the media rows included.
 
 Partitioned (the tensor-parallel layout, ``distributed/\
-tensor_parallel.py``): a stack of GQA layers with dense FFNs served under
-a policy with rules runs :func:`layer_forward_tp` per layer over
-``{coordinate: rows}``, the embedding vocab-parallel, attention
-column-parallel in q and row-parallel in ``wo``, the FFN column- then
+tensor_parallel.py``): a stack of GQA layers with dense or MoE FFNs
+served under a policy with rules runs :func:`layer_forward_tp` per layer
+over ``{coordinate: rows}``, the embedding vocab-parallel, attention
+column-parallel in q and row-parallel in ``wo``, a dense FFN column- then
 row-parallel, the unembedding split over the vocab, one all-reduce over
-the model axis after each row-parallel product; the cache is written by
-its placed blocks.
+the model axis after each row-parallel product; a MoE FFN runs the
+expert-parallel body on each data shard's own rows and the coordinate's
+placed expert blocks (``models/moe.py::moe_ffn_tp``); the cache is
+written by its placed blocks.
 
 Metrics, as the reference's: ``aux_loss`` and ``dropped`` summed over
 the layers, and for a config with ``moe`` set ``expert_counts`` of shape
@@ -84,7 +86,7 @@ from .config import LayerSpec, ModelConfig
 from .layers import embed, embed_tp, ffn, ffn_tp, init_embedding, \
     init_ffn, init_rmsnorm, init_unembed, rmsnorm, softcap, unembed, \
     unembed_tp
-from .moe import init_moe, moe_ffn
+from .moe import init_moe, moe_ffn, moe_ffn_tp
 from .params import Initializer, ParamTree, index_tree, stack_draws, \
     stack_pspecs, unbind_tree
 from .ssd import init_mamba, init_mamba_cache, mamba_decode, mamba_forward
@@ -384,14 +386,17 @@ def _check_step(cache, start: int, S: int, mamba: bool) -> None:
 
 
 def layer_forward_tp(run, cfg: ModelConfig, spec: LayerSpec, key: str,
-                     i: int, x: dict, start: int, cap: int) -> dict:
+                     i: int, x: dict, start: int, cap: int):
     """One layer of the partitioned layout (``distributed/\
 tensor_parallel.py``): stacked position ``key``, period ``i``, over
     ``x = {c: (B_l, S, D)}`` and the placed cache's blocks, written in
     place.  The norms, RoPE, softcaps and residual adds are elementwise
     and run on each coordinate's rows; attention is
-    ``attention.gqa_forward_tp`` and the FFN ``layers.ffn_tp``, one
-    all-reduce over the model group each."""
+    ``attention.gqa_forward_tp``, one all-reduce over the model group;
+    a dense FFN ``layers.ffn_tp``, one all-reduce; a MoE FFN
+    ``moe.moe_ffn_tp`` on placed expert blocks.  Returns ``(x,
+    metrics)``, the metrics as :func:`layer_forward`'s (a dense layer's
+    host zeros)."""
     p = run.each(lambda c: index_tree(run.params[c]["blocks"][key], i))
     kv = run.each(lambda c: index_tree(run.cache[c]["blocks"][key], i)["kv"])
     sh = run.param_sh["blocks"][key]
@@ -412,15 +417,25 @@ tensor_parallel.py``): stacked position ``key``, period ``i``, over
         kv_sh=run.cache_sh["blocks"][key]["kv"],
         pos_at=lambda c: run.cache_block(f"blocks/{key}/kv/pos", c)[i],
         cap=cap), "attn_norm", post("attn_post_norm"), add)
-    return _sublayer(x, norm, lambda h: ffn_tp(
-        run, {c: p[c]["ffn"] for c in run.coords}, sh["ffn"]["w_down"], h,
-        cfg.ffn_act), "ffn_norm", post("ffn_post_norm"), add)
+    metrics = {"aux_loss": 0.0, "dropped": 0.0}
+    fp = {c: p[c]["ffn"] for c in run.coords}
+
+    def feed(h):
+        nonlocal metrics
+        if spec.ffn == "moe":
+            f, metrics = moe_ffn_tp(run, cfg, fp, sh["ffn"], h)
+            return f
+        return ffn_tp(run, fp, sh["ffn"]["w_down"], h, cfg.ffn_act)
+    x = _sublayer(x, norm, feed, "ffn_norm", post("ffn_post_norm"), add)
+    return x, metrics
 
 
 def _lm_forward_tp(params, cfg: ModelConfig, tokens, start: int, cache,
                    media_embeds, policy):
     """:func:`lm_forward` of the tensor-parallel layout: the logits as a
-    ``compat.Sharded`` split over the batch rows and the vocab."""
+    ``compat.Sharded`` split over the batch rows and the vocab, and the
+    metrics as :func:`lm_forward` sums them, on the mesh's home
+    device."""
     B = tokens.shape[0]
     S = tokens.shape[1] + (media_embeds.shape[1] if media_embeds is not None
                            else 0)
@@ -435,10 +450,21 @@ def _lm_forward_tp(params, cfg: ModelConfig, tokens, start: int, cache,
         media = run.split_rows(media_embeds)
         x = run.each(lambda c: torch.cat([media[c].to(x[c].dtype), x[c]],
                                          dim=1))
+    aux, dropped, counts = 0.0, 0.0, []
     for i in range(cfg.n_periods):
+        period = None
         for pos, spec in enumerate(cfg.pattern):
-            x = layer_forward_tp(run, cfg, spec, f"pos{pos}", i, x, start,
-                                 cap)
+            x, m = layer_forward_tp(run, cfg, spec, f"pos{pos}", i, x,
+                                    start, cap)
+            aux = aux + m["aux_loss"]
+            dropped = dropped + m["dropped"]
+            if "expert_counts" in m:
+                period = (m["expert_counts"] if period is None
+                          else period + m["expert_counts"])
+        if cfg.moe is not None:
+            counts.append(period if period is not None else torch.zeros(
+                cfg.moe.num_experts, dtype=torch.int32,
+                device=run.mesh.home))
     x = run.each(lambda c: rmsnorm(run.params[c]["final_norm"], x[c],
                                    cfg.rms_eps))
     tied = cfg.tie_embeddings
@@ -450,7 +476,12 @@ def _lm_forward_tp(params, cfg: ModelConfig, tokens, start: int, cache,
                               for c in run.coords}, x, cfg, tied)
     split = len(wsh.spec) > vdim and wsh.spec[vdim] is not None
     cache["filled"] = max(cache["filled"], start + S)
-    return run.assemble(logits, 2, split), cache
+    logits = run.assemble(logits, 2, split)
+    if cfg.moe is None:                 # a dense stack: one zero for both
+        zero = torch.zeros((), dtype=torch.float32, device=run.mesh.home)
+        return logits, cache, {"aux_loss": zero, "dropped": zero}
+    return logits, cache, {"aux_loss": aux, "dropped": dropped,
+                           "expert_counts": torch.stack(counts)}
 
 
 def lm_forward(params, cfg: ModelConfig, tokens: torch.Tensor,
@@ -477,11 +508,14 @@ def lm_forward(params, cfg: ModelConfig, tokens: torch.Tensor,
     is threaded to every layer for the mesh branches; the reference's
     activation constraints stand at the same points (``constrain``,
     which places nothing).  A policy with rules over a stack that
-    ``sharding.dense_layout`` calls ``"tensor_parallel"`` runs prefill
-    and decode partitioned instead (:func:`layer_forward_tp` a layer, on
-    params and a cache placed by the rules): every coordinate its batch
-    rows, query heads, MLP columns and vocab rows, the logits returned
-    as a ``compat.Sharded`` over (rows, vocab) and the metrics zeros;
+    ``sharding.dense_layout`` calls ``"tensor_parallel"`` (GQA layers
+    with dense or MoE FFNs) runs prefill and decode partitioned instead
+    (:func:`layer_forward_tp` a layer, on params and a cache placed by
+    the rules): every coordinate its batch rows, query heads, MLP
+    columns, experts and vocab rows, the logits returned as a
+    ``compat.Sharded`` over (rows, vocab) and the metrics the home
+    layout's, on the mesh's home device (``hot_experts`` is not taken
+    there, as the reference takes no hot-expert branch under a mesh);
     without a cache that layout raises (training's dense layers are not
     partitioned).  Returns (logits, cache, metrics); the cache is written
     in place and returned."""
@@ -492,11 +526,8 @@ def lm_forward(params, cfg: ModelConfig, tokens: torch.Tensor,
                 "the tensor-parallel layout partitions prefill and decode "
                 "(a cache); training's dense half is not ported: run it "
                 "with a policy without rules")
-        logits, cache = _lm_forward_tp(params, cfg, tokens, start, cache,
-                                       media_embeds, policy)
-        zero = torch.zeros((), dtype=torch.float32,
-                           device=logits.shards[0].device)
-        return logits, cache, {"aux_loss": zero, "dropped": zero}
+        return _lm_forward_tp(params, cfg, tokens, start, cache,
+                              media_embeds, policy)
     S = tokens.shape[1] + (media_embeds.shape[1] if media_embeds is not None
                            else 0)
     mamba, enc_len, cross = [], None, _cross_position(cfg)

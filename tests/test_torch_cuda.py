@@ -1935,6 +1935,69 @@ def test_mesh_serving_runtime_specialized_equals_generic_on_the_card(cuda):
         rt.close()
 
 
+@pytest.mark.cuda
+def test_partitioned_moe_stack_on_the_card_is_call_equal(cuda):
+    """phi3.5-MoE smoke in f32 partitioned by the serving rules over a
+    (data 2, model 2) mesh of cuda:0 (the expert body on each data
+    shard's tokens and placed expert blocks): a prefill of 4 x 40 (the
+    all-to-all body) and two decode steps (the psum body), twice, equal
+    bit for bit, metrics included; ``flash_attention`` launched on every
+    coordinate; the logits within 1e-4 of the same partitioned run on
+    the CPU, and the same drops."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.meshctx import MeshPolicy, use_policy
+    from repro_torch.distributed.sharding import make_rules, place_cache, \
+        place_params
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models.model import Model
+    cfg = get_config("phi3.5-moe-42b-a6.6b").smoke()
+    cfg = cfg.replace(moe=dataclasses.replace(cfg.moe, capacity_factor=4.0))
+    model = Model(cfg)
+    tok = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab, (4, 40)).astype(np.int32))
+
+    def run(dev):
+        pol = MeshPolicy(mesh=make_debug_mesh(2, 2, device=dev),
+                         rules=make_rules(False, fsdp=False))
+        params = place_params(_f32_tree(model.init(0, "cpu")), pol.mesh,
+                              pol.rules)
+        cache = place_cache(_f32_tree(model.init_cache(4, 48, dev)),
+                            pol.mesh, pol.rules)
+        out = []
+        with use_policy(pol):
+            logits, cache, m = model.prefill(params, cache,
+                                             {"tokens": tok.to(dev)},
+                                             with_metrics=True)
+            out.append((logits.gather("cpu"), m))
+            for j in range(2):
+                logits, cache, m = model.decode_step(
+                    params, cache, tok[:, j:j + 1].to(dev), 40 + j,
+                    with_metrics=True)
+                out.append((logits.gather("cpu"), m))
+        return out
+
+    before = ops.launches().get("flash_attention", 0)
+    first = run("cuda")
+    assert ops.launches()["flash_attention"] > before + 4 * cfg.n_layers
+    again, host = run("cuda"), run("cpu")
+    for (a, am), (b, bm), (h, hm) in zip(first, again, host):
+        assert torch.equal(a, b)
+        assert all(torch.equal(am[k], bm[k]) for k in am)
+        err = (a - h).abs().max() / h.abs().max()
+        assert err <= 1e-4, err
+        assert float(am["dropped"]) == float(hm["dropped"]) == 0.0
+
+
+def _f32_tree(tree):
+    """A params or cache tree with its bf16 leaves cast to f32."""
+    from repro_torch.models.params import flat_tree, unflat_tree
+    out = {k: v.float() if isinstance(v, torch.Tensor)
+           and v.dtype == torch.bfloat16 else v
+           for k, v in flat_tree(tree).items()}
+    return unflat_tree(out)
+
+
 # ---------------------------------------------------------------------------
 # training on a mesh of one card (ZeRO-sliced state, resized restores)
 # ---------------------------------------------------------------------------

@@ -13,7 +13,9 @@ and ``launch/op_analysis.py``) against the reference's
 - a step recorded on ``meta`` counts exactly what the same step counts
   on CPU tensors (train, prefill and decode of llama3-8b and mamba2-1.3b
   at smoke scale; phi3.5-MoE on a (2, 2) mesh: equal FLOPs, and no fewer
-  bytes on ``meta``, whose balanced router touches every expert);
+  bytes on ``meta``, whose balanced router touches every expert; and
+  partitioned by the rules, where one traced model group counts what a
+  full dispatch counts at every coordinate);
 - full-width cells on the production ``meta`` mesh, and the CLI.
 
 Every comparison of counts is exact (integers, or sums of integers held
@@ -341,6 +343,59 @@ def test_moe_on_a_mesh_meta_against_the_host():
     assert out["meta"]["per_collective"]["all-to-all"] > 0
 
 
+@pytest.mark.parametrize("kind", ["prefill", "decode"])
+def test_moe_on_a_mesh_meta_against_the_host_under_rules(kind, monkeypatch):
+    """The same phi3.5-MoE smoke step partitioned by the rules on a (2, 2)
+    mesh (the all-to-all body at prefill, the psum body at decode):
+    traced on ``meta`` with one model group standing for every row shard
+    and with every coordinate dispatched, every coordinate's counts and
+    every kernel's are equal; and against the host's run, the same FLOPs
+    over the mesh (capacity factor 4: nothing dropped, and the balanced
+    router fills no shard past its capacity), no fewer bytes, the same
+    kernel work, and the body's collectives counted."""
+    from repro_torch.distributed import tensor_parallel
+    from repro_torch.distributed.sharding import (make_rules, place_cache,
+                                                  place_params)
+    cfg = get_config("phi3.5-moe-42b-a6.6b").smoke()
+    cfg = cfg.replace(moe=dataclasses.replace(cfg.moe, capacity_factor=4.0))
+    model = Model(cfg)
+    rules = make_rules(False, fsdp=False)
+
+    def counts(dev, classes=True):
+        monkeypatch.setattr(tensor_parallel, "CLASS_DISPATCH", classes)
+        mesh = make_debug_mesh(2, 2, device=dev)
+        pol = MeshPolicy(mesh=mesh, rules=rules)
+        params = model.init(0, dev) if dev != "meta" else model.init(
+            device="meta")
+        params = place_params(params, mesh, rules)
+        cache = place_cache(model.init_cache(B, 2 * S, device=dev), mesh,
+                            rules)
+        tok = _batch(cfg, dev, kind)["tokens"]
+        if kind == "prefill":
+            step = lambda: make_prefill_step(model)(params, cache,
+                                                    {"tokens": tok})
+        else:
+            cache["filled"] = S
+            step = lambda: make_decode_step(model)(params, cache,
+                                                   tok[:, :1], S)
+        return _counts(step, mesh, pol)
+
+    host, full, classes = counts("cpu"), counts("meta", False), \
+        counts("meta")
+    assert len(full["per_coordinate"]) == 4
+    assert classes["per_coordinate"] == full["per_coordinate"]
+    assert classes["kernels"] == full["kernels"] == host["kernels"]
+    tot = lambda a, k: sum(p[k] for p in a["per_coordinate"].values())
+    assert tot(full, "flops") == tot(host, "flops")
+    assert tot(full, "hbm_bytes") >= tot(host, "hbm_bytes")
+    coll = full["per_coordinate"]["1,1"]["per_collective"]
+    assert coll == host["per_coordinate"]["1,1"]["per_collective"]
+    if kind == "prefill":
+        assert coll["all-to-all"] > 0 and coll["all-gather"] > 0
+    else:       # the rows gathered over the data axis
+        assert coll["all-gather"] > 0 and coll["all-to-all"] > 0
+
+
 # ---------------------------------------------------------------------------
 # full-width cells on the production meta mesh
 # ---------------------------------------------------------------------------
@@ -350,6 +405,7 @@ def test_moe_on_a_mesh_meta_against_the_host():
     ("llama3-8b", "prefill_32k"),
     ("gemma2-9b", "prefill_32k"),
     ("gemma2-9b", "decode_32k"),
+    ("phi3.5-moe-42b-a6.6b", "prefill_32k"),
     ("mamba2-1.3b", "long_500k"),
     ("jamba-v0.1-52b", "prefill_32k"),
     ("mamba2-1.3b", "train_4k"),
@@ -362,7 +418,7 @@ def test_full_width_cell_on_the_production_mesh(arch, shape):
                  if cfg.pattern[i % len(cfg.pattern)].kind == "attn")
     n_ssm = cfg.n_layers - n_attn
     kern = rec["kernels"]
-    tp = arch in ("llama3-8b", "gemma2-9b")
+    tp = arch in ("llama3-8b", "gemma2-9b", "phi3.5-moe-42b-a6.6b")
     assert rec["layout"] == ("tensor_parallel" if tp else "home")
     B, cap, _ = cache_dims(cfg, SHAPES[shape])
     windows = [cfg.pattern[i % len(cfg.pattern)].window
@@ -380,6 +436,7 @@ def test_full_width_cell_on_the_production_mesh(arch, shape):
         assert kern == {"flash_attention": kern["flash_attention"]}
         assert kern["flash_attention"]["calls"] == n_attn * 256
         # wo and w_down row-parallel; new k / v from heads to sequence
+        # (and a MoE layer's packs to their expert shards and back)
         assert rec["per_collective"]["all-reduce"] > 0
         assert rec["per_collective"]["all-to-all"] > 0
         assert rec["useful_flop_ratio"] >= 0.3
