@@ -267,6 +267,23 @@
    layers are held over the tokens both route alike (at most
    ``FLIP_MAX`` may not, and none may be dropped); it prints the drops
    of the main path and the experts each layer used.
+13e. Mesh-SSM phase (``[mesh-ssm]``): ``MESH_SSM``, the same two runs
+   and checks over the same mesh and rules for mamba2-1.3b whole (48
+   layers, bf16, B 4 x 4096 prefill and 32 greedy decode steps) and
+   jamba's first period (layers 0-7, capacity factor 2, B 2 x 4096 and
+   32 steps): each coordinate takes half the SSM heads, its blocks of
+   ``in_proj``'s columns and of the conv channels, which the two
+   exchanges over the model group carry to the heads; ``ssd_scan`` on
+   its heads at prefill.  Each coordinate's ``ssd_scan`` call of layer
+   0's prefill is held to ``ssd_scan_ref`` on the same tensors and one
+   is timed against its bound at the coordinate's shape; the call ==
+   call check holds the Mamba states too; each layer is held within
+   ``MESH_LAYER_TOL`` or its own bf16 noise.  The jamba cut then decodes
+   8 greedy steps at B 1 from the one device's 1 x 4096 prefill, its
+   cache placed: the KV slots split over (data, model) into 4 blocks,
+   and the partials cross the model groups; its KV-shard calls and
+   layers are held the same ways.  The mesh's ``ssd_scan`` and
+   ``flash_attention`` launches join the kernels line.
 14. Train-kernel phase (``[train-kernel]``): ``flash_attention_bwd``
    (``csrc/flash_attention_bwd.cu``) against the plain backward
    (autograd through ``flash_attention_ref``) on ``BWD_SHAPES``: the
@@ -3894,24 +3911,52 @@ def _last_row(torch, logits):
                    logits.grid).gather(logits.shards[0].device)
 
 
-def mesh_tp_phase(torch, ops, smi, d) -> int:
-    """``[mesh-dense]`` (MESH_DENSE) and ``[mesh-moe]`` (MESH_MOE): the
-    model on one device, then partitioned over the mesh by the
-    reference's serving rules (params placed leaf by leaf, so no second
-    whole copy is held): a prefill of B x S and greedy decode steps
-    each, timed (the mesh's the main path: ``flash_attention`` on every
-    coordinate's heads at prefill and once per KV shard at decode; a MoE
-    layer's expert body on each data shard's own tokens and the
-    coordinate's placed experts).  The mesh's last decode step's KV-shard
-    calls are held to ``flash_attention_ref``
-    (``seq_parallel_decode_check``); a second mesh prefill and two decode
-    steps must give the first's bits (a MoE stack's ``expert_counts`` and
-    ``dropped`` too); each layer is held to the same layer on one
-    device, teacher-forced over fresh caches, within ``MESH_LAYER_TOL``
-    (a MoE layer over the tokens both route alike: at most ``FLIP_MAX``
-    may not, and neither may drop); the final logits' normwise distance
-    is printed (gemma2 is not chaotic in depth; random-weight phi3.5 is).
-    Returns the main path's ``flash_attention`` launches."""
+# mamba2-1.3b whole (48 layers, 1.344 B, bf16) and jamba's first period
+# (layers 0-7: attention at 2, Mamba elsewhere, MoE on the odd layers;
+# ~13 B params) at capacity factor 2, partitioned the same way: on the
+# (data 2, model 2) mesh each coordinate takes half the SSM heads (32 of
+# 64; 64 of 128), in_proj's columns in blocks of 4,256 (8,384), which
+# do not line up with the heads (mamba2's block 0 holds z and x's first
+# 160 channels), conv blocks of 2,176 (4,224), and jamba's attention,
+# dense and MoE layers as [mesh-dense] and [mesh-moe] run them.  The
+# jamba cut also decodes ``b1`` greedy steps at B 1 from the one
+# device's 1 x prompt prefill, its cache placed: the KV cache's slots
+# then split over (data, model), 4 blocks, whose partials cross the
+# model groups.  Each layer is held within MESH_LAYER_TOL or its own
+# bf16 noise, as MESH_MOE's
+MESH_SSM = (dict(arch="mamba2-1.3b", batch=4, prompt=4096, decode=32,
+                 seed=0, tag="mesh-ssm", noise=True),
+            dict(arch="jamba-v0.1-52b", layers=8, batch=2, prompt=4096,
+                 decode=32, seed=0, capacity=2.0, tag="mesh-ssm",
+                 noise=True, b1=8))
+
+
+def mesh_tp_phase(torch, ops, smi, d) -> dict:
+    """``[mesh-dense]`` (MESH_DENSE), ``[mesh-moe]`` (MESH_MOE) and
+    ``[mesh-ssm]`` (MESH_SSM): the model on one device, then partitioned
+    over the mesh by the reference's serving rules (params placed leaf by
+    leaf, so no second whole copy is held): a prefill of B x S and greedy
+    decode steps each, timed (the mesh's the main path:
+    ``flash_attention`` on every coordinate's heads at prefill and once
+    per KV shard at decode; a MoE layer's expert body on each data
+    shard's own tokens and the coordinate's placed experts; a Mamba
+    layer's ``ssd_scan`` on the coordinate's heads at prefill).  The
+    mesh's last decode step's KV-shard calls are held to
+    ``flash_attention_ref`` (``seq_parallel_decode_check``), and each
+    coordinate's ``ssd_scan`` call of layer 0's prefill to
+    ``ssd_scan_ref`` (one of them timed against its bound); a second
+    mesh prefill and two decode steps must give the first's bits (a MoE
+    stack's ``expert_counts`` and ``dropped``, and the Mamba states,
+    too); each layer is held to the same layer on one device,
+    teacher-forced over fresh caches, within ``MESH_LAYER_TOL`` (a MoE
+    layer over the tokens both route alike: at most ``FLIP_MAX`` may
+    not, and neither may drop), or its own bf16 noise where the spec
+    asks; the final logits' normwise distance is printed (gemma2 is not
+    chaotic in depth; random-weight phi3.5 and jamba are).  A spec's
+    ``b1`` adds that many greedy decode steps at B 1 from the one
+    device's 1 x S prefill, its cache placed (the KV slots over (data,
+    model)), held the same ways.  Returns the main path's
+    ``flash_attention`` and ``ssd_scan`` launches."""
     import dataclasses
     from repro_torch.configs import get_config
     from repro_torch.distributed.compat import Sharded
@@ -3919,10 +3964,13 @@ def mesh_tp_phase(torch, ops, smi, d) -> int:
     from repro_torch.distributed.sharding import make_rules, place_cache, \
         place_params
     from repro_torch.distributed.tensor_parallel import TPRun
+    from repro_torch.kernels.ref import ssd_scan_ref
+    from repro_torch.kernels.ssd_scan import ssd_scan_cuda
     from repro_torch.launch.mesh import make_debug_mesh
     from repro_torch.models.layers import embed
     from repro_torch.models.model import Model, greedy
-    from repro_torch.models.params import flat_tree, unflat_tree
+    from repro_torch.models.params import flat_tree, index_tree, \
+        unflat_tree
     from repro_torch.models.transformer import init_layer_cache, \
         layer_forward, layer_forward_tp
 
@@ -3933,9 +3981,13 @@ def mesh_tp_phase(torch, ops, smi, d) -> int:
             cfg.moe, capacity_factor=d["capacity"]))
     model = Model(cfg)
     B, S, N = d["batch"], d["prompt"], d["decode"]
+    N1 = d.get("b1", 0)
     cap = S + N
     tag = f"[{d['tag']}] {cfg.name}"
     moe = cfg.moe is not None
+    attn = any(sp.kind == "attn" for sp in cfg.pattern)
+    ssm = any(sp.kind == "mamba" for sp in cfg.pattern)
+    names = ("flash_attention", "ssd_scan")
     pol = MeshPolicy(mesh=make_debug_mesh(2, 2, device="cuda"),
                      rules=make_rules(False, fsdp=False))
     params = model.init(d["seed"], device="cuda")
@@ -3947,35 +3999,39 @@ def mesh_tp_phase(torch, ops, smi, d) -> int:
     print(f"{tag}: {cfg.n_layers} layers{cut} at every published width, "
           f"bf16, B {B} x {S} prefill + {N} greedy decode steps"
           + (f", MoE capacity factor {d['capacity']}" if moe else "")
+          + (f", then {N1} greedy steps at B 1 from a 1 x {S} prefill"
+             if N1 else "")
           + f", on one device and partitioned over {pol.mesh} "
           f"(tensor_parallel layout)")
 
-    def serve(p, cache, pol, steps, capture=False, keep=False):
-        """prefill + ``steps`` greedy decode steps: (prefill ms, decode
-        ms by step, tokens fed, last-row logits of the prefill and of
-        each step, the prefill's logits where ``keep``, each call's
-        metrics of a MoE stack); ``capture`` keeps the last step's
-        KV-shard calls."""
-        rows, toks, times, mets = [], [], [], []
+    real_fa, shard_calls = ops.flash_attention, []
+    real_ssd, ssd_calls = ops.ssd_scan, []
+
+    def keep_shard_call(q, k, v, **kw):
+        if kw.get("return_lse"):
+            shard_calls.append((q.clone(), k.clone(), v.clone(), kw))
+        return real_fa(q, k, v, **kw)
+
+    def keep_ssd_call(x, dt, A, Bm, Cm, **kw):
+        # layer 0's calls, one a coordinate, on the main path's own
+        # (strided) tensors, which nothing writes afterwards
+        if len(ssd_calls) < pol.mesh.size:
+            ssd_calls.append(((x, dt, A, Bm, Cm), dict(kw)))
+        return real_ssd(x, dt, A, Bm, Cm, **kw)
+
+    def decode(p, cache, pol, tok, start, steps, capture=False):
+        """``steps`` greedy decode steps from ``tok`` at ``start``: (ms
+        by step, tokens fed, last-row logits of each step, each step's
+        metrics); ``capture`` keeps the last step's KV-shard calls."""
+        toks, times, rows, mets = [], [], [], []
         with use_policy(pol):
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            logits, cache, m = model.prefill(p, cache, {"tokens": prompt},
-                                             with_metrics=True)
-            tok = greedy(logits)
-            torch.cuda.synchronize()
-            pre = (time.perf_counter() - t) * 1e3
-            rows.append(_last_row(torch, logits).float())
-            mets.append(m)
-            kept = logits if keep else None
-            del logits
             for j in range(steps):
                 toks.append(tok)
                 if capture and j == steps - 1:
                     ops.flash_attention = keep_shard_call
                 torch.cuda.synchronize()
                 t = time.perf_counter()
-                logits, cache, m = model.decode_step(p, cache, tok, S + j,
+                logits, cache, m = model.decode_step(p, cache, tok, start + j,
                                                      with_metrics=True)
                 tok = greedy(logits)
                 torch.cuda.synchronize()
@@ -3983,14 +4039,34 @@ def mesh_tp_phase(torch, ops, smi, d) -> int:
                 rows.append(_last_row(torch, logits).float())
                 mets.append(m)
                 del logits
-        return pre, times, toks, rows, kept, mets
+        return times, toks, rows, mets
 
-    real_fa, shard_calls = ops.flash_attention, []
-
-    def keep_shard_call(q, k, v, **kw):
-        if kw.get("return_lse"):
-            shard_calls.append((q.clone(), k.clone(), v.clone(), kw))
-        return real_fa(q, k, v, **kw)
+    def serve(p, cache, pol, steps, capture=False, keep=False,
+              ssd=False):
+        """prefill + ``steps`` greedy decode steps: (prefill ms, decode
+        ms by step, tokens fed, last-row logits of the prefill and of
+        each step, the prefill's logits where ``keep``, each call's
+        metrics); ``capture`` keeps the last step's KV-shard calls,
+        ``ssd`` the prefill's first ``ssd_scan`` calls."""
+        with use_policy(pol):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            if ssd:
+                ops.ssd_scan = keep_ssd_call
+            try:
+                logits, cache, m = model.prefill(p, cache, {"tokens": prompt},
+                                                 with_metrics=True)
+            finally:
+                ops.ssd_scan = real_ssd
+            tok = greedy(logits)
+            torch.cuda.synchronize()
+            pre = (time.perf_counter() - t) * 1e3
+            row = _last_row(torch, logits).float()
+            kept = logits if keep else None
+            del logits
+        times, toks, rows, mets = decode(p, cache, pol, tok, S, steps,
+                                         capture)
+        return pre, times, toks, [row] + rows, kept, [m] + mets
 
     # one device, the whole params; a second prefill, warm
     torch.cuda.reset_peak_memory_stats()
@@ -4002,6 +4078,23 @@ def mesh_tp_phase(torch, ops, smi, d) -> int:
     peak1 = torch.cuda.max_memory_allocated() / 2**30
     gc.collect()
     torch.cuda.empty_cache()
+    if N1:
+        # B 1 on one device: a 1 x S prefill, its cache kept for the mesh
+        with use_policy(None):
+            c1 = model.init_cache(1, cap, device="cuda")
+            lg1, c1 = model.prefill(params, c1, {"tokens": prompt[:1]})
+        tok1 = greedy(lg1)
+        pre_row1 = _last_row(torch, lg1).float()
+        del lg1
+        kept1 = flat_tree(c1)
+        b1_cache = unflat_tree({k: v.clone() if torch.is_tensor(v) else v
+                                for k, v in kept1.items()})
+        torch.cuda.reset_peak_memory_stats()
+        b1_one = decode(params, c1, None, tok1, S, N1)
+        b1_peak1 = torch.cuda.max_memory_allocated() / 2**30
+        del c1, kept1
+        gc.collect()
+        torch.cuda.empty_cache()
 
     # the mesh: params placed leaf by leaf, each whole leaf dropped
     torch.cuda.reset_peak_memory_stats()
@@ -4017,15 +4110,18 @@ def mesh_tp_phase(torch, ops, smi, d) -> int:
         cache = place_cache(model.init_cache(B, cap, device="cuda"),
                             pol.mesh, pol.rules)
         pre_m, steps_m, toks_m, rows_m, _, mets_m = serve(
-            placed, cache, pol, N, capture=True)
+            placed, cache, pol, N, capture=attn, ssd=ssm)
     finally:
         ops.flash_attention = real_fa
-    served = ops.launches().get("flash_attention", 0)
+    served = {k: ops.launches().get(k, 0) for k in names}
     peak_m = torch.cuda.max_memory_allocated() / 2**30
     del cache
     check(all(bool(torch.isfinite(r).all()) for r in rows_m),
           f"{tag}: non-finite logits on the mesh")
-    check(served > 0, f"{tag}: flash_attention never launched on the mesh")
+    check(served["flash_attention"] > 0 or not attn,
+          f"{tag}: flash_attention never launched on the mesh")
+    check(served["ssd_scan"] > 0 or not ssm,
+          f"{tag}: ssd_scan never launched on the mesh")
     same_toks = sum(int(torch.equal(a, b)) for a, b in zip(toks1, toks_m))
 
     def dist(a, b):
@@ -4038,17 +4134,19 @@ def mesh_tp_phase(torch, ops, smi, d) -> int:
           f"{statistics.median(steps_m):.3f}, one device "
           f"{statistics.median(steps1):.3f}; peak GiB mesh {peak_m:.2f} "
           f"(placing the params {place_s:.1f} s), one device {peak1:.2f}; "
-          f"flash_attention launches on the mesh {served} on {smi}")
+          f"launches on the mesh {served} on {smi}")
     if moe:
         counts = mets_m[0]["expert_counts"]
+        n_moe = sum(sp.ffn == "moe" for sp in cfg.pattern)
         check(counts.shape == (cfg.n_periods, cfg.moe.num_experts)
-              and bool((counts.sum(1) == B * S * cfg.moe.top_k).all()),
+              and bool((counts.sum(1) == n_moe * B * S * cfg.moe.top_k)
+                       .all()),
               f"{tag}: the prefill's expert_counts {tuple(counts.shape)} "
               f"do not count every routed entry")
         print(f"{tag}: mesh dropped {float(mets_m[0]['dropped']):.0f} "
               f"entries at the prefill (all-to-all body) and "
               f"{sum(float(m['dropped']) for m in mets_m[1:]):.0f} over "
-              f"the {N} decode steps (psum body); experts used per layer "
+              f"the {N} decode steps (psum body); experts used per period "
               f"at the prefill {(counts > 0).sum(1).tolist()}")
     print(f"{tag}: greedy tokens equal to one device's at {same_toks} of "
           f"{N} steps (the first {agree} in a row); logits vs one "
@@ -4056,35 +4154,103 @@ def mesh_tp_phase(torch, ops, smi, d) -> int:
           f"{dist(rows_m[0], rows1[0]):.3e}, the last step fed the same "
           f"tokens ({agree} decode steps in) "
           f"{dist(rows_m[agree], rows1[agree]):.3e}")
-    check(bool(shard_calls), f"{tag}: the decode made no return_lse call")
-    seq_parallel_decode_check(torch, tag, real_fa, shard_calls)
-    del shard_calls
+    if attn:
+        check(bool(shard_calls),
+              f"{tag}: the decode made no return_lse call")
+        seq_parallel_decode_check(torch, tag, real_fa, shard_calls)
+    shard_calls.clear()
+    if ssm:
+        # each coordinate's ssd_scan call of layer 0's prefill against the
+        # plain version on the same tensors, then one of them timed
+        check(len(ssd_calls) == pol.mesh.size,
+              f"{tag}: {len(ssd_calls)} ssd_scan calls kept of layer 0")
+        for k, (args, kw) in enumerate(ssd_calls):
+            ssd_compare(torch, ssd_scan_cuda, ssd_scan_ref,
+                        f"{cfg.name} layer 0 prefill, mesh coordinate {k}",
+                        args, kw["chunk"], kw.get("init_state"),
+                        SSD_TOL["bf16"])
+        x0 = ssd_calls[0][0][0]
+        time_ssd_scan(torch, ssd_scan_cuda, ssd_scan_ref, *ssd_calls[0],
+                      label=f"{cfg.name} layer 0 prefill on a mesh "
+                            f"coordinate (B {x0.shape[0]}, H "
+                            f"{x0.shape[2]}) on {smi}",
+                      tol="bf16", calls=5)
+    ssd_calls.clear()
+
+    if N1:
+        # B 1 on the mesh: the one device's prefilled cache placed, its
+        # slots over (data, model); the last step's KV-shard calls held
+        launches0 = {k: ops.launches().get(k, 0) for k in names}
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            b1_mesh = decode(placed, place_cache(_clone_tree(torch, b1_cache),
+                                                 pol.mesh, pol.rules),
+                             pol, tok1, S, N1, capture=attn)
+        finally:
+            ops.flash_attention = real_fa
+        b1_peak_m = torch.cuda.max_memory_allocated() / 2**30
+        for k in names:
+            served[k] += ops.launches().get(k, 0) - launches0[k]
+        b1_same = sum(int(torch.equal(a, b))
+                      for a, b in zip(b1_one[1], b1_mesh[1]))
+        print(f"{tag}: B 1, {N1} greedy steps from the one device's "
+              f"1 x {S} prefill, its cache placed: decode ms/step (median) "
+              f"mesh {statistics.median(b1_mesh[0]):.3f}, one device "
+              f"{statistics.median(b1_one[0]):.3f}; peak GiB mesh "
+              f"{b1_peak_m:.2f}, one device {b1_peak1:.2f}; tokens equal "
+              f"at {b1_same} of {N1} steps; the first step's logits vs one "
+              f"device {dist(b1_mesh[2][0], b1_one[2][0]):.3e}; dropped "
+              f"{sum(float(m['dropped']) for m in b1_mesh[3]):.0f}")
+        check(all(bool(torch.isfinite(r).all()) for r in b1_mesh[2]),
+              f"{tag}: non-finite B 1 logits on the mesh")
+        if attn:
+            check(bool(shard_calls),
+                  f"{tag}: the B 1 decode made no return_lse call")
+            seq_parallel_decode_check(torch, f"{tag} B 1", real_fa,
+                                      shard_calls)
+        shard_calls.clear()
 
     # call == call: a second prefill and two decode steps on a fresh cache
-    first = serve(placed, place_cache(model.init_cache(
-        B, cap, device="cuda"), pol.mesh, pol.rules), pol, 2, keep=True)
-    again = serve(placed, place_cache(model.init_cache(
-        B, cap, device="cuda"), pol.mesh, pol.rules), pol, 2, keep=True)
+    def fresh():
+        return place_cache(model.init_cache(B, cap, device="cuda"), pol.mesh,
+                           pol.rules)
+
+    def states(cache):
+        return [b for k, v in flat_tree(cache).items() if "/mamba/" in k
+                for b in v.shards]
+    runs = []
+    for _ in range(2):
+        cache = fresh()
+        runs.append(serve(placed, cache, pol, 2, keep=True) + (
+            [t.clone() for t in states(cache)],))
+        del cache
+    first, again = runs
     bits = (all(torch.equal(a, b) for a, b in zip(first[4].shards,
                                                   again[4].shards))
             and all(torch.equal(a, b) for a, b in zip(first[3], again[3]))
             and all(torch.equal(a[k], b[k]) for a, b in zip(first[5],
                                                             again[5])
-                    for k in a))
+                    for k in a)
+            and all(torch.equal(a, b) for a, b in zip(first[6], again[6])))
+    if N1:
+        b1_runs = [decode(placed, place_cache(_clone_tree(torch, b1_cache),
+                                              pol.mesh, pol.rules),
+                          pol, tok1, S, 2) for _ in range(2)]
+        bits = bits and all(
+            torch.equal(a, b) for a, b in zip(b1_runs[0][2], b1_runs[1][2]))
+        del b1_runs
     warm_m = statistics.median([first[0], again[0]])
-    del first, again
+    del first, again, runs
     gc.collect()
     torch.cuda.empty_cache()
     print(f"{tag}: a second prefill and 2 decode steps give the first's "
           f"logits" + (", expert_counts and dropped" if moe else "")
+          + (" and Mamba states" if ssm else "")
+          + (", and 2 B 1 steps theirs," if N1 else "")
           + f" bit for bit: {bits}; warm prefill ms mesh {warm_m:.3f} "
           f"(median of 2), one device {warm1:.3f}")
     check(bits, f"{tag}: two mesh calls gave other bits")
 
-    # teacher-forced, layer by layer, over the one device's greedy tokens
-    run_cache = place_cache(model.init_cache(B, cap, device="cuda"),
-                            pol.mesh, pol.rules)
-    run = TPRun(pol, B, placed, run_cache)
     flat = flat_tree(placed)
 
     def whole_layer(key, i):
@@ -4100,12 +4266,9 @@ def mesh_tp_phase(torch, ops, smi, d) -> int:
                       else leaf[i])
         return unflat_tree(out)
 
-    def mesh_rows(ys):
-        return torch.cat([ys[g[0]] for g in run.groups])
-
     stats = {"dropped": 0.0, "flips": 0, "routed": 0}
 
-    def pair(lp, sp, key, i, xin, start, c1):
+    def pair(run, lp, sp, key, i, xin, start, c1):
         """One device's layer and the mesh's on ``xin``: (the one
         device's output, their normwise distance over the tokens both
         route alike, the one device's top-k ids or None)."""
@@ -4116,7 +4279,8 @@ def mesh_tp_phase(torch, ops, smi, d) -> int:
         with route_tap(rm):
             ym, m = layer_forward_tp(run, cfg, sp, key, i,
                                      run.split_rows(xin), start, cap)
-        ym = mesh_rows(ym)
+        # each row shard's rows, from its model group's first member
+        ym = torch.cat([ym[g[0]] for g in run.groups[:run.n_rows]])
         if not r1:
             return y1, dist(ym.float(), y1.float()), None
         stats["dropped"] += float(m["dropped"])
@@ -4129,13 +4293,14 @@ def mesh_tp_phase(torch, ops, smi, d) -> int:
         return y1, (rows.masked_fill(flip, 0.0).max()
                     / y1.abs().max()).item(), r1[0]
 
-    def own_noise(lp, sp, x, outs, ids):
+    def own_noise(lp, sp, x, outs, ids, S0):
         """With a spec's ``noise``: the layer's own bf16 noise, the same
         layer in f32 (its weights cast up) over the whole input with no
         cache against the one device's bf16 outputs, normwise as
         ``pair``'s distance over the prefill's rows and at each decode
         step (its max over the steps), leaving out the tokens the f32
-        router sends elsewhere."""
+        router sends elsewhere.  ``outs``: the one device's outputs of
+        the prefill's S0 positions and of each decode step."""
         up = lambda t: ({k: up(v) for k, v in t.items()}
                         if isinstance(t, dict) else t.float())
         r32 = []
@@ -4143,78 +4308,135 @@ def mesh_tp_phase(torch, ops, smi, d) -> int:
             y32 = layer_forward(up(lp), cfg, sp, x.float(), 0, None,
                                 aux_loss=False)[0]
         y1 = torch.cat(outs, dim=1).float()
-        diff = (y1 - y32).abs().amax(-1)                   # (B, S + N)
+        Bx, n = x.shape[0], y1.shape[1] - S0
+        diff = (y1 - y32).abs().amax(-1)                  # (Bx, S0 + n)
         if r32:
             K = cfg.moe.top_k
-            one = torch.cat([ids[0].reshape(B, S, K)]
-                            + [t.reshape(B, 1, K) for t in ids[1:]], 1)
-            flip = (r32[0].reshape(B, S + N, K).sort(-1).values
+            one = torch.cat([ids[0].reshape(Bx, S0, K)]
+                            + [t.reshape(Bx, 1, K) for t in ids[1:]], 1)
+            flip = (r32[0].reshape(Bx, S0 + n, K).sort(-1).values
                     != one.sort(-1).values).any(-1)
             diff = diff.masked_fill(flip, 0.0)
-        pre = (diff[:, :S].max() / y1[:, :S].abs().max()).item()
-        dec = max((diff[:, S + j].max() / y1[:, S + j].abs().max()).item()
-                  for j in range(N))
+        pre = (diff[:, :S0].max() / y1[:, :S0].abs().max()).item()
+        dec = max((diff[:, S0 + j].max() / y1[:, S0 + j].abs().max()).item()
+                  for j in range(n))
         del y32, y1
         return pre, dec
 
-    errs, noise = [], []
-    tokens = torch.cat([prompt] + toks1, dim=1)
-    with torch.no_grad():
-        x = embed({"table": flat["embed/table"].gather("cuda")}, tokens)
-        for i in range(cfg.n_periods):
-            for pos, sp in enumerate(cfg.pattern):
-                key = f"pos{pos}"
-                lp = whole_layer(key, i)
-                c1 = init_layer_cache(cfg, sp, B, cap, "cuda")
-                row, outs, ids = [], [], []
-                for start, n in [(0, S)] + [(S + j, 1) for j in range(N)]:
-                    y1, e, r = pair(lp, sp, key, i, x[:, start:start + n],
-                                    start, c1)
-                    row.append(e)
-                    outs.append(y1)
-                    ids.append(r)
-                errs.append(row)
-                if d.get("noise"):
-                    noise.append(own_noise(lp, sp, x, outs, ids))
-                x = torch.cat(outs, dim=1)
-                del lp, c1, outs, ids
-    del run, run_cache
-    prefill = [round(r[0], 5) for r in errs]
-    decode = [round(max(r[1:]), 5) for r in errs]
-    # the bound a layer is held to: MESH_LAYER_TOL, or where a spec's
-    # ``noise`` finds the layer's own bf16 noise larger, BF16_REL times
-    # that noise
-    tol = [(MESH_LAYER_TOL, MESH_LAYER_TOL) for _ in errs] if not noise \
-        else [(max(MESH_LAYER_TOL, BF16_REL * a),
-               max(MESH_LAYER_TOL, BF16_REL * b)) for a, b in noise]
-    over = [(k, p, dd) for k, (p, dd, (tp, td)) in enumerate(
-        zip(prefill, decode, tol)) if p > tp or dd > td]
-    routed = (f"; tokens routed otherwise {stats['flips']} of "
-              f"{stats['routed']} (tol {FLIP_MAX:.0%}); capacity drops "
-              f"{stats['dropped']:.0f}" if moe else "")
-    print(f"{tag}: teacher-forced mesh vs one device, normwise, by layer: "
-          f"prefill {prefill}, decode (max over {N} steps) {decode} (tol "
-          f"{MESH_LAYER_TOL}){routed}")
-    if noise:
-        past = [k for k, (p, dd) in enumerate(zip(prefill, decode))
+    def teacher_forced(tokens, run_of, Bx, n, mesh_prefill):
+        """Every layer, teacher-forced over ``tokens`` (Bx, S + n): the
+        one device's prefill of S and its n decode steps, the mesh's
+        layer beside each (``run_of(key, i, c1)``: the TPRun over a
+        placed cache whose layer holds c1's state; at its prefill too
+        where ``mesh_prefill``).  Returns (errors by layer: the
+        prefill's, then each step's; own noise by layer)."""
+        errs, noise = [], []
+        with torch.no_grad():
+            x = embed({"table": flat["embed/table"].gather("cuda")}, tokens)
+            for i in range(cfg.n_periods):
+                for pos, sp in enumerate(cfg.pattern):
+                    key = f"pos{pos}"
+                    lp = whole_layer(key, i)
+                    c1 = init_layer_cache(cfg, sp, Bx, cap, "cuda")
+                    if mesh_prefill:
+                        run = run_of(key, i, None)
+                        y1, e, r = pair(run, lp, sp, key, i, x[:, :S], 0, c1)
+                        row, outs, ids = [e], [y1], [r]
+                    else:
+                        r1 = []
+                        with route_tap(r1):
+                            y1 = layer_forward(lp, cfg, sp, x[:, :S], 0, c1,
+                                               aux_loss=False)[0]
+                        run = run_of(key, i, c1)
+                        row, outs, ids = [], [y1], [r1[0] if r1 else None]
+                    for j in range(n):
+                        y1, e, r = pair(run, lp, sp, key, i,
+                                        x[:, S + j:S + j + 1], S + j, c1)
+                        row.append(e)
+                        outs.append(y1)
+                        ids.append(r)
+                    errs.append(row)
+                    if d.get("noise"):
+                        noise.append(own_noise(lp, sp, x, outs, ids, S))
+                    x = torch.cat(outs, dim=1)
+                    del lp, c1, outs, ids, run
+        return errs, noise
+
+    def hold(label, errs, noise, n):
+        prefill = [round(r[0], 5) for r in errs] if len(errs[0]) > n \
+            else None
+        decode_e = [round(max(r[-n:]), 5) for r in errs]
+        # the bound a layer is held to: MESH_LAYER_TOL, or where a spec's
+        # ``noise`` finds the layer's own bf16 noise larger, BF16_REL
+        # times that noise
+        tol = [(MESH_LAYER_TOL, MESH_LAYER_TOL) for _ in errs] \
+            if not noise else [(max(MESH_LAYER_TOL, BF16_REL * a),
+                                max(MESH_LAYER_TOL, BF16_REL * b))
+                               for a, b in noise]
+        over = [(k, p, dd) for k, (p, dd, (tp, td)) in enumerate(zip(
+            prefill or [0.0] * len(errs), decode_e, tol))
+            if p > tp or dd > td]
+        print(f"{tag}: {label}teacher-forced mesh vs one device, normwise, "
+              f"by layer: " + (f"prefill {prefill}, " if prefill else "")
+              + f"decode (max over {n} steps) {decode_e} (tol "
+              f"{MESH_LAYER_TOL})")
+        if noise:
+            past = [k for k, (p, dd) in enumerate(zip(
+                prefill or [0.0] * len(errs), decode_e))
                 if max(p, dd) > MESH_LAYER_TOL]
-        print(f"{tag}: each layer's own bf16 noise (the layer in f32 on the "
-              f"same input vs one device's bf16), normwise, by layer: "
-              f"prefill {[round(a, 5) for a, _ in noise]}, decode (max "
-              f"over {N} steps) {[round(b, 5) for _, b in noise]}; a layer "
-              f"is held within {MESH_LAYER_TOL} or {BF16_REL} x its own "
-              f"noise, whichever is larger; layers past {MESH_LAYER_TOL}: "
-              f"{past}")
-    check(not over, f"{tag}: mesh layers (index, prefill, decode) {over} "
-          f"are past their bound (tol {MESH_LAYER_TOL}"
-          + (f" or {BF16_REL} x the layer's own bf16 noise" if noise else "")
-          + ")")
+            print(f"{tag}: {label}each layer's own bf16 noise (the layer in "
+                  f"f32 on the same input vs one device's bf16), normwise, "
+                  f"by layer: prefill {[round(a, 5) for a, _ in noise]}, "
+                  f"decode (max over {n} steps) "
+                  f"{[round(b, 5) for _, b in noise]}; a layer is held "
+                  f"within {MESH_LAYER_TOL} or {BF16_REL} x its own noise, "
+                  f"whichever is larger; layers past {MESH_LAYER_TOL}: "
+                  f"{past}")
+        check(not over, f"{tag}: {label}mesh layers (index, prefill, "
+              f"decode) {over} are past their bound (tol {MESH_LAYER_TOL}"
+              + (f" or {BF16_REL} x the layer's own bf16 noise" if noise
+                 else "") + ")")
+
+    # teacher-forced, layer by layer, over the one device's greedy tokens:
+    # one TPRun over a fresh placed cache for every layer
+    run_cache = place_cache(model.init_cache(B, cap, device="cuda"),
+                            pol.mesh, pol.rules)
+    run = TPRun(pol, B, placed, run_cache)
+    errs, noise = teacher_forced(torch.cat([prompt] + toks1, dim=1),
+                                 lambda key, i, c1: run, B, N, True)
+    del run, run_cache
+    hold("", errs, noise, N)
+    if N1:
+        # B 1: the mesh's layer decodes from the one device's layer
+        # prefill state, placed (one TPRun over such a cache a layer)
+        def run_of(key, i, c1):
+            cache = model.init_cache(1, cap, device="cuda")
+            for name, t in flat_tree(c1).items():
+                flat_tree(cache["blocks"][key])[name][i].copy_(t)
+            return TPRun(pol, 1, placed, place_cache(cache, pol.mesh,
+                                                     pol.rules))
+        errs1, noise1 = teacher_forced(
+            torch.cat([prompt[:1]] + b1_one[1], dim=1), run_of, 1, N1,
+            False)
+        hold("B 1: ", errs1, noise1, N1)
+    routed = (f"tokens routed otherwise {stats['flips']} of "
+              f"{stats['routed']} (tol {FLIP_MAX:.0%}); capacity drops "
+              f"{stats['dropped']:.0f}")
+    if moe:
+        print(f"{tag}: teacher-forced, {routed}")
     check(stats["dropped"] == 0,
           f"{tag}: the mesh dropped {stats['dropped']:.0f} entries")
     check(stats["flips"] <= FLIP_MAX * max(stats["routed"], 1),
           f"{tag}: {stats['flips']} of {stats['routed']} tokens routed "
           f"otherwise")
     return served
+
+
+def _clone_tree(torch, tree):
+    """A cache tree with its tensors cloned (host entries as they are)."""
+    if isinstance(tree, dict):
+        return {k: _clone_tree(torch, v) for k, v in tree.items()}
+    return tree.clone() if torch.is_tensor(tree) else tree
 
 
 # phi3.5-MoE at every published width, TRAIN_MOE's cut (2 of 32 layers),
@@ -4892,10 +5114,13 @@ def main() -> int:
     print(f"[mesh-model] phase {time.perf_counter() - t:.1f} s")
     # the dense stack and the MoE stack partitioned over a mesh, after
     # the mesh models'
-    for spec in (MESH_DENSE, MESH_MOE):
+    for spec in (MESH_DENSE, MESH_MOE) + MESH_SSM:
         t = time.perf_counter()
-        launches["flash_attention"] += mesh_tp_phase(torch, ops, smi, spec)
-        print(f"[{spec['tag']}] phase {time.perf_counter() - t:.1f} s")
+        counts = mesh_tp_phase(torch, ops, smi, spec)
+        for name, n in counts.items():
+            launches[name] += n
+        print(f"[{spec['tag']}] {spec['arch']} phase "
+              f"{time.perf_counter() - t:.1f} s, launches {counts}")
         gc.collect()
         torch.cuda.empty_cache()
     # training, after the mesh models' params are gone

@@ -70,6 +70,17 @@ def record_collective(kind: str, xs) -> None:
         rec.collective(kind, xs)
 
 
+def record_collective_at(kind: str, sent) -> None:
+    """Report a collective's ``(coordinate, tensor)`` pairs (an iterable,
+    read only inside a recorder) to the active recorder: each tensor's
+    bytes to that coordinate alone, its sender (for a piece read from the
+    traced coordinate that stands for an untraced sender,
+    ``distributed/tensor_parallel.py``)."""
+    rec = _work.RECORDER
+    if rec is not None:
+        rec.collective_at(kind, sent)
+
+
 class Sharded:
     """A value split into blocks, block i on its own device.  ``dim`` is
     the split dimension, or a tuple of them (a spec that splits several

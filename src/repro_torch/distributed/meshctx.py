@@ -25,16 +25,18 @@ single-device path.
 Dense layers.  The reference leaves their tensor parallelism to XLA's
 SPMD partitioner, which has no PyTorch counterpart; the port writes it
 out.  A policy with a rule table (``rules``, the reference's
-``make_rules``) over a stack whose every layer is GQA attention with a
-dense or MoE FFN (``distributed.sharding.dense_layout``: llama3-8b,
-starcoder2-3b, gemma2-9b, deepseek-7b, pixtral-12b, phi3.5-MoE) runs
-``prefill`` and ``decode_step`` partitioned by those rules on params,
-cache and batch placed by them (``distributed.sharding.place_params`` /
-``place_cache`` / ``place_batch``): each coordinate computes its batch
-rows, its query heads, its MLP columns, its experts (the expert body on
-its data shard's own tokens) and its vocab rows, with fixed-order
+``make_rules``) over a stack whose every layer is GQA attention or a
+Mamba2 layer with a dense, MoE or no FFN
+(``distributed.sharding.dense_layout``: llama3-8b, starcoder2-3b,
+gemma2-9b, deepseek-7b, pixtral-12b, phi3.5-MoE, mamba2-1.3b, jamba)
+runs ``prefill`` and ``decode_step`` partitioned by those rules on
+params, cache and batch placed by them
+(``distributed.sharding.place_params`` / ``place_cache`` /
+``place_batch``): each coordinate computes its batch rows, its query
+heads, its MLP columns, its experts (the expert body on its data
+shard's own tokens), its SSM heads and its vocab rows, with fixed-order
 collectives between (``distributed/tensor_parallel.py``).  Any other
-stack (MLA, Mamba, cross-attention), training, and a policy without
+stack (MLA, cross-attention), training, and a policy without
 rules keep the dense layers whole on the mesh's home device, the
 explicit branches above splitting what they split.
 :func:`constrain` places nothing: the partitioned loop lays out its

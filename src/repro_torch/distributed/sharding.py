@@ -20,15 +20,19 @@ state and batches by :func:`plane_state_shardings` /
 :func:`plane_batch_shardings` (tables replicated, sketches and batches
 split on ``"data"``); the home layout's expert-parallel MoE and
 sequence-parallel decode split their operands by hand.  For serving a
-stack whose every layer is GQA attention with a dense or MoE FFN
-(:func:`dense_layout` says ``"tensor_parallel"``: the dense stacks and
-phi3.5-MoE), :func:`place_params`, :func:`place_cache` and
-:func:`place_batch` lay params (the expert stacks' experts over the
-model axis), KV cache and batch out by the specs, each block on its
-coordinate's device, and ``Model.prefill`` / ``decode_step`` run
-partitioned on them (``distributed/tensor_parallel.py``).  Every other
-stack (MLA, Mamba, cross-attention), and training's dense layers, stay
-whole on the mesh's home device (``"home"``);
+stack whose every layer is GQA attention or a Mamba2 layer, with a
+dense, MoE or no FFN (:func:`dense_layout` says ``"tensor_parallel"``:
+the dense stacks, phi3.5-MoE, mamba2 and jamba), :func:`place_params`,
+:func:`place_cache` and :func:`place_batch` lay params (the expert
+stacks' experts over the model axis, the Mamba layers' ``ssm_heads``
+and ``ssm_in`` dims there too), KV and Mamba state caches and batch
+out by the specs, each block on its coordinate's device, and
+``Model.prefill`` / ``decode_step`` run partitioned on them
+(``distributed/tensor_parallel.py``).  A batch of 1 leaves the data
+axes free, so the KV cache's ``seq_kv`` splits over ``("data",
+"model")``, the reason the reference's rule exists.  Every other stack
+(MLA, cross-attention, a dense prefix), and training's dense layers,
+stay whole on the mesh's home device (``"home"``);
 :func:`tree_device_bytes` reports the per-device bytes the rules give,
 the figure the reference's dry run plans memory with.
 
@@ -470,15 +474,18 @@ def place_train_state(state: dict, shardings: dict) -> dict:
 
 def dense_layout(cfg, policy) -> str:
     """``"tensor_parallel"`` when ``policy`` carries a mesh and a rule
-    table and every layer of ``cfg`` is GQA self-attention with a dense
-    or MoE FFN (no MLA, Mamba, cross-attention, encoder or dense prefix
-    layers); else ``"home"``, the dense layers whole on the mesh's home
-    device.  Chosen once, at placement: under ``"tensor_parallel"`` the
-    MoE FFN runs on placed expert blocks too."""
+    table and every layer of ``cfg`` is GQA self-attention or a Mamba2
+    layer, with a dense, MoE or no FFN (no MLA, cross-attention, encoder
+    or dense prefix layers: the dense stacks, phi3.5-MoE, mamba2 and
+    jamba); else ``"home"``, the dense layers whole on the mesh's home
+    device.  Chosen once, at placement, by the stack alone (not by the
+    batch): under ``"tensor_parallel"`` the MoE FFN runs on placed
+    expert blocks and the Mamba layers on their placed heads too."""
     if policy is None or policy.mesh is None or policy.rules is None:
         return "home"
     dense = (not cfg.encdec and cfg.mla is None and not cfg.first_k_dense
-             and all(sp.kind == "attn" and sp.ffn in ("dense", "moe")
+             and all(sp.kind in ("attn", "mamba")
+                     and sp.ffn in ("dense", "moe", "none")
                      and not sp.cross_attn for sp in cfg.pattern))
     return "tensor_parallel" if dense else "home"
 

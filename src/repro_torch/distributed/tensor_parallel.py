@@ -1,4 +1,5 @@
-"""The per-coordinate program of a partitioned stack (dense or MoE FFNs).
+"""The per-coordinate program of a partitioned stack (GQA attention and
+Mamba2 layers with dense, MoE or no FFNs).
 
 The reference leaves a dense layer's tensor parallelism to XLA's SPMD
 partitioner, which runs one program per device on the blocks the rules
@@ -10,25 +11,39 @@ it runs, their batch rows and model shards, every placed param and cache
 leaf's block at each coordinate (checked against its spec first), and
 the collectives: over each model group (all-reduce, all-to-all,
 all-gather), over the batch rows (:meth:`TPRun.gather_rows`, the MoE
-decode body's tokens) and over every coordinate (:meth:`TPRun.psum_all`,
-the MoE metrics).  The model code (``models/layers.py``,
-``models/attention.py``, ``models/moe.py``, ``models/transformer.py``)
-holds its activations as ``{coordinate: tensor}``.
+decode body's tokens), over every coordinate (:meth:`TPRun.psum_all`,
+the MoE metrics) and from every coordinate to each
+(:meth:`TPRun.gather_all`, a batch of 1's attention partials).  The
+model code (``models/layers.py``, ``models/attention.py``,
+``models/moe.py``, ``models/ssd.py``, ``models/transformer.py``) holds
+its activations as ``{coordinate: tensor}``.  A Mamba layer's state
+blocks are written only at the coordinates that hold them
+(:meth:`TPRun.write_blocks`).
+
+A batch of 1 (or any batch the batch axes do not divide) is not split:
+every coordinate runs the same rows, the Mamba layers and the MoE psum
+body repeat their work over the data axis, as XLA's replicated program
+does, and the KV cache splits its slots over ``("data", "model")``
+(``seq_kv``'s rule), so each coordinate attends its own block of slots
+and receives its heads' partials from every block across model groups.
 
 Class dispatch.  On a ``meta`` mesh the blocks hold no values, and every
 coordinate that differs from another only along the batch axes computes
 the same shapes: its rows are other rows of equal count, and every spec
-this layout accepts splits nothing else over those axes (checked, the
-cache's ``pos`` aside: it is written at every coordinate).  So
-the dry run traces one model group, the coordinates at 0 on every other
+this layout accepts splits nothing else over those axes, but for cache
+blocks, which are written (and, at a batch of 1, the KV slots attended)
+at every coordinate that holds one (:meth:`TPRun.every` for the
+positions, :meth:`TPRun.write_blocks`, :meth:`TPRun.deliver`).  So the
+dry run traces one model group, the coordinates at 0 on every other
 axis, and the recorder counts each of its bodies at every coordinate it
-stands for (``compat.at`` with a tuple of coordinates).  A collective
-across model groups reads, for an untraced coordinate, the traced one
-that stands for it (:attr:`TPRun.rep`), and its bytes count at every
-coordinate each traced operand stands for, so each coordinate counts
-what a full dispatch gives it.  ``CLASS_DISPATCH = False`` traces every
-coordinate instead; the tests hold the two to the same counts.  On a
-card or the host every coordinate runs.
+stands for (``compat.at`` with a tuple of coordinates).  A collective across
+model groups reads, for an untraced coordinate, the traced one that
+stands for it (:attr:`TPRun.rep`), and its bytes count at every
+coordinate each traced operand stands for, or at the sender it names,
+so each coordinate counts what a full dispatch gives it.
+``CLASS_DISPATCH = False`` traces every coordinate instead; the tests
+hold the two to the same counts.  On a card or the host every coordinate
+runs.
 """
 from __future__ import annotations
 
@@ -136,14 +151,19 @@ class TPRun:
         """``leaf`` lies as ``sh`` places it, and ``sh`` splits its
         ``"batch"`` dim over the rows' axes alone and every other dim over
         the model axis or nothing (what the per-row program and class
-        dispatch assume).  One exception: a cache leaf without a batch
-        dim, the cache's ``pos``, may split over the rows' axes too (its
-        blocks are written at every coordinate, :meth:`every`).  A param
-        split over the batch axes (the FSDP rules) raises
-        ``NotImplementedError``: serving on FSDP-split params is not
-        ported.  An expert stack (a leaf with an ``"experts"`` dim) must
-        split its experts over the model axis, the MoE body's expert
-        shards; any other placement of them raises
+        dispatch assume).  Two exceptions, both cache leaves whose blocks
+        are written at the coordinates that hold them: one without a
+        batch dim, the cache's ``pos``, may split over the rows' axes
+        too; and where the batch is not split (``row_axes == ()``, a
+        batch of 1) the batch axes are free, so ``pos`` and the KV
+        cache's ``seq_kv`` may split over them as well (the reference's
+        256-way KV split at ``long_500k``).  A param split over the batch
+        axes (the FSDP rules) raises ``NotImplementedError``: serving on
+        FSDP-split params is not ported.  An expert stack (a leaf with an
+        ``"experts"`` dim) must split its experts over the model axis,
+        the MoE body's expert shards, and a Mamba leaf with an
+        ``"ssm_heads"`` dim its heads (a model axis that does not divide
+        them keeps them whole); any other placement of them raises
         ``NotImplementedError``."""
         if not sh.holds(leaf):
             raise ValueError(
@@ -151,11 +171,23 @@ class TPRun:
                 f"{self.mesh} (distributed.sharding.place_params / "
                 f"place_cache / place_batch lay a tree out)")
         own = set(self.row_axes) | {self.model_axis}
-        for d, entry in enumerate(sh.spec):
-            axes = _axes(entry)
+        if not self.row_axes:               # a batch of 1: the axes are free
+            own |= set(self.batch_axes)
+        for d in range(len(logical)):
+            axes = _axes(sh.spec[d] if d < len(sh.spec) else None)
+            if (logical[d] == "ssm_heads" and self.n_model > 1
+                    and axes != (self.model_axis,)):
+                raise NotImplementedError(
+                    f"{key}: spec {sh.spec} keeps the {leaf.shape[d]} SSM "
+                    f"heads whole; the partitioned Mamba layer owns them in "
+                    f"contiguous blocks over {self.model_axis!r}, so the "
+                    f"rules must put 'ssm_heads' there and the model axis "
+                    f"({self.n_model}) must divide them")
             if logical[d] == "batch":
                 ok = axes == self.row_axes
-            elif is_cache and "batch" not in logical:   # the positions
+            elif is_cache and ("batch" not in logical   # the positions
+                               or (logical[d] == "seq_kv"
+                                   and not self.row_axes)):
                 ok = set(axes) <= own
             else:
                 ok = axes in ((), (self.model_axis,))
@@ -226,6 +258,95 @@ class TPRun:
         """Coordinate ``c``'s block of the placed cache leaf ``key``
         (``flat_tree``'s key), for any coordinate of the mesh."""
         return self._block(self._cflat[key], self._csh[key], c)
+
+    def write_blocks(self, key: str, vals, i=None) -> None:
+        """Every block of the placed cache leaf ``key`` (its layer ``i``
+        of a stacked leaf), each once, at the coordinate ``o`` that holds
+        it (a split leaf's blocks at their placement coordinates, a
+        replicated leaf's copies at the first coordinate on each device),
+        set to ``vals[rep[o]]``, the value of the traced coordinate that
+        runs o's program (cast to the block's dtype), or zeroed where
+        ``vals`` is None."""
+        leaf, sh = self._cflat[key], self._csh[key]
+        if isinstance(leaf, compat.Sharded):
+            owned = zip(sh.coords, leaf.shards)
+        else:
+            first: Dict[torch.device, Coord] = {}
+            for c in self.mesh.coords():
+                first.setdefault(self.device(c), c)
+            owned = ([(first[d], t) for d, t in leaf.copies.items()]
+                     if isinstance(leaf, compat.Replicated)
+                     else [(first[leaf.device], leaf)])
+        for o, blk in owned:
+            with compat.at(o):
+                t = blk if i is None else blk[i]
+                if vals is None:
+                    t.zero_()
+                else:
+                    t.copy_(vals[self.rep[o]].to(t.dtype))
+
+    @staticmethod
+    def pieces(c: Coord, group, lo: int, hi: int, held: Callable,
+               take: Callable) -> list:
+        """``(member, tensor)`` pieces covering the range [lo, hi) of an
+        index that each member ``g`` of ``group`` holds as ``held(g)`` =
+        [a, b): c's own where it holds the index, else the first member
+        in model order that does; ``take(src, i, j)`` is src's tensor of
+        its local [i, j)."""
+        out, i = [], lo
+        while i < hi:
+            src = c if held(c)[0] <= i < held(c)[1] else next(
+                g for g in group if held(g)[0] <= i < held(g)[1])
+            a, b = held(src)
+            end = min(hi, b)
+            out.append((src, take(src, i - a, end - a)))
+            i = end
+        return out
+
+    def model_group(self, d: Coord) -> List[Coord]:
+        """The mesh coordinates equal to ``d`` off the model axis, in
+        model order (``d``'s model group, traced or not)."""
+        return [d[:self._mi] + (j,) + d[self._mi + 1:]
+                for j in range(self.n_model)]
+
+    def deliver(self, dest: Coord, pieces, dim: int) -> torch.Tensor:
+        """At mesh coordinate ``dest`` (traced or not): the ``(src,
+        tensor)`` pieces (``src`` a mesh coordinate, the tensor its value,
+        or the value of the traced coordinate that stands for it)
+        concatenated along ``dim`` on ``dest``'s device; each piece from
+        another coordinate counts to its ``src`` alone, as an
+        all-to-all."""
+        compat.record_collective_at("all-to-all", (
+            (s, t) for s, t in pieces if s != dest))
+        with compat.at(dest):
+            if len(pieces) == 1 and pieces[0][0] == dest:
+                return pieces[0][1]
+            dev = self.device(dest)
+            return torch.cat([t.to(dev) for _, t in pieces], dim)
+
+    def gather_all(self, want: Callable, senders, dim: int) -> dict:
+        """Every coordinate ``c`` of ``coords`` gets ``want(c, d)`` (a
+        tensor, or None: nothing) from every mesh coordinate ``d`` of
+        ``senders`` (row-major), across model groups, in that order,
+        concatenated along ``dim`` on its device.  A piece counts to its
+        sender once for every mesh coordinate it goes to (each that ``c``
+        stands for, ``d`` aside), as a full dispatch counts it, as an
+        all-to-all."""
+        got = {}
+        for c in self.coords:
+            with compat.at(self.members[c]):
+                got[c] = [want(c, d) for d in senders]
+        compat.record_collective_at("all-to-all", (
+            (d, got[self.rep[r]][k]) for r in self.mesh.coords()
+            for k, d in enumerate(senders)
+            if d != r and got[self.rep[r]][k] is not None))
+        out = {}
+        for c in self.coords:
+            with compat.at(self.members[c]):
+                dev = self.device(c)
+                out[c] = torch.cat([t.to(dev) for t in got[c]
+                                    if t is not None], dim)
+        return out
 
     def split_rows(self, x) -> dict:
         """A batch input as each coordinate's rows on its device: a whole

@@ -40,20 +40,22 @@ argument, output and peak live bytes (the counterpart of
 ``cost_analysis`` and ``--save-hlo`` have no counterpart.
 
 Layouts (the record's ``"layout"``).  A serving cell of a stack whose
-every layer is GQA attention with a dense or MoE FFN (llama3-8b,
-starcoder2-3b, gemma2-9b, deepseek-7b, pixtral-12b, phi3.5-MoE) runs
-``"tensor_parallel"``: the policy carries the rules, and params, cache
-and batch are placed by them (``distributed.sharding.place_params`` /
-``place_cache`` / ``place_batch``), so each coordinate computes its
-batch rows, query heads, MLP columns, experts and vocab rows, and holds
-only its blocks (``distributed/tensor_parallel.py``; one model group is
-traced and counted for every row shard).  Every other cell runs
-``"home"``: the dense layers whole on the mesh's home device, which
-then carries the dense work of the whole global batch (the MLA, Mamba
-and cross-attention stacks, jamba's MoE and deepseek-v2's among them,
-and every train cell).  ``load_balance`` is the
-most loaded coordinate's FLOPs and HBM bytes over their means over the
-coordinates.
+every layer is GQA attention or a Mamba2 layer with a dense, MoE or no
+FFN (llama3-8b, starcoder2-3b, gemma2-9b, deepseek-7b, pixtral-12b,
+phi3.5-MoE, mamba2-1.3b, jamba) runs ``"tensor_parallel"``: the policy
+carries the rules, and params, cache and batch are placed by them
+(``distributed.sharding.place_params`` / ``place_cache`` /
+``place_batch``), so each coordinate computes its batch rows, query
+heads, MLP columns, experts, SSM heads and vocab rows, and holds only
+its blocks (``distributed/tensor_parallel.py``; one model group is
+traced and counted for every row shard; at ``long_500k``'s batch of 1
+the KV slots split over (data, model) and each coordinate attends and
+writes its own block).  Every other cell runs ``"home"``: the dense
+layers whole on the mesh's home device, which then carries the dense
+work of the whole global batch (the MLA and cross-attention stacks,
+deepseek-v2's MoE among them, and every train cell).
+``load_balance`` is the most loaded coordinate's FLOPs and HBM bytes
+over their means over the coordinates.
 """
 from __future__ import annotations
 

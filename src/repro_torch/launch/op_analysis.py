@@ -43,7 +43,17 @@ Counting rules, per operation:
   groups (``TPRun.gather_rows``, ``TPRun.psum_all``: the MoE decode
   body's tokens and the MoE metrics) count each traced operand at every
   coordinate its class stands for, so each coordinate counts what a
-  full dispatch gives it; their sums run at the home coordinate.
+  full dispatch gives it; their sums run at the home coordinate.  Where
+  coordinates of one class hold different blocks (a batch of 1, whose KV
+  cache splits its slots over the data axes too), the loop runs at
+  every coordinate and names each piece's sender
+  (``TPRun.deliver`` writing a block, ``TPRun.gather_all`` receiving
+  every block's attention partials; ``Recorder.collective_at``), so a
+  piece counts at its sender once for each coordinate it goes to.  The
+  Mamba layer's two exchanges over the model group (in-projection
+  columns to conv blocks and heads; conv channels to heads, ``B`` and
+  ``C`` all-gathered) are ``TPRun.exchange``\\ s, counted as the other
+  all-to-alls.
 * Live bytes: every storage an operation (or a kernel call) allocates
   is live from then until its last tensor, views included, is freed;
   the peak is kept per coordinate.  The step's arguments are not in it (``launch/dryrun.py``
@@ -298,6 +308,14 @@ class Recorder(TorchDispatchMode):
             n = _nbytes(x)
             for coord in self._targets_of(x):
                 self.coords[coord].per_collective[kind] += n
+
+    def collective_at(self, kind: str, sent) -> None:
+        """A collective's ``(coordinate, tensor)`` pairs: each tensor's
+        bytes to its coordinate alone."""
+        if self._suppress:
+            return
+        for coord, x in sent:
+            self.coords[tuple(coord)].per_collective[kind] += _nbytes(x)
 
     # -- the op stream ----------------------------------------------------
     def _op_info(self, func):

@@ -419,17 +419,28 @@ def _tp_heads(run, cfg: ModelConfig, sh) -> dict:
     return out
 
 
+def _wide(run, ksh) -> bool:
+    """True where the cache's slots split over more than the model axis
+    (a batch the batch axes do not divide: ``seq_kv`` over ``("data",
+    "model")``), so coordinates of one model class hold other slots."""
+    entry = ksh.spec[2] if len(ksh.spec) > 2 else None
+    axes = entry if isinstance(entry, tuple) else (entry,)
+    return any(a is not None and a != run.model_axis for a in axes)
+
+
 def gqa_forward_tp(run, cfg: ModelConfig, p: dict, sh, h: dict, start: int,
                    *, window: Optional[int], kv: dict, kv_sh, pos_at,
-                   cap: int) -> dict:
+                   cap: int, kv_at=None) -> dict:
     """:func:`gqa_forward` over a cache, partitioned
     (``distributed/tensor_parallel.py``): ``h[c]`` is coordinate c's
     rows (B_l, S, D), ``p[c]`` its blocks of the layer's ``wq`` / ``wk``
     / ``wv`` / ``wo``, ``kv[c]`` its blocks of the layer's ``k`` / ``v``
     cache (B_l, L, Hb, hd), ``pos_at(c)`` any coordinate's block of its
-    ``pos`` (written at every coordinate), ``sh`` / ``kv_sh`` the
-    stacked leaves' shardings, ``cap`` the cache's slots.  Returns
-    ``{c: (B_l, S, D)}``.
+    ``pos`` (written at every coordinate), ``kv_at(d, name)`` any mesh
+    coordinate's block of its ``k`` / ``v`` (needed where the slots split
+    over more than the model axis), ``sh`` / ``kv_sh`` the stacked
+    leaves' shardings, ``cap`` the cache's slots.  Returns ``{c: (B_l, S,
+    D)}``.
 
     * q is column-parallel: c projects its query heads, and its kv heads
       (:func:`_tp_heads`), and applies RoPE to both.
@@ -451,6 +462,15 @@ def gqa_forward_tp(run, cfg: ModelConfig, p: dict, sh, h: dict, start: int,
       are whole (a capacity the model axis does not divide), each block
       holds every slot of its kv heads (split with the query heads, or
       all of them), and c attends its own heads over it alone.
+    * A batch the batch axes do not divide (a batch of 1) is not split,
+      and the slots split over ``("data", "model")``: every coordinate
+      holds a block of its own.  Each block that takes new positions
+      receives them at its coordinate from that coordinate's model
+      group (every data coordinate projected the same rows,
+      ``TPRun.deliver``); at decode each coordinate attends every head
+      over its block's visible slots, and each receives its own heads'
+      partials from every block across model groups, in row-major block
+      order (``TPRun.gather_all``), combined as above.
     * ``wo`` is row-parallel: c's partial output over its heads, summed
       over the group (one all-reduce); an unsplit ``wo`` needs none."""
     if start > 0 and next(iter(h.values())).shape[1] > 1:
@@ -480,31 +500,47 @@ def gqa_forward_tp(run, cfg: ModelConfig, p: dict, sh, h: dict, start: int,
         a, e = ksh.range_at(c, 2, cap)
         return a, e, max(a, start), min(e, start + S)
 
-    def pieces(which):
-        def want(c, group):
-            a, e, p0, p1 = slots(c)
-            if p0 >= p1:
-                return []
-            hb0, hb1 = ksh.range_at(c, 3, Hkv)
-            out, hh = [], hb0
-            while hh < hb1:
-                src = c if heads[c][2] <= hh < heads[c][3] else next(
-                    g for g in group if heads[g][2] <= hh < heads[g][3])
-                k0, end = heads[src][2], min(hb1, heads[src][3])
-                out.append((src, qkv[src][which][:, p0 - start:p1 - start,
-                                                 hh - k0:end - k0]))
-                hh = end
-            return out
-        return want
-    new_k = run.exchange(pieces(1), 2)
-    new_v = run.exchange(pieces(2), 2)
-
-    def write(c):
+    def pieces(which, c, group):
+        """The new positions' k (``which`` 1) or v (2) of the kv heads
+        c's block holds, from the members of ``group`` that projected
+        them (c itself first; any coordinate by its class's heads)."""
         a, e, p0, p1 = slots(c)
-        if p0 < p1:
-            kv[c]["k"][:, p0 - a:p1 - a] = new_k[c].to(kv[c]["k"].dtype)
-            kv[c]["v"][:, p0 - a:p1 - a] = new_v[c].to(kv[c]["v"].dtype)
-    run.each(write)
+        if p0 >= p1:
+            return []
+        return run.pieces(
+            c, group, *ksh.range_at(c, 3, Hkv),
+            lambda g: heads[run.rep[g]][2:],
+            lambda src, i, j: qkv[run.rep[src]][which][
+                :, p0 - start:p1 - start, i:j])
+
+    wide = _wide(run, ksh)
+    if wide and kv_at is None:
+        raise ValueError(f"the cache's slots split over {ksh.spec[2]}: "
+                         f"each block is written at its own coordinate, "
+                         f"so gqa_forward_tp needs kv_at")
+    if wide:
+        # each block at its own coordinate, from its model group
+        for o in ksh.coords:
+            a, e, p0, p1 = slots(o)
+            if p0 >= p1:
+                continue
+            for name, which in (("k", 1), ("v", 2)):
+                with compat.at(o):
+                    ps = pieces(which, o, run.model_group(o))
+                new = run.deliver(o, ps, 2)
+                with compat.at(o):
+                    blk = kv_at(o, name)
+                    blk[:, p0 - a:p1 - a] = new.to(blk.dtype)
+    else:
+        new_k = run.exchange(lambda c, g: pieces(1, c, g), 2)
+        new_v = run.exchange(lambda c, g: pieces(2, c, g), 2)
+
+        def write(c):
+            a, e, p0, p1 = slots(c)
+            if p0 < p1:
+                kv[c]["k"][:, p0 - a:p1 - a] = new_k[c].to(kv[c]["k"].dtype)
+                kv[c]["v"][:, p0 - a:p1 - a] = new_v[c].to(kv[c]["v"].dtype)
+        run.each(write)
 
     def write_pos(c):
         a, e = psh.range_at(c, 1, cap)
@@ -524,7 +560,8 @@ def gqa_forward_tp(run, cfg: ModelConfig, p: dict, sh, h: dict, start: int,
         out = run.each(attend)
     else:
         out = _gqa_decode_tp(run, cfg, heads, qkv, kv, ksh, slots, start,
-                             window=window, logit_softcap=softcap)
+                             window=window, logit_softcap=softcap,
+                             kv_at=kv_at if wide else None)
 
     def project_out(c):
         o = out[c]
@@ -536,10 +573,14 @@ def gqa_forward_tp(run, cfg: ModelConfig, p: dict, sh, h: dict, start: int,
 
 
 def _gqa_decode_tp(run, cfg: ModelConfig, heads: dict, qkv: dict, kv: dict,
-                   ksh, slots, start: int, *, window, logit_softcap) -> dict:
+                   ksh, slots, start: int, *, window, logit_softcap,
+                   kv_at=None) -> dict:
     """:func:`gqa_forward_tp`'s one-token attention over the placed
     blocks (``ksh`` the cache's ``k`` sharding, stacked); returns
-    ``{c: (B_l, 1, Hl, hd)}`` in q's dtype."""
+    ``{c: (B_l, 1, Hl, hd)}`` in q's dtype.  ``kv_at``: where the slots
+    split over more than the model axis, any coordinate's block of the
+    layer's ``k`` / ``v``: each block is attended at its own coordinate
+    and every block's partials go to every coordinate."""
     H, Hkv = cfg.n_heads, cfg.n_kv_heads
     hi = start + 1
     lo = max(0, hi - window) if window is not None else 0
@@ -565,25 +606,43 @@ def _gqa_decode_tp(run, cfg: ModelConfig, heads: dict, qkv: dict, kv: dict,
     else:
         qf = {c: qkv[c][0] for c in run.coords}
 
-    def attend(c):
+    def attend(c, q, k, v):
         a, e, _, _ = slots(c)
         s0, s1 = max(a, lo), min(e, hi)
         if s0 >= s1:
             return None
         return ops.flash_attention(
-            qf[c], kv[c]["k"][:, s0 - a:s1 - a], kv[c]["v"][:, s0 - a:s1 - a],
-            causal=False, window=None, logit_softcap=logit_softcap,
-            return_lse=True)
-    part = run.each(attend)
+            q, k[:, s0 - a:s1 - a], v[:, s0 - a:s1 - a], causal=False,
+            window=None, logit_softcap=logit_softcap, return_lse=True)
 
-    # each coordinate's own heads of every block's (out, lse), stacked
-    # in model order on a new leading dim
-    outs = run.exchange(lambda c, g: [
-        (s, part[s][0][:, :, heads[c][0]:heads[c][1]][None]) for s in g
-        if part[s] is not None], 0)
-    lses = run.exchange(lambda c, g: [
-        (s, part[s][1][:, heads[c][0]:heads[c][1]][None]) for s in g
-        if part[s] is not None], 0)
+    # each coordinate's own heads of a block's (out, lse), on a new
+    # leading dim
+    def out_of(c, t):
+        return t[0][:, :, heads[c][0]:heads[c][1]][None]
+
+    def lse_of(c, t):
+        return t[1][:, heads[c][0]:heads[c][1]][None]
+
+    if kv_at is None:
+        part = run.each(lambda c: attend(c, qf[c], kv[c]["k"], kv[c]["v"]))
+        # every block of the group's, stacked in model order
+        outs = run.exchange(lambda c, g: [
+            (s, out_of(c, part[s])) for s in g if part[s] is not None], 0)
+        lses = run.exchange(lambda c, g: [
+            (s, lse_of(c, part[s])) for s in g if part[s] is not None], 0)
+    else:
+        # every block at its own coordinate (q from its class), and each
+        # coordinate's heads from every block in row-major block order
+        blocks = ksh.coords
+        part = {}
+        for d in blocks:
+            with compat.at(d):
+                part[d] = attend(d, qf[run.rep[d]].to(run.device(d)),
+                                 kv_at(d, "k"), kv_at(d, "v"))
+        outs = run.gather_all(lambda c, d: None if part[d] is None
+                              else out_of(c, part[d]), blocks, 0)
+        lses = run.gather_all(lambda c, d: None if part[d] is None
+                              else lse_of(c, part[d]), blocks, 0)
 
     def combine(c):
         ls = list(lses[c])

@@ -27,15 +27,18 @@ as the reference's, so a step covers S_media + S_text positions from
 cover every position, the media rows included.
 
 Partitioned (the tensor-parallel layout, ``distributed/\
-tensor_parallel.py``): a stack of GQA layers with dense or MoE FFNs
-served under a policy with rules runs :func:`layer_forward_tp` per layer
-over ``{coordinate: rows}``, the embedding vocab-parallel, attention
-column-parallel in q and row-parallel in ``wo``, a dense FFN column- then
+tensor_parallel.py``): a stack of GQA and Mamba2 layers with dense, MoE
+or no FFNs served under a policy with rules runs
+:func:`layer_forward_tp` per layer over ``{coordinate: rows}``, the
+embedding vocab-parallel, attention column-parallel in q and
+row-parallel in ``wo``, a Mamba layer column-parallel in ``in_proj`` and
+row-parallel in ``out_proj`` on the coordinate's SSM heads
+(``models/ssd.py::mamba_forward_tp``), a dense FFN column- then
 row-parallel, the unembedding split over the vocab, one all-reduce over
 the model axis after each row-parallel product; a MoE FFN runs the
 expert-parallel body on each data shard's own rows and the coordinate's
 placed expert blocks (``models/moe.py::moe_ffn_tp``); the cache is
-written by its placed blocks.
+written by its placed blocks, each at its own coordinate.
 
 Metrics, as the reference's: ``aux_loss`` and ``dropped`` summed over
 the layers, and for a config with ``moe`` set ``expert_counts`` of shape
@@ -87,9 +90,10 @@ from .layers import embed, embed_tp, ffn, ffn_tp, init_embedding, \
     init_ffn, init_rmsnorm, init_unembed, rmsnorm, softcap, unembed, \
     unembed_tp
 from .moe import init_moe, moe_ffn, moe_ffn_tp
-from .params import Initializer, ParamTree, index_tree, stack_draws, \
-    stack_pspecs, unbind_tree
-from .ssd import init_mamba, init_mamba_cache, mamba_decode, mamba_forward
+from .params import Initializer, ParamTree, flat_tree, index_tree, \
+    stack_draws, stack_pspecs, unbind_tree
+from .ssd import init_mamba, init_mamba_cache, mamba_decode, \
+    mamba_forward, mamba_forward_tp
 
 CACHE_DTYPE = torch.bfloat16       # the reference's cache dtype
 
@@ -386,20 +390,22 @@ def _check_step(cache, start: int, S: int, mamba: bool) -> None:
 
 
 def layer_forward_tp(run, cfg: ModelConfig, spec: LayerSpec, key: str,
-                     i: int, x: dict, start: int, cap: int):
+                     i: int, x: dict, start: int, cap: Optional[int]):
     """One layer of the partitioned layout (``distributed/\
 tensor_parallel.py``): stacked position ``key``, period ``i``, over
     ``x = {c: (B_l, S, D)}`` and the placed cache's blocks, written in
     place.  The norms, RoPE, softcaps and residual adds are elementwise
     and run on each coordinate's rows; attention is
-    ``attention.gqa_forward_tp``, one all-reduce over the model group;
-    a dense FFN ``layers.ffn_tp``, one all-reduce; a MoE FFN
-    ``moe.moe_ffn_tp`` on placed expert blocks.  Returns ``(x,
-    metrics)``, the metrics as :func:`layer_forward`'s (a dense layer's
-    host zeros)."""
+    ``attention.gqa_forward_tp``, one all-reduce over the model group; a
+    Mamba layer ``ssd.mamba_forward_tp`` (its one-token program for one
+    token, as :func:`layer_forward` branches), its state blocks written
+    at their own coordinates; a dense FFN ``layers.ffn_tp``, one
+    all-reduce; a MoE FFN ``moe.moe_ffn_tp`` on placed expert blocks; no
+    FFN where the pattern has none.  Returns ``(x, metrics)``, the
+    metrics as :func:`layer_forward`'s (a dense layer's host zeros)."""
     p = run.each(lambda c: index_tree(run.params[c]["blocks"][key], i))
-    kv = run.each(lambda c: index_tree(run.cache[c]["blocks"][key], i)["kv"])
-    sh = run.param_sh["blocks"][key]
+    layer = run.each(lambda c: index_tree(run.cache[c]["blocks"][key], i))
+    sh, csh = run.param_sh["blocks"][key], run.cache_sh["blocks"][key]
     eps = cfg.rms_eps
 
     def norm(name, t):
@@ -411,13 +417,25 @@ tensor_parallel.py``): stacked position ``key``, period ``i``, over
     def post(name):
         return name if cfg.post_norm else None
 
-    x = _sublayer(x, norm, lambda h: gqa_forward_tp(
-        run, cfg, {c: p[c]["attn"] for c in run.coords}, sh["attn"], h,
-        start, window=spec.window, kv=kv,
-        kv_sh=run.cache_sh["blocks"][key]["kv"],
-        pos_at=lambda c: run.cache_block(f"blocks/{key}/kv/pos", c)[i],
-        cap=cap), "attn_norm", post("attn_post_norm"), add)
+    if spec.kind == "attn":
+        x = _sublayer(x, norm, lambda h: gqa_forward_tp(
+            run, cfg, {c: p[c]["attn"] for c in run.coords}, sh["attn"], h,
+            start, window=spec.window,
+            kv={c: layer[c]["kv"] for c in run.coords}, kv_sh=csh["kv"],
+            pos_at=lambda c: run.cache_block(f"blocks/{key}/kv/pos", c)[i],
+            cap=cap, kv_at=lambda c, name: run.cache_block(
+                f"blocks/{key}/kv/{name}", c)[i]),
+            "attn_norm", post("attn_post_norm"), add)
+    else:
+        x = _sublayer(x, norm, lambda h: mamba_forward_tp(
+            run, cfg, {c: p[c]["mamba"] for c in run.coords}, sh["mamba"],
+            h, {c: layer[c]["mamba"] for c in run.coords}, csh["mamba"],
+            lambda name, vals: run.write_blocks(
+                f"blocks/{key}/mamba/{name}", vals, i)),
+            "mamba_norm", None, add)
     metrics = {"aux_loss": 0.0, "dropped": 0.0}
+    if spec.ffn == "none":
+        return x, metrics
     fp = {c: p[c]["ffn"] for c in run.coords}
 
     def feed(h):
@@ -434,13 +452,20 @@ def _lm_forward_tp(params, cfg: ModelConfig, tokens, start: int, cache,
                    media_embeds, policy):
     """:func:`lm_forward` of the tensor-parallel layout: the logits as a
     ``compat.Sharded`` split over the batch rows and the vocab, and the
-    metrics as :func:`lm_forward` sums them, on the mesh's home
-    device."""
+    metrics as :func:`lm_forward` sums them, on the mesh's home device.
+    The step rules are the home layout's, a Mamba stack's included: a
+    step at ``start`` 0 zeroes every placed Mamba state block first, at
+    its own coordinate."""
     B = tokens.shape[0]
     S = tokens.shape[1] + (media_embeds.shape[1] if media_embeds is not None
                            else 0)
-    _check_step(cache, start, S, False)
+    mamba = any(sp.kind == "mamba" for sp in cfg.pattern)
+    _check_step(cache, start, S, mamba)
     run = TPRun(policy, B, params, cache)
+    if mamba and start == 0:        # a restart: the state takes in 0..S-1
+        for key in flat_tree(run.cache_sh):
+            if "/mamba/" in key:
+                run.write_blocks(key, None)
     cap = _capacity(cache)
     tok = run.split_rows(tokens)
     x = embed_tp(run, run.param_sh["embed"]["table"],
@@ -475,7 +500,8 @@ def _lm_forward_tp(params, cfg: ModelConfig, tokens, start: int, cache,
     logits = unembed_tp(run, {c: run.params[c][entry][name]
                               for c in run.coords}, x, cfg, tied)
     split = len(wsh.spec) > vdim and wsh.spec[vdim] is not None
-    cache["filled"] = max(cache["filled"], start + S)
+    cache["filled"] = (start + S if mamba
+                       else max(cache["filled"], start + S))
     logits = run.assemble(logits, 2, split)
     if cfg.moe is None:                 # a dense stack: one zero for both
         zero = torch.zeros((), dtype=torch.float32, device=run.mesh.home)
@@ -508,17 +534,19 @@ def lm_forward(params, cfg: ModelConfig, tokens: torch.Tensor,
     is threaded to every layer for the mesh branches; the reference's
     activation constraints stand at the same points (``constrain``,
     which places nothing).  A policy with rules over a stack that
-    ``sharding.dense_layout`` calls ``"tensor_parallel"`` (GQA layers
-    with dense or MoE FFNs) runs prefill and decode partitioned instead
-    (:func:`layer_forward_tp` a layer, on params and a cache placed by
-    the rules): every coordinate its batch rows, query heads, MLP
-    columns, experts and vocab rows, the logits returned as a
-    ``compat.Sharded`` over (rows, vocab) and the metrics the home
-    layout's, on the mesh's home device (``hot_experts`` is not taken
-    there, as the reference takes no hot-expert branch under a mesh);
-    without a cache that layout raises (training's dense layers are not
-    partitioned).  Returns (logits, cache, metrics); the cache is written
-    in place and returned."""
+    ``sharding.dense_layout`` calls ``"tensor_parallel"`` (GQA and Mamba2
+    layers with dense, MoE or no FFNs) runs prefill and decode
+    partitioned instead (:func:`layer_forward_tp` a layer, on params and
+    a cache placed by the rules): every coordinate its batch rows, query
+    heads, MLP columns, experts, SSM heads and vocab rows (a batch the
+    batch axes do not divide, such as 1, whole at every coordinate, the
+    KV slots then split over the data axes too), the logits returned as
+    a ``compat.Sharded`` over (rows, vocab) and the metrics the home
+    layout's, on the mesh's home device, under the same step rules
+    (``hot_experts`` is not taken there, as the reference takes no
+    hot-expert branch under a mesh); without a cache that layout raises
+    (training's dense layers are not partitioned).  Returns (logits,
+    cache, metrics); the cache is written in place and returned."""
     policy = policy if policy is not None else get_policy()
     if dense_layout(cfg, policy) == "tensor_parallel":
         if cache is None:

@@ -392,7 +392,8 @@ def test_placement_follows_reference_spec_for(arch, mesh, shape):
 def test_layout_is_the_stacks_and_a_misplaced_operand_raises():
     pol = _policy(2, 2)
     slice_archs = {"llama3-8b", "starcoder2-3b", "gemma2-9b", "deepseek-7b",
-                   "pixtral-12b", "phi3.5-moe-42b-a6.6b"}
+                   "pixtral-12b", "phi3.5-moe-42b-a6.6b", "mamba2-1.3b",
+                   "jamba-v0.1-52b"}
     for arch in ARCH_IDS:
         want = "tensor_parallel" if arch in slice_archs else "home"
         assert dense_layout(get_config(arch), pol) == want, arch

@@ -15,7 +15,8 @@ and ``launch/op_analysis.py``) against the reference's
   at smoke scale; phi3.5-MoE on a (2, 2) mesh: equal FLOPs, and no fewer
   bytes on ``meta``, whose balanced router touches every expert; and
   partitioned by the rules, where one traced model group counts what a
-  full dispatch counts at every coordinate);
+  full dispatch counts at every coordinate, a batch of 1 whose KV slots
+  split over (data, model) included);
 - full-width cells on the production ``meta`` mesh, and the CLI.
 
 Every comparison of counts is exact (integers, or sums of integers held
@@ -400,6 +401,12 @@ def test_moe_on_a_mesh_meta_against_the_host_under_rules(kind, monkeypatch):
 # full-width cells on the production meta mesh
 # ---------------------------------------------------------------------------
 
+# the most loaded coordinate's peak live bytes of a partitioned cell,
+# where a smaller bound than 16 GB was reckoned for it
+PEAK_BELOW = {("mamba2-1.3b", "prefill_32k"): 6e9,
+              ("jamba-v0.1-52b", "prefill_32k"): 16e9}
+
+
 @pytest.mark.parametrize("arch,shape", [
     ("llama3-8b", "decode_32k"),
     ("llama3-8b", "prefill_32k"),
@@ -418,7 +425,8 @@ def test_full_width_cell_on_the_production_mesh(arch, shape):
                  if cfg.pattern[i % len(cfg.pattern)].kind == "attn")
     n_ssm = cfg.n_layers - n_attn
     kern = rec["kernels"]
-    tp = arch in ("llama3-8b", "gemma2-9b", "phi3.5-moe-42b-a6.6b")
+    # every serving cell of the zoo's GQA / Mamba stacks is partitioned
+    tp = SHAPES[shape].kind != "train"
     assert rec["layout"] == ("tensor_parallel" if tp else "home")
     B, cap, _ = cache_dims(cfg, SHAPES[shape])
     windows = [cfg.pattern[i % len(cfg.pattern)].window
@@ -432,23 +440,26 @@ def test_full_width_cell_on_the_production_mesh(arch, shape):
         return [j for j in range(16) if (j + 1) * cap // 16 > lo]
 
     if tp and SHAPES[shape].kind == "prefill":
-        # every coordinate attends its query heads over its rows
-        assert kern == {"flash_attention": kern["flash_attention"]}
-        assert kern["flash_attention"]["calls"] == n_attn * 256
-        # wo and w_down row-parallel; new k / v from heads to sequence
-        # (and a MoE layer's packs to their expert shards and back)
+        # every coordinate attends its query heads and scans its SSM
+        # heads over its rows
+        assert set(kern) <= {"flash_attention", "ssd_scan"}
+        assert kern.get("flash_attention", {}).get("calls", 0) == \
+            n_attn * 256
+        assert kern.get("ssd_scan", {}).get("calls", 0) == n_ssm * 256
+        # wo, w_down and out_proj row-parallel, the Mamba norm's sums;
+        # new k / v from heads to sequence, a Mamba layer's columns and
+        # channels (and a MoE layer's packs to their expert shards)
         assert rec["per_collective"]["all-reduce"] > 0
         assert rec["per_collective"]["all-to-all"] > 0
-        assert rec["useful_flop_ratio"] >= 0.3
+        assert rec["useful_flop_ratio"] >= (0.4 if n_attn == 0 else 0.3)
     elif SHAPES[shape].kind == "decode":
         # decode: the sequence-parallel flash decode, one call a KV shard
         # with visible slots (16 data rows each) at 32k over (16, 16)
         assert kern.get("flash_attention", {}).get("calls", 0) == \
             sum(16 * len(kv_shards(w)) for w in windows)
         assert "ssd_scan" not in kern
-        # partitioned, the row-parallel sums; else the shards' logsumexp
-        # maxima, combined over the KV shards
-        assert (rec["per_collective"]["all-reduce"] > 0) == (n_attn > 0)
+        # partitioned, the row-parallel sums (and the Mamba norm's)
+        assert rec["per_collective"]["all-reduce"] > 0
     elif SHAPES[shape].kind == "prefill":
         assert kern["flash_attention"]["calls"] == n_attn
         assert kern["ssd_scan"]["calls"] == n_ssm
@@ -490,7 +501,8 @@ def test_full_width_cell_on_the_production_mesh(arch, shape):
     if tp:
         # it holds only its blocks, and fits one card
         assert rec["memory"]["fits_80gb"]
-        assert rec["memory"]["peak_live_bytes"] < 16e9
+        assert rec["memory"]["peak_live_bytes"] < PEAK_BELOW.get(
+            (arch, shape), 16e9)
     else:
         assert rec["memory"]["coordinate"] == "0,0"
     assert 0 < rec["useful_flop_ratio"] < 1
@@ -498,17 +510,23 @@ def test_full_width_cell_on_the_production_mesh(arch, shape):
                                            "collective")
 
 
-@pytest.mark.parametrize("kind", ["prefill", "decode"])
-@pytest.mark.parametrize("arch", ["gemma2-9b", "pixtral-12b"])
-def test_class_dispatch_counts_what_full_dispatch_counts(arch, kind,
+@pytest.mark.parametrize("arch,kind,B", [
+    pytest.param(a, k, 8, id=f"{a}-{k}") for a in ("gemma2-9b", "pixtral-12b")
+    for k in ("prefill", "decode")] + [
+    ("jamba-v0.1-52b", "prefill", 8), ("jamba-v0.1-52b", "prefill", 1),
+    ("jamba-v0.1-52b", "decode", 1)])
+def test_class_dispatch_counts_what_full_dispatch_counts(arch, kind, B,
                                                          monkeypatch):
     """The partitioned step on a (4, 2) meta mesh, traced once with one
     model group standing for every row shard (the dry run's class
     dispatch) and once dispatching all 8 coordinates: every coordinate's
     FLOPs by class, bytes, collective bytes, operation count and peak
     live bytes, and every kernel's calls and work, are equal (gemma2's
-    window and tied table, pixtral's media; decode at slot 47 of 48, so
-    one KV shard writes)."""
+    window and tied table, pixtral's media, jamba's Mamba layers and
+    their exchanges; decode at slot 47 of 48, so one KV shard writes).
+    At B 1 the rows are not split and the KV slots split over (data,
+    model): coordinates of one class hold other slots, and each attends
+    and writes its own."""
     from repro_torch.distributed import tensor_parallel
     from repro_torch.distributed.sharding import (make_rules, place_batch,
                                                   place_cache, place_params)
@@ -521,13 +539,13 @@ def test_class_dispatch_counts_what_full_dispatch_counts(arch, kind,
     def counts(classes: bool):
         monkeypatch.setattr(tensor_parallel, "CLASS_DISPATCH", classes)
         params = place_params(model.init(device="meta"), mesh, rules)
-        cache = place_cache(model.init_cache(8, 48, device="meta"), mesh,
+        cache = place_cache(model.init_cache(B, 48, device="meta"), mesh,
                             rules)
-        batch = {"tokens": torch.zeros((8, 40 - cfg.num_media_tokens),
+        batch = {"tokens": torch.zeros((B, 40 - cfg.num_media_tokens),
                                        dtype=torch.int32, device="meta")}
         if cfg.num_media_tokens:
             batch["media"] = torch.zeros(
-                (8, cfg.num_media_tokens, cfg.d_model), device="meta",
+                (B, cfg.num_media_tokens, cfg.d_model), device="meta",
                 dtype=torch.bfloat16)
         if kind == "decode":
             cache["filled"] = 47
@@ -544,6 +562,9 @@ def test_class_dispatch_counts_what_full_dispatch_counts(arch, kind,
     assert len(full["per_coordinate"]) == 8
     assert classes["per_coordinate"] == full["per_coordinate"]
     assert classes["kernels"] == full["kernels"]
+    if B == 1:      # the blocks' partials cross the model groups
+        assert full["per_coordinate"]["3,1"]["per_collective"][
+            "all-to-all"] > 0
 
 
 def test_skipped_cell_gives_the_reference_reason():
